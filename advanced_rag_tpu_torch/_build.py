@@ -117,6 +117,10 @@ def load() -> ctypes.CDLL:
             lib.art_bm25_scores.argtypes = [p, p, p, p, p, p, p,
                                             i, i, i, i, f, f, f, i, p]
             lib.art_bm25_scores.restype = i
+            lib.art_ivf_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.art_ivf_scores.restype = i
+            lib.art_pq_scores.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.art_pq_scores.restype = i
             _lib = lib
         return _lib
 

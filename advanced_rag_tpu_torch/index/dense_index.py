@@ -1,35 +1,45 @@
 """Dense vector index: device-resident embedding matrix + kernel search.
-The port of ``advanced_rag_tpu/index/dense_index.py``, flat tiers only.
+The port of ``advanced_rag_tpu/index/dense_index.py``.
 
 The index is the tensor ``emb[capacity, D]`` on the device: bf16 (the
-default), f32, or the SQ8 tier's int8 codes with per-row f32 scales
-(``dtype="int8"``).  Rows align 1:1 with CorpusStore rows; the store's
-validity and filter masks plug straight into the masked top-k.  Appends
-write in place; a numpy f32 mirror serves growth.  The fused retrieve
-(ops/hybrid.py) scans ``emb`` with kernel K1 or K2; the index's own
-search methods come with the non-fused search slice.
+default), f32, the SQ8 tier's int8 codes with per-row f32 scales
+(``dtype="int8"``), or the PQ tier's codes (``dtype="pq"``: bf16 rows until
+``build_pq`` trains the codebooks and swaps the storage to [capacity, m]
+codes).  Rows align 1:1 with CorpusStore rows; the store's validity and
+filter masks plug straight into the masked top-k.  Appends write in place;
+a numpy f32 mirror serves growth, the IVF and PQ builds and the exact
+re-scoring of quantized candidates.
 
-The IVF and PQ tiers come with later slices of the port and raise here.
+``build_ivf`` adds the IVF tier (``ops/ivf.py``): rows appended after the
+build form an exact-scan tail merged at query time.  ``search`` runs, on
+the card, through kernel K5 (IVF), K6 (PQ), K1 (bf16/f32 rows and the IVF
+tail) or K2 (SQ8 rows and tail).  IVF-PQ (``build_ivf`` on a PQ index) and
+OPQ come with a later slice of the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
 from ..config import IndexConfig, Metric
+from ..ops.dense import NEG_INF, l2_normalize, merge_topk
+from ..ops.dense_kernels import dense_topk_kernel, dense_topk_sq8_kernel
 from ..ops.quant import sq8_quantize, sq8_quantize_host
+from ..utils.constants import IndexConstants
 from .corpus import grow_capacity, next_pow2
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_LATER = {"pq": "the PQ and IVF-PQ slice (kernel K6)"}
 
 
 class DenseIndex:
     """One embedding family (semantic or domain)."""
+
+    #: appended-tail fraction beyond which an IVF rebuild is recommended
+    REBUILD_TAIL_FRACTION = 0.2
 
     def __init__(self, config: IndexConfig, device: DeviceLike = None):
         self.config = config
@@ -37,29 +47,28 @@ class DenseIndex:
         self.dim = config.dim
         self.capacity = int(config.min_capacity)
         self.size = 0
-        if config.dtype in _LATER:
-            raise NotImplementedError(
-                f"dtype={config.dtype!r} is ported in {_LATER[config.dtype]}")
-        if config.index_kind != "flat":
-            raise NotImplementedError(
-                f"index_kind={config.index_kind!r} is ported in the IVF "
-                "slice (kernels K4 and K5)")
         self._sq8 = config.dtype == "int8"
-        if not self._sq8 and config.dtype not in _DTYPES:
+        # PQ tier: bf16 rows until build_pq swaps the storage to codes
+        self._pq_mode = config.dtype == "pq"
+        if not (self._sq8 or self._pq_mode) and config.dtype not in _DTYPES:
             raise ValueError(f"unsupported dense dtype: {config.dtype}")
-        self._dtype = torch.int8 if self._sq8 else _DTYPES[config.dtype]
+        self._dtype = (torch.int8 if self._sq8 else
+                       torch.bfloat16 if self._pq_mode else _DTYPES[config.dtype])
+        self._pq = None            # ops.pq.PQCodebook once built
+        self._ivf = None           # ops.ivf.IVFPartitions once built
+        self._ivf_size = 0         # rows covered by the last IVF build
         self._host = np.zeros((self.capacity, self.dim), dtype=np.float32)
         self._upload()
 
-    # the fused path selects its rungs on these, as the JAX manager does
-    has_ivf = False
-    has_pq = False
+    # IVF-PQ comes with a later slice of the port
     has_ivfpq = False
-    _pq_mode = False
 
     def _upload(self) -> None:
         """Device storage from the host mirror (construction and growth)."""
-        if self._sq8:
+        self.emb_scale = None
+        if self._pq is not None:
+            self._pq_reencode_all()
+        elif self._sq8:
             codes, scale = sq8_quantize_host(self._host[: self.size])
             full_c = np.zeros((self.capacity, self.dim), np.int8)
             full_c[: self.size] = codes
@@ -69,7 +78,6 @@ class DenseIndex:
             self.emb_scale = torch.from_numpy(full_s).to(self.device)
         else:
             self.emb = torch.from_numpy(self._host).to(self.device).to(self._dtype)
-            self.emb_scale = None
 
     def _prepare(self, vectors: np.ndarray, *,
                  pre_normalized: bool = False) -> np.ndarray:
@@ -103,7 +111,13 @@ class DenseIndex:
         self._ensure_capacity(start + next_pow2(n))
         self._host[start: start + n] = v
         dev_v = torch.from_numpy(v).to(self.device)
-        if self._sq8:
+        if self._pq is not None:
+            # encode on the device from bf16 rows, as the build encoded
+            from ..ops.pq import pq_encode_device
+
+            vals = {"emb": pq_encode_device(dev_v.to(torch.bfloat16),
+                                            self._pq.codebooks)}
+        elif self._sq8:
             # quantize on the device: codes and scales never exist on the host
             codes, scale = sq8_quantize(dev_v)
             vals = {"emb": codes, "emb_scale": scale}
@@ -118,12 +132,245 @@ class DenseIndex:
         if self._sq8:
             self.emb_scale[start: start + n] = vals["emb_scale"]
 
+    def append(self, start: int, vectors: np.ndarray, *,
+               pre_normalized: bool = False) -> None:
+        """Write vectors at rows [start, start + N); row ids come from the
+        CorpusStore so every index family stays aligned.  Rows appended
+        after an IVF build form the exactly scanned tail."""
+        vals = self.prepare_append(start, vectors, pre_normalized=pre_normalized)
+        if vals is not None:
+            self.commit_append(start, vals)
+
+    def bulk_load(self, vectors: np.ndarray, *,
+                  pre_normalized: bool = False) -> int:
+        """Append ``vectors`` at row ``self.size`` and return the start row
+        (the raw-embedding import path; under a manager use its ingest so
+        the families stay aligned).  ``pre_normalized=True`` skips the host
+        normalize pass."""
+        start = self.size
+        self.append(start, vectors, pre_normalized=pre_normalized)
+        return start
+
     @property
     def search_metric(self) -> str:
         # cosine rows are normalized at append -> ip at query time
         return "ip" if self.config.metric == Metric.COSINE else self.config.metric.value
 
+    # -- tier builds ---------------------------------------------------------------
+
+    def build_ivf(self, nlist: int = 0, *, train_sample: int = 262144,
+                  seed: int = 0) -> None:
+        """Train the coarse quantizer and pack the partitions from the host
+        mirror (``ops/ivf.py``); later appends form the exact-scan tail."""
+        from ..ops.ivf import auto_nlist, build_ivf
+
+        if self.size == 0:
+            raise ValueError("cannot build IVF over an empty index")
+        if self._pq_mode:
+            raise NotImplementedError(
+                "build_ivf on a dtype='pq' index builds IVF-PQ "
+                "(ops/ivfpq.py), which is ported in the IVF-PQ slice")
+        nlist = nlist or self.config.nlist or auto_nlist(
+            self.size, IndexConstants.IVF_NLIST_FACTOR)
+        nlist = min(nlist, self.size)
+        self._ivf = build_ivf(
+            self._host[: self.size], nlist, dtype=self.config.dtype,
+            kmeans_iters=self.config.kmeans_iters, train_sample=train_sample,
+            seed=seed, device=self.device)
+        self._ivf_size = self.size
+
+    def build_pq(self, m: int = 0, bits: int = 0, *,
+                 train_sample: int = 65536, seed: int = 0) -> None:
+        """Train PQ codebooks on the host mirror and swap the device storage
+        from bf16 rows to codes (build-then-swap).  The whole capacity is
+        encoded on the device; rows past ``size`` hold the codes of zero
+        rows, which search masks out."""
+        from ..ops.pq import pq_encode_device, pq_train
+
+        if self.size == 0:
+            raise ValueError("cannot build PQ over an empty index")
+        if not self._pq_mode:
+            raise ValueError('build_pq requires dtype="pq"')
+        if self.config.pq_opq:
+            raise NotImplementedError(
+                "OPQ (pq_opq) is ported in a later slice of the port")
+        pq = pq_train(self._host[: self.size], m or self.config.pq_m,
+                      bits or self.config.pq_bits, train_sample=train_sample,
+                      seed=seed, device=self.device)
+        codes = pq_encode_device(self.emb, pq.codebooks)
+        self.emb, self._pq = codes, pq  # swap last
+
+    def _pq_reencode_all(self) -> None:
+        """Re-encode the f32 mirror after growth: one bf16 upload, the
+        encode on the device."""
+        from ..ops.pq import pq_encode_device
+
+        staged = torch.from_numpy(self._host).to(self.device).to(torch.bfloat16)
+        self.emb = pq_encode_device(staged, self._pq.codebooks)
+
+    @property
+    def has_ivf(self) -> bool:
+        return self._ivf is not None
+
+    @property
+    def has_pq(self) -> bool:
+        return self._pq is not None
+
+    @property
+    def ivf_tail_rows(self) -> int:
+        """Rows appended since the IVF build (scanned exactly)."""
+        return self.size - self._ivf_size if self._ivf is not None else 0
+
+    @property
+    def ivf_needs_rebuild(self) -> bool:
+        return (self._ivf is not None and self.size > 0
+                and self.ivf_tail_rows / self.size > self.REBUILD_TAIL_FRACTION)
+
+    def _bound(self) -> torch.Tensor:
+        """[capacity] bool: the rows below ``size``."""
+        return torch.arange(self.capacity, device=self.device) < self.size
+
+    def tune_nprobe(self, recall_target: float = 0.95, *, k: int = 10,
+                    sample: int = 64, seed: int = 0,
+                    queries: Optional[np.ndarray] = None) -> Tuple[int, float]:
+        """Pick ``config.nprobe`` for a recall@k target against the exact
+        scan (K1 or K2) of the stored rows; returns (nprobe, recall) and
+        sets the config.  ``queries``: held-out real queries [S, D]
+        (normalized); otherwise sampled stored rows."""
+        from ..ops.ivf import tune_nprobe as _tune
+
+        if self._ivf is None:
+            raise ValueError("tune_nprobe requires a built IVF index")
+        if queries is not None:
+            q = np.asarray(queries, np.float32)[: max(sample, 1)]
+        else:
+            rng = np.random.default_rng(seed)
+            rows = rng.integers(0, self.size, size=min(sample, self.size))
+            q = self._host[rows]
+        qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        if self._sq8:
+            _, oracle = dense_topk_sq8_kernel(self.emb, self.emb_scale, qt, k,
+                                              self._bound(), metric="ip",
+                                              normalize_queries=False)
+        else:
+            _, oracle = dense_topk_kernel(self.emb, qt, k, self._bound(),
+                                          metric=self.search_metric,
+                                          normalize_queries=False)
+        npb, rec = _tune(self._ivf, q, oracle.cpu().numpy(),
+                         recall_target=recall_target, k=k)
+        self.config.nprobe = npb
+        return npb, rec
+
+    # -- search --------------------------------------------------------------------
+
+    def search(
+        self,
+        queries,                             # [Q, D] or [D], numpy or tensor
+        k: int,
+        mask: Optional[torch.Tensor] = None,  # [capacity] bool (valid + filters)
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Masked top-k -> (scores [Q, k] f32, rows [Q, k] i32).
+
+        The IVF tier when built, the exact scan otherwise.  Quantized tiers
+        (SQ8, PQ) over-retrieve ``refine_factor * k`` candidates with the
+        codes (default 2 for SQ8, 32 for PQ) and re-score them exactly from
+        the f32 host mirror."""
+        q = (queries if torch.is_tensor(queries)
+             else torch.from_numpy(np.asarray(queries, np.float32)))
+        q = q.to(self.device).float()
+        if q.ndim == 1:
+            q = q[None, :]
+        if self.config.metric == Metric.COSINE:
+            q = l2_normalize(q)
+        if mask is None:
+            # rows past `size` are padding (zero rows; garbage codes on PQ)
+            mask = self._bound()
+        pq_tier = self._pq is not None
+        refine = int(self.config.refine_factor) if (self._sq8 or pq_tier) else 1
+        if refine == 0:  # auto: deep for PQ (1 bit a dim), shallow for SQ8
+            refine = 32 if pq_tier else 2
+        if refine > 1 and self.size > 0:
+            k2 = min(max(k * refine, k), self.capacity, 1024)
+            _, i2 = self._search_device(q, k2, mask)
+            return self._refine_exact(q, i2, k)
+        return self._search_device(q, k, mask)
+
+    def _refine_exact_host(self, q: np.ndarray, cand: np.ndarray,
+                           k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Re-score candidate rows with exact f32 dots from the host mirror
+        and re-rank (stable, so ties keep the candidate order) -> numpy
+        (scores [Q, k], rows [Q, k])."""
+        ids = np.asarray(cand)                       # [Q, k2]
+        qh = np.asarray(q, np.float32)               # [Q, D] (normalized)
+        vecs = self._host[np.clip(ids, 0, None)]     # [Q, k2, D]
+        scores = np.einsum("qd,qkd->qk", qh, vecs).astype(np.float32)
+        scores[ids < 0] = float(NEG_INF)
+        order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+        out_s = np.take_along_axis(scores, order, axis=1)
+        out_i = np.take_along_axis(ids, order, axis=1).astype(np.int32)
+        out_i[out_s <= float(NEG_INF)] = -1
+        return out_s, out_i
+
+    def _refine_exact(self, q: torch.Tensor, cand: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        out_s, out_i = self._refine_exact_host(q.cpu().numpy(),
+                                               cand.cpu().numpy(), k)
+        return (torch.from_numpy(out_s).to(self.device),
+                torch.from_numpy(out_i).to(self.device))
+
+    def _search_device(self, q: torch.Tensor, k: int,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k of pre-normalized queries on the index's own tier."""
+        if self._ivf is not None:
+            from ..ops.ivf import ivf_topk
+
+            npb = min(self.config.nprobe, self._ivf.centroids.shape[0])
+            s, i = ivf_topk(self._ivf, q, k, mask, nprobe=npb)
+            tail = self.size - self._ivf_size
+            if tail > 0:
+                # exact scan over the appended rows, ids offset back
+                t0 = self._ivf_size
+                t1 = min(t0 + next_pow2(tail), self.capacity)
+                t_mask = torch.arange(t1 - t0, device=self.device) < tail
+                if mask is not None:
+                    t_mask = t_mask & mask[t0:t1].to(torch.bool)
+                kk = min(k, next_pow2(tail))
+                if self._sq8:
+                    ts, ti = dense_topk_sq8_kernel(
+                        self.emb[t0:t1], self.emb_scale[t0:t1], q, kk, t_mask,
+                        metric="ip", normalize_queries=False)
+                else:
+                    ts, ti = dense_topk_kernel(self.emb[t0:t1], q, kk, t_mask,
+                                               metric=self.search_metric,
+                                               normalize_queries=False)
+                ti = torch.where(ti >= 0, ti + t0, -1)
+                s, i = merge_topk(s, i, ts, ti, k)
+                i = torch.where(s <= NEG_INF, -1, i)
+            return s, i
+        if self._pq is not None:
+            from ..ops.pq import pq_topk
+
+            # rows past `size` hold real codes of zero rows: bound them
+            bound = self._bound()
+            mask = bound if mask is None else (mask.to(torch.bool) & bound)
+            return pq_topk(self._pq.codebooks, self.emb, q, k, mask,
+                           m=self._pq.m, bits=self._pq.bits)
+        if self._sq8:
+            return dense_topk_sq8_kernel(self.emb, self.emb_scale, q, k, mask,
+                                         metric="ip", normalize_queries=False)
+        return dense_topk_kernel(self.emb, q, k, mask, metric=self.search_metric,
+                                 normalize_queries=False)
+
+    def get_vectors(self, rows: np.ndarray) -> np.ndarray:
+        """Host-side gather of stored (normalized) vectors."""
+        return self._host[np.asarray(rows, dtype=np.int64)]
+
     def memory_bytes(self) -> int:
+        if self._pq is not None:
+            cb = self._pq.codebooks
+            return (self.capacity * self._pq.m * self.emb.element_size()
+                    + cb.numel() * 4)
         scale_b = self.capacity * 4 if self._sq8 else 0
         return self.capacity * self.dim * self.emb.element_size() + scale_b
 

@@ -1,17 +1,17 @@
-"""Multi-index manager: the port of ``advanced_rag_tpu/index/manager.py``
-for the ingest and the fused retrieve + rerank path.
+"""Multi-index manager: the port of ``advanced_rag_tpu/index/manager.py``.
 
 Row-aligned index families over one CorpusStore: ``semantic`` (dense
 bi-encoder embeddings), ``sparse`` (BM25 over hashed terms) and, with
 ``config.fused_rerank``, the token table the cross-encoder gathers from.
-``index_chunks`` and ``fused_retrieve_batch_sync`` keep the JAX manager's
-signatures and result dicts.
-
-This slice ports ``__init__``, ``index_chunks``, ``_row_mask``,
-``fused_retrieve_batch_sync``, ``delete_by_filter``,
-``get_collection_stats`` and ``close``.  Maintenance, the IVF/PQ tier
-builds, the domain family and the non-fused search methods come with later
-slices (ROADMAP.md).
+The ported methods keep the JAX manager's signatures and result dicts:
+the ingest ``index_chunks``; the searches ``search_sync``/``search`` (one
+family), ``hybrid_search_batch_sync``/``hybrid_search_sync`` (dense +
+BM25 + RRF + MMR over any tier: flat, SQ8, IVF or PQ) and
+``fused_retrieve_batch_sync`` (embed + hybrid + cross-encoder rerank, flat
+and SQ8 tiers); the tier builds ``build_semantic``; ``delete_by_filter``,
+``get_collection_stats`` and ``close``.  Maintenance, checkpoints, IVF-PQ,
+the domain family and the hashing-embedder default of the unfused manager
+come with later slices (ROADMAP.md).
 
 Every search passes a row mask (validity or compiled filters), because the
 device tensors are padded to capacity.
@@ -19,6 +19,7 @@ device tensors are padded to capacity.
 
 from __future__ import annotations
 
+import asyncio
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -29,9 +30,10 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..config import IndexConfig, IndexType, Metric, PipelineConfig
 from ..models.embedder import Embedder, NeuralEmbedder
+from ..ops.dense import NEG_INF, l2_normalize
 from ..utils.cache import EmbeddingCache, semantic_cache
 from ..utils.exceptions import IndexingError, ValidationError
-from .corpus import ChunkRecord, CorpusStore
+from .corpus import ChunkRecord, CorpusStore, next_pow2
 from .dense_index import DenseIndex
 from .sparse_index import SparseIndex
 from .text import encode_documents
@@ -73,7 +75,8 @@ class MultiIndexManager:
             IndexConfig(index_type=IndexType.SEMANTIC, dim=self.embedder.dim,
                         metric=Metric.COSINE,
                         dtype=self.config.semantic_dtype,
-                        refine_factor=self.config.semantic_refine),
+                        refine_factor=self.config.semantic_refine,
+                        pq_opq=self.config.semantic_opq),
             device=dev)
         self.enable_sparse = enable_sparse
         self.sparse = (SparseIndex(IndexConfig(index_type=IndexType.SPARSE),
@@ -125,6 +128,11 @@ class MultiIndexManager:
                 out[pos] = fresh[j]
                 cache.put_sync(miss_texts[j], fresh[j], namespace)
         return out
+
+    def generate_semantic_embedding(self, text: str) -> np.ndarray:
+        """Single-text semantic embedding (through the cache)."""
+        return self._embed_batch_cached([text], self.embedder,
+                                        self._semantic_cache, self._sem_ns)[0]
 
     # -- ingest ----------------------------------------------------------------
 
@@ -269,6 +277,283 @@ class MultiIndexManager:
         mask = self.store.build_filter_mask(filters)
         return mask if mask is not None else self.store.valid_mask
 
+    def search_sync(
+        self,
+        index_type: IndexType | str,
+        query: str,
+        k: int,
+        filters: Optional[Dict[str, Any]] = None,
+        query_embedding: Optional[np.ndarray] = None,
+    ) -> List[Dict[str, Any]]:
+        """Search one index family; returns hydrated hit dicts sorted by
+        score.  SEMANTIC runs the dense tier's own search (IVF, PQ, SQ8 or
+        the exact scan, with the quantized tiers' exact refinement); SPARSE
+        the compare-scan BM25 (kernel K3).  The port has no domain family
+        yet, so DOMAIN returns no hits, as the JAX manager does without
+        one."""
+        index_type = IndexType(index_type)
+        if self._closed:
+            raise IndexingError("index manager is closed")
+        if k <= 0:
+            raise ValidationError("k must be positive")
+        k = min(k, self.config.retrieval.max_top_k)
+        if self.store.n_valid() == 0:
+            return []
+        mask = self._row_mask(filters)
+        if index_type == IndexType.SEMANTIC:
+            q = (query_embedding if query_embedding is not None
+                 else self.generate_semantic_embedding(query))
+            scores, rows = self.semantic.search(np.asarray(q, np.float32)[None, :],
+                                                k, mask)
+        elif index_type == IndexType.SPARSE:
+            if self.sparse is None:
+                return []
+            scores, rows = self.sparse.search_texts([query], k, mask)
+        elif index_type == IndexType.DOMAIN:
+            return []
+        else:
+            raise ValidationError(f"cannot search index type {index_type}")
+        return self._hydrate(scores.cpu().numpy()[0], rows.cpu().numpy()[0],
+                             method=index_type.value)
+
+    async def search(self, index_type: IndexType | str, query: str, k: int,
+                     filters: Optional[Dict[str, Any]] = None,
+                     query_embedding: Optional[np.ndarray] = None
+                     ) -> List[Dict[str, Any]]:
+        """``search_sync`` in a worker thread."""
+        return await asyncio.to_thread(self.search_sync, index_type, query, k,
+                                       filters, query_embedding)
+
+    def hybrid_search_sync(self, query: str, k: int,
+                           filters: Optional[Dict[str, Any]] = None,
+                           **knobs: Any) -> List[Dict[str, Any]]:
+        """Single-query hybrid search (see hybrid_search_batch_sync)."""
+        return self.hybrid_search_batch_sync([query], k, filters, **knobs)[0]
+
+    @staticmethod
+    def _query_bucket(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def hybrid_search_batch_sync(
+        self,
+        queries: Sequence[str],
+        k: int,
+        filters: Optional[Dict[str, Any]] = None,
+        *,
+        dense_weight: float = 0.7,
+        sparse_weight: float = 0.3,
+        rrf_k: int = 60,
+        use_mmr: bool = True,
+        mmr_lambda: float = 0.8,
+        over_retrieve: int = 2,
+        query_embedding: Optional[np.ndarray] = None,  # [D] or [Q, D]
+    ) -> List[List[Dict[str, Any]]]:
+        """Dense + BM25 + RRF + MMR in one pass over the device, batched.
+
+        The batch is padded to a power of two with empty queries and k to
+        a multiple of 8, as the JAX manager does (its compiled programs are
+        shared by bucket).  The dense rung follows the semantic tier: IVF
+        (kernel K5, plus the exact appended tail), PQ (kernel K6, deep
+        candidates re-scored exactly on the host and re-fused), SQ8 (K2)
+        or the exact scan (K1).  BM25 takes the inverted postings once the
+        corpus reaches ``SparseIndex.POSTINGS_AUTO_THRESHOLD`` live rows
+        (building them on first use) or once they exist, and the
+        compare-scan kernel K3 below that.
+        """
+        from ..config import Metric
+        from ..ops.hybrid import hybrid_retrieve
+
+        if self._closed:
+            raise IndexingError("index manager is closed")
+        if k <= 0:
+            raise ValidationError("k must be positive")
+        if not queries:
+            return []
+        k = min(k, self.config.retrieval.max_top_k)
+        if self.store.n_valid() == 0:
+            return [[] for _ in queries]
+        mask = self._row_mask(filters)
+        dev = self.device
+
+        k_out = min(-(-k // 8) * 8, self.config.retrieval.max_top_k)
+        k_cand = min(-(-(k * max(over_retrieve, 1)) // 8) * 8,
+                     2 * self.config.retrieval.max_top_k)
+        k_cand = max(k_cand, k_out)
+        nq = len(queries)
+        qb = self._query_bucket(nq)
+
+        cache_fill: List[str] = []
+        if query_embedding is not None:
+            qe = np.asarray(query_embedding, np.float32)
+            if qe.ndim == 1:
+                qe = qe[None, :]
+            q = torch.from_numpy(np.pad(qe, ((0, qb - nq), (0, 0)))).to(dev)
+        else:
+            cached = [self._semantic_cache.get_sync(t, self._sem_ns)
+                      for t in queries]
+            cached = [c if c is not None and c.shape[0] == self.embedder.dim
+                      else None for c in cached]
+            if all(c is not None for c in cached):
+                q = torch.from_numpy(np.pad(np.stack(cached).astype(np.float32),
+                                            ((0, qb - nq), (0, 0)))).to(dev)
+            else:
+                q = self.embedder.encode_device(list(queries) + [""] * (qb - nq))
+                cache_fill = list(queries)
+        q = q.float()
+        if self.semantic.config.metric == Metric.COSINE:
+            q = l2_normalize(q)
+
+        sem = self.semantic
+        sparse_on = self.sparse is not None
+        kw: Dict[str, Any] = {}
+        if sparse_on:
+            sp = self.sparse
+            q_idx, q_tf = sp.encode_query(list(queries))
+            if qb != nq:
+                q_idx = np.pad(q_idx, ((0, qb - nq), (0, 0)), constant_values=-1)
+                q_tf = np.pad(q_tf, ((0, qb - nq), (0, 0)))
+            if sp.capacity != sem.capacity:
+                raise IndexingError(
+                    "index capacities diverged (semantic "
+                    f"{sem.capacity} vs sparse {sp.capacity})")
+            sparse_args = (sp.idx_t, sp.tf_t, sp.doc_len, sp.df,
+                           self._scalar(max(sp.n_docs, 1)))
+            # the rung ladder: postings once the corpus justifies them
+            if (sp.has_postings
+                    or self.store.n_valid() >= sp.POSTINGS_AUTO_THRESHOLD):
+                if not sp.has_postings:
+                    sp.build_postings()
+                sparse_impl = "postings"
+                kw.update(post_rows=sp.post_rows, post_tf=sp.post_tf,
+                          post_tfw=sp.post_tfw)
+            else:
+                sparse_impl = "kernel"
+        else:
+            q_idx = np.full((qb, 1), -1, np.int32)
+            q_tf = np.zeros((qb, 1), np.float32)
+            sparse_args = (None, None, None, None, None)
+            sparse_impl = "kernel"
+
+        pq_refine = 0
+        if sem.has_ivf:
+            tail = sem.size - sem._ivf_size
+            dense_impl = "ivf"
+            kw.update(ivf_parts=sem._ivf,
+                      nprobe=min(sem.config.nprobe,
+                                 int(sem._ivf.centroids.shape[0])),
+                      ivf_tail_start=sem._ivf_size,
+                      ivf_tail_pad=next_pow2(tail) if tail > 0 else 0)
+        elif sem.has_pq:
+            dense_impl = "pq"
+            kw.update(pq_codebooks=sem._pq.codebooks, pq_m=sem._pq.m,
+                      pq_bits=sem._pq.bits)
+            # over-retrieve deep raw-PQ candidates, re-scored exactly from
+            # the f32 mirror and re-fused on the host (_refuse_exact)
+            pq_refine = int(sem.config.refine_factor) or 32
+            if pq_refine > 1:
+                kw["dense_depth"] = min(max(k_cand * pq_refine, k_cand), 1024)
+        elif sem._sq8:
+            dense_impl = "sq8"
+        else:
+            dense_impl = "scan"
+        if sem._sq8:
+            kw["emb_scale"] = sem.emb_scale
+        weights = [dense_weight, sparse_weight]
+        sparse_agg = ("scatter"
+                      if (sparse_impl == "postings" and dev.type == "cuda"
+                          and qb <= 2 and sem.capacity >= 4_000_000)
+                      else "sort")
+        res = hybrid_retrieve(
+            sem.emb, *sparse_args, q,
+            torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_tf).to(dev),
+            mask, self._scalar(*weights), self._scalar(mmr_lambda),
+            k_cand=k_cand, k_out=k_out, metric=sem.search_metric,
+            rrf_k=rrf_k, use_mmr=use_mmr, enable_sparse=sparse_on,
+            dense_impl=dense_impl, sparse_impl=sparse_impl,
+            sparse_agg=sparse_agg, **kw)
+        q_host = q.cpu().numpy()
+        if pq_refine > 1:
+            ids, scores, counts = self._refuse_exact(
+                q_host[:nq], res.dense_ids.cpu().numpy()[:nq],
+                res.sparse_ids.cpu().numpy()[:nq],
+                k_cand=k_cand, k_out=k_out, rrf_k=rrf_k, use_mmr=use_mmr,
+                mmr_lambda=mmr_lambda, weights=np.asarray(weights, np.float32),
+                sparse_on=sparse_on)
+        else:
+            ids = res.ids.cpu().numpy()
+            scores = res.scores.cpu().numpy()
+            counts = res.method_counts.cpu().numpy()
+        for text, vec in zip(cache_fill, q_host):
+            self._semantic_cache.put_sync(text, np.asarray(vec, np.float32),
+                                          self._sem_ns)
+        out: List[List[Dict[str, Any]]] = []
+        for qi in range(nq):
+            hits: List[Dict[str, Any]] = []
+            for row, score, cnt in zip(ids[qi].tolist(), scores[qi].tolist(),
+                                       counts[qi].tolist()):
+                if row < 0 or len(hits) >= k:
+                    continue
+                hits.append(self.store.hit(int(row), float(score),
+                                           method="hybrid",
+                                           method_count=int(cnt)))
+            out.append(hits)
+        return out
+
+    def _refuse_exact(
+        self,
+        q_host: np.ndarray,       # [Q, D] f32 normalized queries
+        d_ids_deep: np.ndarray,   # [Q, depth] raw-PQ dense candidates
+        s_ids: np.ndarray,        # [Q, k_cand] sparse candidates
+        *,
+        k_cand: int,
+        k_out: int,
+        rrf_k: int,
+        use_mmr: bool,
+        mmr_lambda: float,
+        weights: np.ndarray,
+        sparse_on: bool,
+    ):
+        """Host-side exact re-fusion for the PQ tier: the deep dense
+        candidates re-scored exactly from the f32 mirror, then RRF and MMR
+        re-run with the same ops on the CPU (pools of <= ~100 rows); MMR
+        uses the exact mirror embeddings.  -> numpy (ids, scores, counts)."""
+        from ..ops.fusion import mmr_select, rrf_fuse
+
+        _, d_i = self.semantic._refine_exact_host(q_host, d_ids_deep, k_cand)
+        methods = [d_i.astype(np.int32)]
+        if sparse_on:
+            methods.append(np.asarray(s_ids)[:, :k_cand].astype(np.int32))
+        cand = torch.from_numpy(np.stack(methods, axis=0))      # [M, Q, K]
+        w = torch.from_numpy(np.asarray(weights, np.float32)[: len(methods)])
+        fused_s, fused_i, counts = rrf_fuse(cand, w, rrf_k=rrf_k, k_out=k_cand)
+        if use_mmr:
+            fi = fused_i.numpy()
+            cand_emb = torch.from_numpy(self.semantic._host[np.clip(fi, 0, None)])
+            pos = mmr_select(cand_emb, fused_s, k_out, float(mmr_lambda),
+                             fused_i >= 0)
+            sel_ok = pos >= 0
+            safe_pos = torch.clamp(pos, min=0).long()
+            out_i = torch.where(sel_ok, torch.gather(fused_i, 1, safe_pos), -1)
+            out_s = torch.where(sel_ok, torch.gather(fused_s, 1, safe_pos), NEG_INF)
+            out_c = torch.where(sel_ok, torch.gather(counts, 1, safe_pos), 0)
+        else:
+            out_i = fused_i[:, :k_out]
+            out_s = fused_s[:, :k_out]
+            out_c = counts[:, :k_out]
+        return out_i.numpy(), out_s.numpy(), out_c.numpy()
+
+    def _hydrate(self, scores: np.ndarray, rows: np.ndarray,
+                 method: str) -> List[Dict[str, Any]]:
+        hits = []
+        for score, row in zip(scores.tolist(), rows.tolist()):
+            if row < 0:
+                continue
+            hits.append(self.store.hit(int(row), float(score), method=method))
+        return hits
+
     def fused_retrieve_batch_sync(
         self,
         queries: Sequence[str],
@@ -291,9 +576,12 @@ class MultiIndexManager:
         """Embed -> hybrid search -> cross-encoder rerank, all on the device
         (requires ``config.fused_rerank``); one device->host copy per call.
 
-        The dense scan runs through kernel K1 (bf16/f32 tiers) or K2 (SQ8),
-        BM25 through kernel K3.  ``doc_dedupe=True`` reranks a doc-distinct
-        slate over a 3x chunk pool.
+        The dense scan runs through kernel K1 (bf16/f32 tiers) or K2 (SQ8);
+        BM25 through kernel K3, or through the inverted postings once the
+        sparse index has them (``rerank_base="exact_postings"`` then
+        rescores BM25 from them too).  IVF and PQ corpora are served by
+        ``hybrid_search_batch_sync``.  ``doc_dedupe=True`` reranks a
+        doc-distinct slate over a 3x chunk pool.
         """
         from ..models.cross_encoder import CrossEncoderReranker
         from ..ops.e2e import make_retrieve_rerank
@@ -304,6 +592,10 @@ class MultiIndexManager:
         if not hasattr(self.embedder, "model"):
             raise IndexingError(
                 "fused_retrieve requires a neural embedder (NeuralEmbedder)")
+        if self.semantic.has_ivf or self.semantic._pq_mode:
+            raise IndexingError(
+                "fused_retrieve supports the bf16/f32/SQ8 tiers; use "
+                "hybrid_search_batch_sync on partitioned/PQ corpora")
         if self._closed:
             raise IndexingError("index manager is closed")
         if not queries:
@@ -327,11 +619,21 @@ class MultiIndexManager:
         dense_impl = "sq8" if self.semantic._sq8 else "scan"
         sparse_on = self.sparse is not None
         kw: Dict[str, Any] = {}
+        sparse_impl = "kernel"
+        if sparse_on and self.sparse.has_postings:
+            sparse_impl = "postings"
+            kw.update(post_rows=self.sparse.post_rows,
+                      post_tf=self.sparse.post_tf,
+                      post_tfw=self.sparse.post_tfw)
         if self.semantic._sq8:
             kw["emb_scale"] = self.semantic.emb_scale
         if rerank_alpha is not None:
             kw["rerank_alpha"] = self._scalar(rerank_alpha)
-            if rerank_base == "exact":
+            if rerank_base == "exact_postings" and sparse_impl != "postings":
+                raise IndexingError(
+                    'rerank_base="exact_postings" requires the inverted '
+                    "postings sparse tier (SparseIndex.build_postings)")
+            if rerank_base in ("exact", "exact_postings"):
                 kw["rescore_mix"] = self._scalar(rescore_mix)
         # the program is a plain closure over the two models, built per call
         # so that it always serves the reranker it was given
@@ -339,7 +641,12 @@ class MultiIndexManager:
         program = make_retrieve_rerank(
             self.embedder.model, reranker.model,
             k_cand=2 * k_pool, k_out=k_pool, k_rerank=k_rerank,
-            k_final=k_final, dense_impl=dense_impl, use_mmr=use_mmr,
+            k_final=k_final, dense_impl=dense_impl, sparse_impl=sparse_impl,
+            sparse_agg=("scatter" if (sparse_impl == "postings"
+                                      and self.device.type == "cuda" and nq <= 2
+                                      and self.semantic.capacity >= 4_000_000)
+                        else "sort"),
+            use_mmr=use_mmr,
             rerank_mode=rerank_mode, rerank_base=rerank_base,
             doc_dedupe=doc_dedupe, enable_sparse=sparse_on,
             pad_id=tcfg.pad_id, sep_id=tcfg.sep_id)
@@ -419,11 +726,11 @@ class MultiIndexManager:
             "rows": self.semantic.size,
             "dim": self.semantic.dim,
             "memory_bytes": self.semantic.memory_bytes(),
-            "ivf": False,
-            "pq": False,
-            "ivfpq": False,
-            "ivf_tail_rows": 0,
-            "ivf_needs_rebuild": False,
+            "ivf": self.semantic.has_ivf,
+            "pq": self.semantic.has_pq,
+            "ivfpq": self.semantic.has_ivfpq,
+            "ivf_tail_rows": self.semantic.ivf_tail_rows,
+            "ivf_needs_rebuild": self.semantic.ivf_needs_rebuild,
         }
         if self.sparse is not None:
             stats["sparse"] = {
@@ -432,6 +739,23 @@ class MultiIndexManager:
                 "memory_bytes": self.sparse.memory_bytes(),
             }
         return stats
+
+    def build_semantic(self, *, pq: bool = False,
+                       ivf: bool = False) -> Dict[str, Any]:
+        """Tier builds under the write lock, so they cannot race an ingest:
+        ``pq`` trains and swaps in the PQ codes (``semantic_dtype="pq"``),
+        ``ivf`` builds the IVF partitions (IVF-PQ on a PQ index comes with
+        a later slice and raises)."""
+        out: Dict[str, Any] = {}
+        with self._write_lock:
+            sem = self.semantic
+            if pq and sem._pq_mode and not sem.has_pq:
+                sem.build_pq()
+                out["pq_built"] = True
+            if ivf and not (sem.has_ivf or sem.has_ivfpq):
+                sem.build_ivf()
+                out["ivf_built"] = True
+        return out
 
     def close(self) -> None:
         self._closed = True

@@ -10,18 +10,23 @@ for ``BiEncoder`` or ``CrossEncoder`` of ``models/encoder.py``:
   weights, with the [heads, hd] biases flattened to [H];
 - ``nn.Embed`` tables keep their [vocab, H] layout.
 
-``load_orbax_numpy`` reads an orbax checkpoint directory (the repo's
-``artifacts/*_ckpt``) into numpy.  orbax is imported inside that function
-only: the port does not depend on it, and only the CPU tests call it.
+``ivf_partitions_from_numpy``, ``pq_from_numpy`` and ``postings_from_numpy``
+carry the JAX package's index state (IVF partitions, PQ codebooks and
+codes, inverted postings), given as numpy, over into the port's tensors,
+so that both packages can search identical state.
+
+The tests read the repo's orbax checkpoints into numpy themselves; the
+port never imports orbax.
 """
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from .. import DeviceLike, resolve_device
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -79,30 +84,6 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_orbax_numpy(path: str | Path) -> Dict[str, Any]:
-    """Restore an orbax pytree checkpoint to nested dicts of numpy arrays."""
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.PyTreeCheckpointer()
-    p = Path(path).absolute()
-    meta = ckptr.metadata(p).item_metadata
-    tree = meta.tree if hasattr(meta, "tree") else meta
-
-    def to_numpy_args(node):
-        if isinstance(node, Mapping):
-            return {k: to_numpy_args(v) for k, v in node.items()}
-        return ocp.RestoreArgs(restore_type=np.ndarray)
-
-    blob = ckptr.restore(p, restore_args=to_numpy_args(tree))
-
-    def as_numpy(node):
-        if isinstance(node, Mapping):
-            return {k: as_numpy(v) for k, v in node.items()}
-        return np.asarray(node)
-
-    return as_numpy(blob)
-
-
 def encoder_config_from_meta(meta: Mapping[str, Any], **overrides: Any):
     """The port's EncoderConfig from a checkpoint's ``encoder_config``."""
     from .encoder import EncoderConfig
@@ -117,4 +98,50 @@ def encoder_config_from_meta(meta: Mapping[str, Any], **overrides: Any):
     return EncoderConfig(**kw)
 
 
-__all__ = ["params_from_jax", "load_orbax_numpy", "encoder_config_from_meta"]
+def _tensor(a: Any, device: DeviceLike) -> torch.Tensor:
+    """numpy (bf16 arrays from ml_dtypes included) -> tensor on device."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr, copy=True).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(resolve_device(device))
+
+
+def ivf_partitions_from_numpy(parts: Any, device: DeviceLike = None):
+    """The JAX package's ``IVFPartitions`` (any object with its fields, as
+    arrays) -> the port's ``ops.ivf.IVFPartitions`` on ``device``."""
+    from ..ops.ivf import IVFPartitions
+
+    opt = lambda a: None if a is None else _tensor(a, device)  # noqa: E731
+    return IVFPartitions(
+        centroids=_tensor(parts.centroids, device).float(),
+        packed_emb=_tensor(parts.packed_emb, device).contiguous(),
+        packed_rows=_tensor(parts.packed_rows, device).to(torch.int32),
+        tail_emb=_tensor(parts.tail_emb, device),
+        tail_rows=_tensor(parts.tail_rows, device).to(torch.int32),
+        packed_scale=opt(parts.packed_scale),
+        tail_scale=opt(parts.tail_scale))
+
+
+def pq_from_numpy(codebooks: Any, codes: Any, *, m: int, bits: int,
+                  device: DeviceLike = None):
+    """PQ codebooks [m, c, dsub] and codes [N, m] -> (``ops.pq.PQCodebook``,
+    codes tensor) on ``device``."""
+    from ..ops.pq import PQCodebook
+
+    return (PQCodebook(_tensor(codebooks, device).float(), m, bits),
+            _tensor(codes, device))
+
+
+def postings_from_numpy(post_rows: Any, post_tf: Any, post_tfw: Any,
+                        device: DeviceLike = None):
+    """Inverted postings -> (rows i32, tf bf16, tf-weights bf16) tensors on
+    ``device``, the dtypes the sparse index keeps them in."""
+    return (_tensor(post_rows, device).to(torch.int32),
+            _tensor(post_tf, device).to(torch.bfloat16),
+            _tensor(post_tfw, device).to(torch.bfloat16))
+
+
+__all__ = ["params_from_jax", "encoder_config_from_meta",
+           "ivf_partitions_from_numpy", "pq_from_numpy", "postings_from_numpy"]

@@ -26,7 +26,8 @@ import torch
 
 from .dense import topk_first
 from .hybrid import hybrid_retrieve
-from .rescore import exact_tier_scores, zmix_base, znorm
+from .rescore import (exact_tier_scores, exact_tier_scores_postings, zmix_base,
+                      znorm)
 
 
 class E2EResult(NamedTuple):
@@ -50,6 +51,7 @@ def make_retrieve_rerank(
     sep_id: int = 2,
     metric: str = "ip",
     dense_impl: str = "scan",
+    sparse_impl: str = "kernel",
     use_mmr: bool = True,
     rrf_k: int = 60,
     rerank_mode: str = "zblend",
@@ -70,18 +72,18 @@ def make_retrieve_rerank(
     best-ranked chunk per distinct parent document (matched on the
     corpus's ``doc_hash_lo/hi`` device columns).
 
-    ``rerank_base="exact_postings"`` needs the inverted postings, which
-    come with a later slice of the port.
+    ``sparse_impl="postings"`` serves BM25 from the inverted postings
+    (``post_rows``/``post_tf``/``post_tfw``); ``rerank_base="exact_postings"``
+    then rescores the candidates' BM25 from them too.
     """
     if k_rerank > k_out:
         raise ValueError(f"k_rerank ({k_rerank}) must be <= k_out ({k_out})")
     if k_final > k_rerank:
         raise ValueError(f"k_final ({k_final}) must be <= k_rerank ({k_rerank})")
-    if rerank_base == "exact_postings":
-        raise NotImplementedError(
-            'rerank_base="exact_postings" is ported with the inverted '
-            "postings (ops/postings.py) in a later slice")
-    if rerank_base not in ("fused", "exact"):
+    if rerank_base == "exact_postings" and sparse_impl != "postings":
+        raise ValueError('rerank_base="exact_postings" requires '
+                         'sparse_impl="postings"')
+    if rerank_base not in ("fused", "exact", "exact_postings"):
         raise ValueError(f"unknown rerank_base: {rerank_base}")
     if rerank_mode not in ("zblend", "residual"):
         raise ValueError(f"unknown rerank_mode: {rerank_mode}")
@@ -104,6 +106,9 @@ def make_retrieve_rerank(
         valid: Optional[torch.Tensor],
         weights: torch.Tensor,
         mmr_lambda: torch.Tensor,
+        post_rows: Optional[torch.Tensor] = None,  # [V, L] inverted postings
+        post_tf: Optional[torch.Tensor] = None,
+        post_tfw: Optional[torch.Tensor] = None,
         emb_scale: Optional[torch.Tensor] = None,
         rerank_alpha: Optional[torch.Tensor] = None,
         rescore_mix: Optional[torch.Tensor] = None,
@@ -117,8 +122,10 @@ def make_retrieve_rerank(
         res = hybrid_retrieve(
             emb, idx_t, tf_t, doc_len, df, n_docs,
             q_dense, q_sp_idx, q_sp_tf, valid, weights, mmr_lambda,
-            emb_scale=emb_scale, k_cand=k_cand, k_out=k_out, metric=metric,
-            dense_impl=dense_impl, use_mmr=use_mmr, rrf_k=rrf_k,
+            emb_scale=emb_scale, post_rows=post_rows, post_tf=post_tf,
+            post_tfw=post_tfw, k_cand=k_cand, k_out=k_out, metric=metric,
+            dense_impl=dense_impl, sparse_impl=sparse_impl, use_mmr=use_mmr,
+            rrf_k=rrf_k,
             **hybrid_static,
         )
         if doc_dedupe:
@@ -187,15 +194,19 @@ def make_retrieve_rerank(
         if rerank_alpha is None:
             rank_key = ce
         else:
-            if rerank_base == "exact":
-                d_ex, s_ex = exact_tier_scores(
-                    cand, q_dense, q_sp_idx, q_sp_tf, emb,
-                    doc_idx, doc_tf, doc_len, df, n_docs,
-                    valid=valid, emb_scale=emb_scale)
+            if rerank_base == "fused":
+                base = znorm(cand_s, validm)
+            else:
+                # BM25 from the doc-major table ("exact") or the postings
+                rescore, sp_a, sp_b = (
+                    (exact_tier_scores_postings, post_rows, post_tf)
+                    if rerank_base == "exact_postings"
+                    else (exact_tier_scores, doc_idx, doc_tf))
+                d_ex, s_ex = rescore(cand, q_dense, q_sp_idx, q_sp_tf, emb,
+                                     sp_a, sp_b, doc_len, df, n_docs,
+                                     valid=valid, emb_scale=emb_scale)
                 base = zmix_base(d_ex, s_ex, validm,
                                  0.5 if rescore_mix is None else rescore_mix)
-            else:
-                base = znorm(cand_s, validm)
             if rerank_mode == "residual":
                 rank_key = base + rerank_alpha * torch.where(validm, ce, 0.0)
             else:

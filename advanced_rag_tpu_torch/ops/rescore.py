@@ -5,9 +5,8 @@ Rank-based RRF fusion discards score magnitudes, so the rerank stage
 re-scores its k_rerank candidates exactly per tier — a dense dot against
 the stored embeddings and a full BM25 against the doc-major term table —
 and ranks by a z-normalized blend (``zmix_base``).  Both rescores are
-gathers over [Q, K] candidate rows.
-
-``exact_tier_scores_postings`` waits for the inverted-postings slice.
+gathers over [Q, K] candidate rows.  ``exact_tier_scores_postings`` takes
+the BM25 column from the inverted postings instead of the doc-major table.
 """
 
 from __future__ import annotations
@@ -84,6 +83,52 @@ def exact_tier_scores(
     return dense * ok, bm25 * ok
 
 
+def exact_tier_scores_postings(
+    cand: torch.Tensor,          # [Q, K] i32 candidate rows (-1 pad)
+    q_dense: torch.Tensor,       # [Q, D] f32 query embeddings
+    q_idx: torch.Tensor,         # [Q, T] i32 sparse query terms (-1 pad)
+    q_tf: torch.Tensor,          # [Q, T] f32
+    emb: torch.Tensor,           # [N, D] stored embeddings (f32/bf16/int8)
+    post_rows: torch.Tensor,     # [V, L] i32 inverted postings (-1 pad)
+    post_tf: torch.Tensor,       # [V, L] term frequencies
+    doc_len: torch.Tensor,       # [N] f32
+    df: torch.Tensor,            # [V]
+    n_docs: torch.Tensor,        # scalar f32 live corpus size
+    valid: Optional[torch.Tensor] = None,      # [N] bool live-row mask
+    emb_scale: Optional[torch.Tensor] = None,  # [N] f32 SQ8 row scales
+    k1: float = 1.2,
+    b: float = 0.75,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ``exact_tier_scores``, with each candidate's tf of
+    each query term found in that term's postings row.  Equal to it while
+    no query term's df exceeds the cap L; beyond the cap a dropped (doc,
+    term) slot scores 0, as in the postings scan.  One [Q, L, K] compare a
+    query term, never the whole [Q, T, L, K] at once."""
+    safe = torch.clamp(cand, min=0).long()                    # [Q, K]
+    dense = _dense_rescore(safe, q_dense, emb, emb_scale)
+
+    t_ok = q_idx >= 0
+    safe_t = torch.clamp(q_idx, min=0).long()
+    q_w = q_tf.float() * torch.where(t_ok, idf_weights(df, n_docs)[safe_t], 0.0)
+    rows = torch.where(t_ok[:, :, None], post_rows[safe_t], -1)   # [Q, T, L]
+    ptf = post_tf[safe_t].float()
+    tf = torch.stack([
+        torch.sum(torch.where((rows[:, t, :, None] == safe[:, None, :])
+                              & (rows[:, t, :, None] >= 0),
+                              ptf[:, t, :, None], 0.0), dim=1)
+        for t in range(q_idx.shape[1])], dim=2)               # [Q, K, T]
+
+    dl = doc_len[safe].float()                                # [Q, K]
+    avg_len = _live_avg_len(doc_len, n_docs, valid)
+    denom = tf + k1 * (1.0 - b + b * dl[:, :, None]
+                       / torch.clamp(avg_len, min=1.0))
+    tfw = tf * (k1 + 1.0) / torch.clamp(denom, min=1e-6)      # [Q, K, T]
+    bm25 = torch.sum(tfw * q_w[:, None, :], dim=-1)           # [Q, K]
+
+    ok = (cand >= 0).float()
+    return dense * ok, bm25 * ok
+
+
 def znorm(x: torch.Tensor, validm: torch.Tensor) -> torch.Tensor:
     """Slate z-score over the valid candidates of each row."""
     nv = torch.clamp(torch.sum(validm, 1, keepdim=True), min=1)
@@ -100,4 +145,4 @@ def zmix_base(dense: torch.Tensor, bm25: torch.Tensor, validm: torch.Tensor,
     return znorm(blend, validm)
 
 
-__all__ = ["exact_tier_scores", "zmix_base", "znorm"]
+__all__ = ["exact_tier_scores", "exact_tier_scores_postings", "zmix_base", "znorm"]

@@ -26,7 +26,27 @@ Phases, each printing its elapsed seconds:
    or K2, and K3, are held against their plain versions once more on the
    tier's own index tensors, row mask and a batch of real queries;
 5. reference: a small corpus served on the card and by the plain path on
-   the CPU, with f32 weights and the f32 tier, must agree.
+   the CPU, with f32 weights and the f32 tier, must agree;
+6. tiers: N_TIER (1M) clustered unit vectors of width 384 bulk-loaded into
+   three DenseIndexes (bf16 + build_ivf, int8 + build_ivf with refine 2,
+   dtype="pq" + build_pq with m 96, bits 4, refine 32): build seconds,
+   tune_nprobe(0.95), search p50/p99 at Q = 1, 8, 32, recall@10 against
+   the exact K1 scan of the f32 rows, peak device memory, and the K5 / K6
+   launches, which must be > 0;
+7. manager tiers: phase 4's bf16 manager after build_semantic(ivf=True)
+   (run as soon as that tier's phase-4 numbers are read, so the SQ8 tier
+   then runs alone, as before), and a semantic_dtype="pq" manager over the
+   same chunks after build_semantic(pq=True) (after phase 4), each serving
+   search_sync(SEMANTIC) and hybrid_search_batch_sync at Q = 1, 8, 32
+   (BM25 from the inverted postings, built at the first call since the
+   corpus is over 50k rows); last, both tiers on a small corpus, on the
+   card and by the plain path on the CPU with the card's tier state, must
+   agree (top-10 overlap >= 0.9).
+
+Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
+geometry and the manager's), K4 (Q = 1) and K6 (N = 1M and the PQ
+manager's N, m 96) against their plain versions: K5-SQ8 bit-identical,
+the others within 1e-5 of the largest score.
 
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}.  Any failed check raises, so the run exits
@@ -58,6 +78,13 @@ WORDS_PER_CHUNK = 100
 PROBE_EVERY = 1000
 PROBE_WORDS = 24
 BATCHES = (1, 8, 32)
+#: IVF geometry (nlist, cap, nprobe): the 1M-row tier (auto_nlist(1M) = 1000,
+#: cap = 2 * N / nlist) and the manager phase's tier over N_CHUNKS rows
+IVF_1M = (1000, 2000, 32)
+IVF_MANAGER = (312, 648, 32)
+N_TIER = 1_000_000             # phase 6: rows of the 1M-row tiers
+N_CENTRES = 2000
+PQ_M = 96
 REPEATS = 12                   # first 2 are warm-up, 10 timed
 SERVE = dict(k_final=10, k_rerank=48, dense_weight=0.7, sparse_weight=0.3,
              use_mmr=True, mmr_lambda=0.8, q_max_len=32, rerank_alpha=0.5,
@@ -284,7 +311,96 @@ def phase_kernels():
                              library_ms=None, bound_ms=b_ms, bound_by=b_by))
     del idx_t, tf_t
     torch.cuda.empty_cache()
+    ivf_pq_kernel_cases(gen, dev, record)
     return results
+
+
+def ivf_pq_kernel_cases(gen, dev, record):
+    """K5 (bf16 and SQ8 slabs) at the 1M-row IVF geometry and at the manager
+    phase's, K4 at Q = 1, K6 at N = 1M and at the PQ manager's N."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+    from advanced_rag_tpu_torch.ops import pq_kernels as pk
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize
+    from advanced_rag_tpu_torch.ops.pq import pq_scores_xla
+    from advanced_rag_tpu_torch.ops.quant import sq8_quantize
+
+    d = 384
+
+    def slabs(nlist, cap, dtype):
+        """Unit rows, about a fifth of the slots padding (zero rows)."""
+        x = l2_normalize(torch.randn(nlist * cap, d, generator=gen, device=dev))
+        live = (torch.rand(nlist * cap, generator=gen, device=dev) < 0.8).float()
+        x = x * live[:, None]
+        if dtype == torch.int8:
+            codes, scale = sq8_quantize(x)
+            return (codes.reshape(nlist, cap, d).contiguous(),
+                    (scale * live).reshape(nlist, cap).contiguous())
+        return x.to(dtype).reshape(nlist, cap, d).contiguous(), None
+
+    cases = ((IVF_1M, torch.bfloat16, BATCHES), (IVF_1M, torch.int8, BATCHES),
+             (IVF_MANAGER, torch.bfloat16, BATCHES), (IVF_MANAGER, torch.int8, (32,)))
+    for (nlist, cap, nprobe), dtype, batches in cases:
+        packed, scale = slabs(nlist, cap, dtype)
+        sq8 = dtype == torch.int8
+        for nq in batches:
+            q = l2_normalize(torch.randn(nq, d, generator=gen, device=dev)).contiguous()
+            q_in = sq8_quantize(q)[0].contiguous() if sq8 else q
+            probes = torch.stack([torch.randperm(nlist, generator=gen, device=dev)[:nprobe]
+                                  for _ in range(nq)]).to(torch.int32).contiguous()
+            keys = [("K5", False)] + ([("K4", True)] if nq == 1 and not sq8
+                                      and nlist == IVF_1M[0] else [])
+            for key, single in keys:
+                got = ik.ivf_scores(probes, q_in, packed, scale, single=single)
+                want = ik.ivf_scores_plain(probes, q_in, packed, scale)
+                if sq8 and not torch.equal(got, want):
+                    raise AssertionError("K5 on SQ8 slabs is not bit-identical")
+                err, rel, swaps = compare(got.reshape(nq, -1), want.reshape(nq, -1),
+                                          1e-6 if sq8 else 1e-5)
+                ms = cuda_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
+                                                   single=single))
+                plain_ms = cuda_ms(lambda: ik.ivf_scores_plain(probes, q_in, packed,
+                                                               scale), reps=3, warmup=1)
+                item = packed.element_size()
+                slab_b = cap * d * item + (cap * 4 if sq8 else 0)
+                out_b = nq * nprobe * cap * 4 + nq * d * item + nq * nprobe * 4
+                ops = 2.0 * nq * nprobe * cap * d
+                ops, rate = ((ops, INT8_OPS_PER_S) if sq8 else (2 * ops, BF16_OPS_PER_S))
+                # each input byte counted once: a slab probed by several
+                # queries of the batch is read once (the L2 can serve the
+                # rest); the TPU kernel streams it once per (query, probe)
+                uniq = int(torch.unique(probes).numel())
+                b_ms, b_by = bound(uniq * slab_b + out_b, ops, rate)
+                streamed_ms = (nq * nprobe * slab_b + out_b) / HBM_BYTES_PER_S * 1e3
+                record(key, dict(
+                    shape=f"{'int8' if sq8 else 'bf16'} nlist={nlist} cap={cap} "
+                          f"D={d} nprobe={nprobe} Q={nq}",
+                    main=(key == "K4" or (nlist, nq) == (IVF_MANAGER[0], 32)) and not sq8,
+                    max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=ms,
+                    plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    streamed_bound_ms=streamed_ms, unique_slabs=uniq))
+        del packed, scale
+        torch.cuda.empty_cache()
+
+    m, c = PQ_M, 16
+    for n, batches in ((N_TIER, BATCHES), (MAIN_N, (32,))):
+        codes = torch.randint(0, c, (n, m), generator=gen, device=dev).to(torch.int8)
+        for nq in batches:
+            lut = torch.randn(nq, m, c, generator=gen, device=dev) * 0.05
+            got = pk.pq_scores(codes, lut)
+            want = pq_scores_xla(codes, lut)
+            err, rel, swaps = compare(got, want, 1e-5)
+            ms = cuda_ms(lambda: pk.pq_scores(codes, lut))
+            plain_ms = cuda_ms(lambda: pq_scores_xla(codes, lut), reps=3, warmup=1)
+            b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
+                               F32_OPS_PER_S)
+            record("K6", dict(shape=f"N={n} m={m} c={c} Q={nq}",
+                              main=(n, nq) == (MAIN_N, 32), max_abs_err=err, rel_err=rel,
+                              tie_swaps=swaps, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=b_ms, bound_by=b_by, lookups=nq * n * m))
+        del codes
+        torch.cuda.empty_cache()
 
 
 def synthetic_corpus(n: int, seed: int):
@@ -358,23 +474,36 @@ def profile_batch(mgr, reranker, queries):
                 top_ms={k[:60]: round(v, 3) for k, v in top})
 
 
+KERNEL_KEYS = ("K1", "K2", "K3", "K3-ip", "K4", "K5", "K6")
+
+
 def reset_counters():
     from advanced_rag_tpu_torch.ops import dense_kernels as dk
+    from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+    from advanced_rag_tpu_torch.ops import pq_kernels as pk
     from advanced_rag_tpu_torch.ops import sparse_kernels as sk
 
     dk.dense_scores.launches = 0
     dk.sq8_scores.launches = 0
     sk.bm25_scores.launches = 0
     sk.bm25_scores.ip_launches = 0
+    ik.ivf_scores.launches = 0
+    ik.ivf_scores.k4_launches = 0
+    pk.pq_scores.launches = 0
 
 
 def read_counters():
     from advanced_rag_tpu_torch.ops import dense_kernels as dk
+    from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+    from advanced_rag_tpu_torch.ops import pq_kernels as pk
     from advanced_rag_tpu_torch.ops import sparse_kernels as sk
 
     ip = sk.bm25_scores.ip_launches
+    k4 = ik.ivf_scores.k4_launches
     return {"K1": dk.dense_scores.launches, "K2": dk.sq8_scores.launches,
-            "K3": sk.bm25_scores.launches - ip, "K3-ip": ip}
+            "K3": sk.bm25_scores.launches - ip, "K3-ip": ip,
+            "K4": k4, "K5": ik.ivf_scores.launches - k4,
+            "K6": pk.pq_scores.launches}
 
 
 def check_served_tensors(mgr, queries):
@@ -412,12 +541,15 @@ def check_served_tensors(mgr, queries):
     return out
 
 
-def phase_main_path(texts):
+def phase_main_path(texts, after_bf16):
+    """Phase 4; ``after_bf16(mgr)`` runs on the bf16 tier's manager
+    once its measurements are read (phase 7 builds the IVF tier on it), and
+    the manager is closed before the SQ8 tier starts, so each tier's
+    numbers are taken with no other manager alive."""
     import numpy as np
     import torch
 
     from advanced_rag_tpu_torch.config import PipelineConfig
-    from advanced_rag_tpu_torch.index.corpus import ChunkRecord
     from advanced_rag_tpu_torch.index.manager import MultiIndexManager
     from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
     from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
@@ -430,7 +562,7 @@ def phase_main_path(texts):
     reranker = CrossEncoderReranker(config=SHIPPED_RERANKER, seed=1, q_len=32,
                                     d_len=216, device=dev)
     rng = np.random.default_rng(7)
-    launches = {"K1": 0, "K2": 0, "K3": 0, "K3-ip": 0}
+    launches = dict.fromkeys(KERNEL_KEYS, 0)
     tiers = {}
     for tier in ("bfloat16", "int8"):
         cfg = PipelineConfig(fused_rerank=True, semantic_dtype=tier)
@@ -440,14 +572,7 @@ def phase_main_path(texts):
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         t = time.perf_counter()
-        for s in range(0, len(texts), 8192):
-            recs = [ChunkRecord(chunk_id=f"c{i}", doc_id=f"d{i // 4}", content=texts[i],
-                                chunk_index=i % 4,
-                                token_count=texts[i].count(" ") + 1)
-                    for i in range(s, min(s + 8192, len(texts)))]
-            rep = mgr.index_chunks(recs)
-            if rep["indexed"] != len(recs) or rep["errors"]:
-                raise AssertionError(f"ingest failed: {rep['errors'][:3]}")
+        ingest_all(mgr, texts)
         torch.cuda.synchronize()
         ingest_s = time.perf_counter() - t
         log(f"main[{tier}]: ingested {mgr.store.n_valid()} chunks in {ingest_s:.2f}s "
@@ -508,10 +633,12 @@ def phase_main_path(texts):
         tiers[tier] = dict(ingest_s=ingest_s, batches=per_batch, peak_gb=peak_gb,
                            launches=counts,
                            served_tensor_max_abs_err={k: v[0] for k, v in served.items()})
+        if tier == "bfloat16":
+            after_bf16(mgr)
         mgr.close()
         del mgr
         torch.cuda.empty_cache()
-    return launches, tiers
+    return launches, tiers, embedder
 
 
 def phase_reference():
@@ -552,6 +679,296 @@ def phase_reference():
         raise AssertionError(f"card and CPU results disagree (overlap {frac:.3f})")
 
 
+def clustered_vectors(n: int, n_queries: int, seed: int):
+    """n unit vectors of width 384 around N_CENTRES Gaussian centres, plus
+    n_queries held-out vectors of the same mixture with extra noise (the
+    queries), from a seeded numpy generator.  The centres sit in groups of
+    ten around N_CENTRES / 10 group centres, closer to each other (offset
+    norm 0.15) than the rows to their centre (noise norm ~0.78), so a group
+    is one blob of ~5000 rows that k-means splits over several lists and a
+    query's neighbours span lists: nprobe has to grow for recall (a plain
+    2000-blob mixture puts each blob in one list and is served at nprobe 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = 384
+    groups = rng.standard_normal((N_CENTRES // 10, d), dtype=np.float32)
+    groups /= np.linalg.norm(groups, axis=1, keepdims=True)
+    centres = groups[np.arange(N_CENTRES) // 10] + 0.15 * rng.standard_normal(
+        (N_CENTRES, d), dtype=np.float32) / np.sqrt(d)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    x = np.empty((n + n_queries, d), np.float32)
+    for s in range(0, n + n_queries, 200_000):
+        e = min(s + 200_000, n + n_queries)
+        x[s:e] = centres[rng.integers(0, N_CENTRES, e - s)]
+        x[s:e] += rng.standard_normal((e - s, d), dtype=np.float32) * 0.04
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[n:] + rng.standard_normal((n_queries, d), dtype=np.float32) * 0.02
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return x[:n], q
+
+
+def time_calls(fn, batches, reps=REPEATS):
+    """p50/p99 ms of fn(nq) per batch size, host clock around calls that end
+    in a device->host copy or a synchronize; the first 2 calls are warm-up."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for nq in batches:
+        times = []
+        for r in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(nq, r)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        timed = np.asarray(times[2:])
+        out[nq] = dict(p50_ms=float(np.percentile(timed, 50)),
+                       p99_ms=float(np.percentile(timed, 99)))
+    return out
+
+
+def phase_tiers_1m():
+    """Phase 6: the IVF (bf16), SQ8-IVF and PQ tiers of DenseIndex over
+    N_TIER clustered rows: build, tune_nprobe, search p50/p99 at Q = 1, 8,
+    32, recall@10 against the exact K1 scan, peak memory, launches."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import IndexConfig, IndexType, Metric
+    from advanced_rag_tpu_torch.index.dense_index import DenseIndex
+    from advanced_rag_tpu_torch.ops.dense_kernels import dense_topk_kernel
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    x, q = clustered_vectors(N_TIER, 256, seed=21)
+    log(f"tiers: {N_TIER} clustered rows ({N_CENTRES} centres) + 256 queries made in "
+        f"{time.perf_counter() - t:.2f}s")
+    # the oracle: the exact K1 scan of the f32 rows
+    xf = torch.from_numpy(x).to(dev)
+    qd = torch.from_numpy(q).to(dev)
+    _, oracle = dense_topk_kernel(xf, qd, 10)
+    oracle = oracle.cpu().numpy()
+    del xf
+    torch.cuda.empty_cache()
+    out = {}
+    for name, dtype, refine in (("ivf-bf16", "bfloat16", 0), ("ivf-sq8", "int8", 2),
+                                ("pq", "pq", 32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        cfg = IndexConfig(index_type=IndexType.SEMANTIC, dim=384, metric=Metric.COSINE,
+                          dtype=dtype, refine_factor=refine, pq_m=PQ_M, pq_bits=4)
+        idx = DenseIndex(cfg, device=dev)
+        t = time.perf_counter()
+        idx.bulk_load(x, pre_normalized=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        if dtype == "pq":
+            idx.build_pq()
+        else:
+            idx.build_ivf()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        rec = dict(load_s=load_s, build_s=build_s)
+        if dtype != "pq":
+            nlist, cap = idx._ivf.packed_rows.shape
+            if (nlist, cap) != IVF_1M[:2]:
+                raise AssertionError(f"IVF geometry {(nlist, cap)} is not {IVF_1M[:2]}: "
+                                     "phase 3 missed the tier's shapes")
+            t = time.perf_counter()
+            npb, got = idx.tune_nprobe(0.95, k=10, queries=q[:64])
+            rec.update(nprobe=npb, tune_recall=got, tune_s=time.perf_counter() - t,
+                       overflow_rows=int((idx._ivf.tail_rows >= 0).sum()))
+        hits = []
+        for s0 in range(0, len(q), 32):
+            _, ids = idx.search(q[s0:s0 + 32], 10)
+            ids = ids.cpu().numpy()
+            hits += [len(set(a.tolist()) & set(b.tolist())) / 10.0
+                     for a, b in zip(ids, oracle[s0:s0 + 32])]
+        rec["recall_at_10"] = float(np.mean(hits))
+        rec["batches"] = time_calls(
+            lambda nq, r: idx.search(q[(r * nq) % 224:(r * nq) % 224 + nq], 10)[1].cpu(),
+            BATCHES)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["launches"] = read_counters()
+        rec["memory_bytes"] = idx.memory_bytes()
+        key = "K6" if dtype == "pq" else "K5"
+        if rec["launches"][key] == 0:
+            raise AssertionError(f"tier {name} did not run {key}: {rec['launches']}")
+        if rec["recall_at_10"] < 0.5:
+            raise AssertionError(f"tier {name}: recall@10 {rec['recall_at_10']:.3f}")
+        log(f"tiers[{name}]: load {load_s:.2f}s, build {build_s:.2f}s, "
+            + (f"nprobe {rec['nprobe']} (tune recall {rec['tune_recall']:.3f}), "
+               if dtype != "pq" else "")
+            + f"recall@10 {rec['recall_at_10']:.4f}; "
+            + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
+                        for nq, v in rec["batches"].items())
+            + f"; peak {rec['peak_gb']:.2f} GB; launches {rec['launches']}")
+        out[name] = rec
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def ingest_all(mgr, texts):
+    from advanced_rag_tpu_torch.index.corpus import ChunkRecord
+
+    for s in range(0, len(texts), 8192):
+        recs = [ChunkRecord(chunk_id=f"c{i}", doc_id=f"d{i // 4}", content=texts[i],
+                             chunk_index=i % 4, token_count=texts[i].count(" ") + 1)
+                for i in range(s, min(s + 8192, len(texts)))]
+        rep = mgr.index_chunks(recs)
+        if rep["indexed"] != len(recs) or rep["errors"]:
+            raise AssertionError(f"ingest failed: {rep['errors'][:3]}")
+
+
+def check_hits(out, nq, k):
+    import numpy as np
+
+    if len(out) != nq or any(len(h) != k for h in out):
+        raise AssertionError(f"Q={nq}: expected {k} hits per query")
+    for hits in out:
+        for h in hits:
+            if not np.isfinite(h["score"]):
+                raise AssertionError("non-finite score in results")
+
+
+def phase_manager_tier(name, mgr, embedder, texts):
+    """Phase 7, one tier: the manager's non-fused entry points over the IVF
+    tier (``mgr`` is phase 4's bf16 manager; build_semantic(ivf=True)) or
+    the PQ tier (``mgr`` is None: a semantic_dtype="pq" manager over the
+    same chunks, build_semantic(pq=True)), serving search_sync(SEMANTIC)
+    and hybrid_search_batch_sync at Q = 1, 8, 32 with BM25 from the
+    postings (built at the first call: the corpus is over 50k rows)."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import IndexType, PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+
+    rng = np.random.default_rng(17)
+    k = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    rec = {}
+    if mgr is None:
+        cfg = PipelineConfig(semantic_dtype="pq")
+        cfg.semantic_dim = embedder.dim
+        mgr = MultiIndexManager(cfg, embedder=embedder, device="cuda")
+        t = time.perf_counter()
+        ingest_all(mgr, texts)
+        torch.cuda.synchronize()
+        rec["ingest_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    built = mgr.build_semantic(ivf=name == "ivf", pq=name == "pq")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t
+    if name == "ivf" and tuple(mgr.semantic._ivf.packed_rows.shape) != IVF_MANAGER[:2]:
+        raise AssertionError("the manager's IVF geometry is not IVF_MANAGER: "
+                             "phase 3 missed its shapes")
+    t = time.perf_counter()
+    mgr.hybrid_search_batch_sync(snippet_queries(rng, texts, 1), k)  # builds postings
+    torch.cuda.synchronize()
+    rec["first_hybrid_s"] = time.perf_counter() - t
+    if not mgr.sparse.has_postings:
+        raise AssertionError("postings were not built at n_valid >= 50k")
+    rec["postings_cap"] = int(mgr.sparse.post_rows.shape[1])
+
+    def hybrid(nq, r):
+        check_hits(mgr.hybrid_search_batch_sync(snippet_queries(rng, texts, nq), k),
+                   nq, k)
+
+    def semantic(nq, r):
+        for qtext in snippet_queries(rng, texts, nq):
+            if len(mgr.search_sync(IndexType.SEMANTIC, qtext, k)) != k:
+                raise AssertionError("search_sync returned too few hits")
+
+    rec["hybrid"] = time_calls(hybrid, BATCHES)
+    rec["search_sync"] = time_calls(semantic, (1,))
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["launches"] = read_counters()
+    rec["stats"] = mgr.get_collection_stats()["semantic"]
+    rec["built"] = built
+    key = "K5" if name == "ivf" else "K6"
+    if rec["launches"][key] == 0:
+        raise AssertionError(f"manager[{name}] did not run {key}: {rec['launches']}")
+    log(f"manager[{name}]: build {rec['build_s']:.2f}s"
+        + (f", ingest {rec['ingest_s']:.2f}s" if "ingest_s" in rec else "")
+        + f", first hybrid (builds postings, cap {rec['postings_cap']}) "
+          f"{rec['first_hybrid_s']:.2f}s; hybrid "
+        + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
+                    for nq, v in rec["hybrid"].items())
+        + f"; search_sync Q=1 p50 {rec['search_sync'][1]['p50_ms']:.2f} / p99 "
+          f"{rec['search_sync'][1]['p99_ms']:.2f} ms; peak {rec['peak_gb']:.2f} GB; "
+          f"launches {rec['launches']}")
+    if name == "pq":
+        mgr.close()
+    return rec
+
+
+def phase_tier_reference():
+    """Phase 7's check: a small corpus served on the card and by the plain
+    path on the CPU, IVF (bf16 rows) and PQ tiers, postings above a lowered
+    threshold, f32 weights; the tier state the card built is carried to the
+    CPU manager, so the comparison is of the search path."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.config import IndexType, PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.index.sparse_index import SparseIndex
+    from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
+    from advanced_rag_tpu_torch.models.encoder import SHIPPED_BIENCODER
+    from advanced_rag_tpu_torch.ops.ivf import IVFPartitions
+    from advanced_rag_tpu_torch.ops.pq import PQCodebook
+
+    bi = dataclasses.replace(SHIPPED_BIENCODER, num_layers=2, dtype=torch.float32)
+    texts = [" ".join(t.split()[:40]) for t in synthetic_corpus(1024, seed=8)]
+    queries = [" ".join(t.split()[5:17]) for t in texts[::128]]
+    saved = SparseIndex.POSTINGS_AUTO_THRESHOLD
+    SparseIndex.POSTINGS_AUTO_THRESHOLD = 512
+    try:
+        for tier in ("bfloat16", "pq"):
+            ids = {}
+            mgrs = {}
+            for dev in ("cuda", "cpu"):
+                cfg = PipelineConfig(semantic_dtype=tier)
+                cfg.semantic_dim = 384
+                emb = NeuralEmbedder(dim=384, config=bi, seed=3, device=dev)
+                mgr = MultiIndexManager(cfg, embedder=emb, device=dev)
+                ingest_all(mgr, texts)
+                mgrs[dev] = mgr
+            card, cpu = mgrs["cuda"].semantic, mgrs["cpu"].semantic
+            if tier == "pq":
+                mgrs["cuda"].build_semantic(pq=True)
+                cpu._pq = PQCodebook(card._pq.codebooks.cpu(), card._pq.m, card._pq.bits)
+                cpu.emb = card.emb.cpu()
+            else:
+                mgrs["cuda"].build_semantic(ivf=True)
+                cpu._ivf = IVFPartitions(*[None if t is None else t.cpu()
+                                           for t in card._ivf])
+                cpu._ivf_size = card._ivf_size
+            for dev, mgr in mgrs.items():
+                hyb = mgr.hybrid_search_batch_sync(queries, 10)
+                sem = [mgr.search_sync(IndexType.SEMANTIC, qt, 10) for qt in queries]
+                ids[dev] = [[h["chunk_id"] for h in hits] for hits in hyb + sem]
+                if not mgr.sparse.has_postings:
+                    raise AssertionError("reference: postings were not built")
+            overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
+            frac = overlap / max(sum(len(b) for b in ids["cpu"]), 1)
+            log(f"reference[{'ivf' if tier != 'pq' else 'pq'}]: card vs CPU plain path, "
+                f"hybrid + search_sync top-10 overlap {frac:.3f} over {len(queries)} queries")
+            if frac < 0.9:
+                raise AssertionError(f"card and CPU disagree on the {tier} tier ({frac:.3f})")
+    finally:
+        SparseIndex.POSTINGS_AUTO_THRESHOLD = saved
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -560,32 +977,50 @@ def main() -> None:
     texts = synthetic_corpus(N_CHUNKS, seed=11)
     log(f"corpus: {len(texts)} chunks of {WORDS_PER_CHUNK} words made in "
         f"{time.perf_counter() - t:.2f}s")
-    launches, tiers = phase_main_path(texts)
+    manager_tiers = {}
+    launches, tiers, embedder = phase_main_path(
+        texts, lambda mgr: manager_tiers.update(
+            ivf=phase_manager_tier("ivf", mgr, mgr.embedder, texts)))
+    manager_tiers["pq"] = phase_manager_tier("pq", None, embedder, texts)
     phase_reference()
+    tiers_1m = phase_tiers_1m()
+    phase_tier_reference()
+    for runs in (tiers_1m, manager_tiers):
+        for rec in runs.values():
+            for key in KERNEL_KEYS:
+                launches[key] += rec["launches"][key]
 
     meta = {
-        "K1": ("cuda", "advanced_rag_tpu/ops/pallas_dense.py:39"),
-        "K2": ("cuda", "advanced_rag_tpu/ops/pallas_dense.py:61"),
-        "K3": ("cuda", "advanced_rag_tpu/ops/pallas_sparse.py:43"),
-        "K3-ip": ("cuda", "advanced_rag_tpu/ops/pallas_sparse.py:77"),
+        "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "kernels.cu", True),
+        "K2": ("advanced_rag_tpu/ops/pallas_dense.py:61", "kernels.cu", True),
+        "K3": ("advanced_rag_tpu/ops/pallas_sparse.py:43", "kernels.cu", True),
+        # K3-ip (scoring="ip") and K4 (the single-query IVF entry, which the
+        # JAX package's own path never calls either) are off the main path
+        "K3-ip": ("advanced_rag_tpu/ops/pallas_sparse.py:77", "kernels.cu", False),
+        "K4": ("advanced_rag_tpu/ops/pallas_ivf.py:36", "ivf.cu", False),
+        "K5": ("advanced_rag_tpu/ops/pallas_ivf.py:181", "ivf.cu", True),
+        "K6": ("advanced_rag_tpu/ops/pq.py:328", "pq.cu", True),
     }
     kernels = []
-    for key, (route, replaces) in meta.items():
+    for key, (replaces, src, on_path) in meta.items():
         cases = kernel_results[key]
-        main = next(c for c in cases if c["main"])   # N = MAIN_N, Q = 32
+        main = next(c for c in cases if c["main"])
         kernels.append({
-            "name": key, "route": route,
-            "source": "advanced_rag_tpu_torch/csrc/kernels.cu",
+            "name": key, "route": "cuda",
+            "source": f"advanced_rag_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[key],
-            "on_main_path": key != "K3-ip",   # K3-ip (scoring="ip") is off it
+            "on_main_path": on_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "cases": cases,
         })
-    print(json.dumps({"kernels": kernels, "main_path": tiers, "nvidia_smi": smi}),
-          flush=True)
+    for key in ("K5", "K6"):
+        if launches[key] == 0:
+            raise AssertionError(f"{key} was never launched on the main paths")
+    print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
+                      "manager_tiers": manager_tiers, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -21,11 +21,38 @@ import torch
 from advanced_rag_tpu.models import encoder as jenc
 from advanced_rag_tpu_torch.models import encoder as tenc
 from advanced_rag_tpu_torch.models.convert import (
-    encoder_config_from_meta, load_orbax_numpy, params_from_jax)
+    encoder_config_from_meta, params_from_jax)
 
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 SMALL = dict(vocab_size=512, hidden_dim=32, num_layers=2, num_heads=4,
              mlp_dim=64, max_len=40)
+
+
+def load_orbax_numpy(path):
+    """Restore an orbax pytree checkpoint to nested dicts of numpy arrays
+    (the port itself never imports orbax)."""
+    from collections.abc import Mapping
+
+    import orbax.checkpoint as ocp
+
+    ckptr = ocp.PyTreeCheckpointer()
+    p = Path(path).absolute()
+    meta = ckptr.metadata(p).item_metadata
+    tree = meta.tree if hasattr(meta, "tree") else meta
+
+    def to_numpy_args(node):
+        if isinstance(node, Mapping):
+            return {k: to_numpy_args(v) for k, v in node.items()}
+        return ocp.RestoreArgs(restore_type=np.ndarray)
+
+    blob = ckptr.restore(p, restore_args=to_numpy_args(tree))
+
+    def as_numpy(node):
+        if isinstance(node, Mapping):
+            return {k: as_numpy(v) for k, v in node.items()}
+        return np.asarray(node)
+
+    return as_numpy(blob)
 
 
 def configs(dtype, **kw):

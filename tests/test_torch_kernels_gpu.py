@@ -6,12 +6,13 @@ conftest cannot load), run:
 
     python -m pytest -o addopts= --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Tolerances: K1 and K3 sum in another order than the plain version's
-matmul / reductions, so f32 scores agree to 1e-5 relative to the largest
-live score of the call (a dot of 384 terms cancels, so a per-element
-relative bound would not hold near 0); masked entries are equal.  K2's
-integer dot is exact and its scale and mask round separately, so its
-scores are bit-identical to the plain version's.
+Tolerances: K1, K3, K5 on bf16/f32 slabs and K6 sum in another order
+than the plain version's matmul / reductions, so f32 scores agree to 1e-5
+relative to the largest live score of the call (a dot of 384 terms
+cancels, so a per-element relative bound would not hold near 0); masked
+entries are equal.  K2's and K5-SQ8's integer dots are exact and their
+scale and mask round separately, so their scores are bit-identical to the
+plain version's.
 """
 
 import numpy as np
@@ -19,7 +20,11 @@ import pytest
 import torch
 
 from advanced_rag_tpu_torch.ops import dense_kernels as dk
+from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+from advanced_rag_tpu_torch.ops import pq_kernels as pk
 from advanced_rag_tpu_torch.ops import sparse_kernels as sk
+from advanced_rag_tpu_torch.ops.ivf import IVFPartitions, ivf_topk_plain
+from advanced_rag_tpu_torch.ops.pq import pq_scores_xla
 from advanced_rag_tpu_torch.ops.dense import NEG_INF, mask_additive
 from advanced_rag_tpu_torch.ops.quant import sq8_quantize
 
@@ -137,3 +142,89 @@ def test_topk_wrappers_match_plain_ids(cuda):
     assert_rel_close(s.cpu(), ps)
     assert torch.equal(i.cpu(), pi)
     assert bool((s > NEG_INF).all())
+
+
+def _slabs(rng, nlist, cap, d, dtype, dev):
+    x = rng.standard_normal((nlist, cap, d), np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    rows = np.arange(nlist * cap, dtype=np.int32).reshape(nlist, cap)
+    rows[:, cap - cap // 5:] = -1                   # padded slots
+    x[rows < 0] = 0.0
+    t = torch.from_numpy(x).to(dev)
+    if dtype == torch.int8:
+        codes, scale = sq8_quantize(t.reshape(-1, d))
+        live = torch.from_numpy(rows >= 0).to(dev)
+        return (codes.reshape(nlist, cap, d).contiguous(),
+                (scale.reshape(nlist, cap) * live).contiguous(), rows)
+    return t.to(dtype).contiguous(), None, rows
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("nq,nlist,cap,d,nprobe", [
+    (1, 64, 136, 384, 16), (8, 312, 648, 384, 32), (32, 100, 200, 384, 32),
+    (3, 9, 40, 36, 5), (2, 5, 8, 20, 5)])
+def test_k5_matches_plain(cuda, dtype, nq, nlist, cap, d, nprobe):
+    rng = np.random.default_rng(nq * 7 + nlist + cap + d)
+    packed, scale, _ = _slabs(rng, nlist, cap, d, dtype, cuda)
+    probes = torch.from_numpy(np.stack([
+        rng.choice(nlist, nprobe, replace=False) for _ in range(nq)])
+        .astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(cuda)
+    q_in = sq8_quantize(q)[0] if dtype == torch.int8 else q
+    before = ik.ivf_scores.launches
+    got = ik.ivf_scores(probes, q_in.contiguous(), packed, scale)
+    torch.cuda.synchronize()
+    assert ik.ivf_scores.launches == before + 1
+    want = ik.ivf_scores_plain(probes, q_in, packed, scale)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert_rel_close(got, want)
+
+
+def test_k4_and_k5_search_match_the_plain_path(cuda):
+    """The K4 and K5 searches on the card against the same searches on CPU
+    tensors (the plain scores); f32 slabs, an overflow tail and a mask."""
+    rng = np.random.default_rng(5)
+    nlist, cap, d = 40, 64, 384
+    packed, _, rows = _slabs(rng, nlist, cap, d, torch.float32, cuda)
+    n = nlist * cap
+    cent = torch.from_numpy(rng.standard_normal((nlist, d), np.float32)).to(cuda)
+    tail = torch.from_numpy(rng.standard_normal((7, d), np.float32)).to(cuda)
+    tail_rows = torch.arange(n, n + 7, dtype=torch.int32, device=cuda)
+    parts = IVFPartitions(cent, packed, torch.from_numpy(rows).to(cuda),
+                          tail, tail_rows)
+    cpu = IVFPartitions(*[t.cpu() for t in parts[:5]])
+    valid = torch.from_numpy(rng.random(n + 7) > 0.3).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((4, d), np.float32)).to(cuda)
+    s, i = ik.ivf_topk_kernel_batch(parts, q, 20, valid, nprobe=8)
+    ps, pi = ik.ivf_topk_kernel_batch(cpu, q.cpu(), 20, valid.cpu(), nprobe=8)
+    assert_rel_close(s.cpu(), ps)
+    assert torch.equal(i.cpu(), pi)
+    before = ik.ivf_scores.k4_launches
+    s1, i1 = ik.ivf_topk_kernel(parts, q[0], 20, valid, nprobe=8)
+    assert ik.ivf_scores.k4_launches == before + 1
+    assert torch.equal(i1.cpu(), pi[0])
+    rs, ri = ivf_topk_plain(cpu, q.cpu(), 20, valid.cpu(), nprobe=8)
+    assert torch.equal(ri, pi)
+
+
+@pytest.mark.parametrize("nq,n,m,c", [(1, 5000, 96, 16), (8, 4096, 96, 16),
+                                      (32, 131072, 96, 16), (40, 777, 96, 16),
+                                      (5, 1025, 8, 16), (3, 300, 12, 4),
+                                      (2, 17, 96, 2)])
+def test_k6_matches_plain(cuda, nq, n, m, c):
+    rng = np.random.default_rng(nq + n + m + c)
+    codes = torch.from_numpy(rng.integers(0, c, size=(n, m)).astype(np.int8)).to(cuda)
+    lut = torch.from_numpy(rng.standard_normal((nq, m, c), np.float32) * 0.1).to(cuda)
+    before = pk.pq_scores.launches
+    got = pk.pq_scores(codes, lut)
+    torch.cuda.synchronize()
+    assert pk.pq_scores.launches > before
+    assert_rel_close(got, pq_scores_xla(codes, lut))
+
+
+def test_k6_rejects_eight_bit_codes(cuda):
+    codes = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        pk.pq_scores(codes, torch.zeros((1, 4, 256), device=cuda))

@@ -181,8 +181,13 @@ def test_fused_retrieve_guards():
     mgr.close()
     with pytest.raises(IndexingError):
         mgr.fused_retrieve_batch_sync(["q"])
-    with pytest.raises(NotImplementedError):
-        mgr.sparse.build_postings()
+    # IVF and PQ corpora are served by hybrid_search_batch_sync, as in JAX
+    pq_cfg = PipelineConfig(fused_rerank=True, semantic_dtype="pq")
+    pq_cfg.semantic_dim = 32
+    pq_mgr = MultiIndexManager(pq_cfg, embedder=emb, device="cpu")
+    pq_mgr.index_chunks([ChunkRecord(chunk_id="c0", doc_id="d0", content="a b c")])
+    with pytest.raises(IndexingError, match="hybrid_search_batch_sync"):
+        pq_mgr.fused_retrieve_batch_sync(["q"])
 
 
 def test_dense_only_manager_matches_jax(monkeypatch):
