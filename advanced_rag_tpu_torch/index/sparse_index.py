@@ -2,11 +2,12 @@
 The port of ``advanced_rag_tpu/index/sparse_index.py``.
 
 The index keeps, on the device, the doc-major arrays ``doc_idx [N, P]``
-(i32, -1 pad), ``doc_tf [N, P]`` (f32) and ``doc_len [N]`` that the exact
-rescore gathers candidate rows from, plus their term-slot-major mirror
-``idx_t [P, N]``, ``tf_t [P, N]`` that kernel K3 scans (a warp reads 32
-consecutive rows of one slot).  Appends write both in place; host mirrors
-serve growth and the df table.
+(i32, -1 pad), ``doc_tf [N, P]`` (bf16, as the JAX package stores it: a
+chunk's tf above 256 rounds, 257 -> 256) and ``doc_len [N]`` (f32) that the
+exact rescore gathers candidate rows from, plus their term-slot-major
+mirror ``idx_t [P, N]``, ``tf_t [P, N]`` that kernel K3 scans (a warp reads
+32 consecutive rows of one slot).  Appends write both in place; the f32
+host mirrors serve growth, the df table and the postings build.
 
 Inverted postings (``ops/postings.py``): ``build_postings`` makes the
 per-term lists from the host mirror, and appends maintain them.  The
@@ -60,7 +61,7 @@ class SparseIndex:
     def _upload(self) -> None:
         dev = self.device
         self.doc_idx = torch.from_numpy(self._host_idx).to(dev)
-        self.doc_tf = torch.from_numpy(self._host_tf).to(dev)
+        self.doc_tf = torch.from_numpy(self._host_tf).to(torch.bfloat16).to(dev)
         self.doc_len = torch.from_numpy(self._host_len).to(dev)
         self.idx_t = self.doc_idx.T.contiguous()
         self.tf_t = self.doc_tf.T.contiguous()
@@ -108,7 +109,8 @@ class SparseIndex:
             self._postings_append(start, idx, tf)
         dev = self.device
         return {"doc_idx": torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev),
-                "doc_tf": torch.from_numpy(np.ascontiguousarray(tf, np.float32)).to(dev),
+                "doc_tf": torch.from_numpy(np.ascontiguousarray(tf, np.float32))
+                .to(torch.bfloat16).to(dev),
                 "doc_len": torch.from_numpy(np.ascontiguousarray(lens, np.float32)).to(dev)}
 
     def commit_append(self, start: int, vals: Dict[str, torch.Tensor]) -> None:
@@ -316,9 +318,9 @@ class SparseIndex:
         return self.search(q_idx, q_tf, k, mask, scoring=scoring)
 
     def memory_bytes(self) -> int:
-        # i32 ids + f32 tf per slot, twice (doc-major and the [P, N] mirror),
+        # i32 ids + bf16 tf per slot, twice (doc-major and the [P, N] mirror),
         # plus the f32 length per row
-        return self.capacity * self.doc_nnz * 16 + self.capacity * 4
+        return self.capacity * self.doc_nnz * 12 + self.capacity * 4
 
 
 __all__ = ["SparseIndex"]

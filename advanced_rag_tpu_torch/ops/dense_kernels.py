@@ -1,20 +1,22 @@
 """Dense-scan kernels K1 (bf16/f32 rows) and K2 (SQ8 rows): the port of
 ``advanced_rag_tpu/ops/pallas_dense.py``.
 
-Each kernel (``csrc/kernels.cu``) writes the [Q, N] f32 score matrix plus
-the additive row mask, and the top-k runs outside on that matrix, as in
-the TPU wrappers.  Beside each kernel's wrapper sits its plain PyTorch
+Each kernel (``csrc/dense_scan.cu``) writes the [Q, N] f32 score matrix
+plus the additive row mask, and the top-k runs outside on that matrix, as
+in the TPU wrappers.  Beside each kernel's wrapper sits its plain PyTorch
 version.  The wrapper serves a CPU tensor with the plain version; for a
 CUDA tensor it launches the kernel or raises.  ``<wrapper>.launches``
 counts the kernel's launches.
 
 K1 ``dense_scores`` replaces ``pallas_dense.py:_matmul_kernel`` (pallas_call
-at :78).  Bound on the H100: bytes, N * D * itemsize of rows (plus the
-[Q, N] output) over 3.35 TB/s; the bf16 tensor cores would do its two
-hi/lo passes faster.  Its f32 FMAs on the CUDA cores take longer at Q = 32.
-K2 ``sq8_scores`` replaces ``pallas_dense.py:_matmul_sq8_kernel``.  Bound:
-bytes, N * D of int8 codes.  The kernels' source notes say what the design
-does about each bound.
+at :78) and K2 ``sq8_scores`` ``pallas_dense.py:_matmul_sq8_kernel``.  Both
+are bound by bytes on the H100: N * D * itemsize of rows plus the [Q, N]
+f32 output, over 3.35 TB/s.  Both stream row tiles into shared memory
+with asynchronous copies and compute on the tensor cores: K1 on bf16 rows
+against the query split into three bf16 parts (``split_query_bf16`` is the
+plain version of the kernel's prologue), K2 as an int8 product; K1 on f32
+rows uses CUDA-core FMAs on the same staged tiles.  The source note says
+more.
 """
 
 from __future__ import annotations
@@ -30,6 +32,54 @@ from .quant import sq8_quantize
 QMAX = 32
 #: Shared memory a launch may use without opting in to more.
 SMEM_BYTES = 48 * 1024
+#: Shared memory a block of the dense scans may opt in to (227 KB), and the
+#: bytes of one staged row in their ring of row tiles (128 + 16 pad).
+SCAN_SMEM_MAX = 232448
+SCAN_STAGE_ROW = 144
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def scan_plan(kind: str, qc: int, d: int) -> Tuple[int, int]:
+    """(rows per tile, shared-memory bytes) of one dense-scan launch over
+    ``qc`` queries, as ``tile_rows`` and ``scan_smem_bytes`` in
+    dense_scan.cu work them out: a ring of 4 stages of tile rows x 144
+    bytes, then the queries (three bf16 parts for ``kind="bf16"``, int8
+    codes for "int8", f32 values for "f32"); 32 bf16 or f32 queries take
+    256-row tiles where those fit 227 KB, everything else 128."""
+    if kind == "bf16":
+        queries = 3 * qc * (2 * _round_up(d, 64) + 16)
+    elif kind == "int8":
+        queries = qc * (_round_up(d, 128) + 16)
+    elif kind == "f32":
+        queries = _round_up(d, 32) * qc * 4
+    else:
+        raise ValueError(f"unknown scan kind: {kind}")
+    big = 4 * 256 * SCAN_STAGE_ROW + queries
+    if qc == 32 and kind != "int8" and big <= SCAN_SMEM_MAX:
+        return 256, big
+    return 128, 4 * 128 * SCAN_STAGE_ROW + queries
+
+
+def scan_chunk(kind: str, d: int) -> int:
+    """Queries per dense-scan launch: the largest of 32, 16, 8 whose shared
+    memory fits SCAN_SMEM_MAX (a launch of fewer queries rounds up to the
+    next of these)."""
+    for qc in (QMAX, 16, 8):
+        if scan_plan(kind, qc, d)[1] <= SCAN_SMEM_MAX:
+            return qc
+    raise ValueError(f"D={d} is too wide for the {kind} dense scan: 8 queries "
+                     f"need {scan_plan(kind, 8, d)[1]} bytes of shared "
+                     f"memory, more than {SCAN_SMEM_MAX}")
+
+
+def aligned_rows(rows: torch.Tensor) -> int:
+    """1 when every row starts on 16 bytes (the kernels' cp.async path),
+    else 0 (staged by element copies)."""
+    return int(rows.shape[1] * rows.element_size() % 16 == 0
+               and rows.data_ptr() % 16 == 0)
 
 
 def query_chunk(bytes_per_query: int) -> int:
@@ -69,6 +119,19 @@ def dense_scores_plain(q: torch.Tensor, rows: torch.Tensor,
     return q.float() @ rows.float().T + mask_add[None, :]
 
 
+def split_query_bf16(q: torch.Tensor) -> torch.Tensor:
+    """f32 [Q, D] -> bf16 [3, Q, D] parts (hi, mid, lo) with
+    hi + mid + lo == q to about 2^-24 |q|: the split that K1's prologue
+    makes for the tensor cores on bf16 rows (round to nearest even; each
+    difference is exact in f32)."""
+    q = q.float()
+    hi = q.to(torch.bfloat16)
+    r1 = q - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return torch.stack((hi, mid, lo))
+
+
 def dense_scores(q: torch.Tensor, rows: torch.Tensor,
                  mask_add: torch.Tensor) -> torch.Tensor:
     """K1: f32 queries [Q, D] against bf16 or f32 rows [N, D] plus the
@@ -87,16 +150,15 @@ def dense_scores(q: torch.Tensor, rows: torch.Tensor,
     check_cuda("mask_add", mask_add, torch.float32, (n,), dev)
     lib = _build.load()
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
-    per_vec = 8 if rows.dtype == torch.bfloat16 else 4
-    vec = int(d % per_vec == 0 and rows.data_ptr() % 16 == 0)
-    chunk = query_chunk(4 * d)
+    bf16 = rows.dtype == torch.bfloat16
+    vec = aligned_rows(rows)
+    chunk = scan_chunk("bf16" if bf16 else "f32", d)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for q0 in range(0, nq, chunk):
             nc = min(chunk, nq - q0)
             rc = lib.art_dense_scores(
-                q[q0].data_ptr(), rows.data_ptr(),
-                int(rows.dtype == torch.bfloat16), mask_add.data_ptr(),
+                q[q0].data_ptr(), rows.data_ptr(), int(bf16), mask_add.data_ptr(),
                 out[q0].data_ptr(), nc, n, d, vec, stream)
             raise_on_error(rc, "dense_scores (K1)")
             dense_scores.launches += 1
@@ -153,15 +215,15 @@ def sq8_scores(q_codes: torch.Tensor, codes: torch.Tensor,
     nq = q_codes.shape[0]
     dev = codes.device
     if d % 4 != 0:
-        raise ValueError(f"K2 needs D divisible by 4 (dp4a words), got D={d}")
+        raise ValueError(f"K2 needs D divisible by 4 (query code words), got D={d}")
     check_cuda("codes", codes, torch.int8, (n, d), dev)
     check_cuda("q_codes", q_codes, torch.int8, (nq, d), dev)
     check_cuda("scale", scale, torch.float32, (n,), dev)
     check_cuda("mask_add", mask_add, torch.float32, (n,), dev)
     lib = _build.load()
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
-    vec = int(d % 16 == 0 and codes.data_ptr() % 16 == 0)
-    chunk = query_chunk(d)
+    vec = aligned_rows(codes)
+    chunk = scan_chunk("int8", d)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for q0 in range(0, nq, chunk):
@@ -217,4 +279,7 @@ __all__ = [
     "sq8_scores_plain",
     "dense_topk_sq8_kernel",
     "query_chunk",
+    "scan_chunk",
+    "scan_plan",
+    "split_query_bf16",
 ]

@@ -46,7 +46,7 @@ class HybridResult(NamedTuple):
 def hybrid_retrieve(
     emb: torch.Tensor,           # [N, D] bf16/f32 rows, int8 codes or PQ codes [N, m]
     idx_t: torch.Tensor,         # [P, N] i32 term-slot-major ids (-1 pad)
-    tf_t: torch.Tensor,          # [P, N] f32
+    tf_t: torch.Tensor,          # [P, N] bf16
     doc_len: torch.Tensor,       # [N] f32
     df: torch.Tensor,            # [V]
     n_docs: torch.Tensor,        # scalar

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import DeviceLike, resolve_device
 from .dense import NEG_INF, cdiv, merge_topk, topk_first
 
 
@@ -90,10 +91,11 @@ def pq_train(
     iters: int = 12,
     train_sample: int = 65536,
     seed: int = 0,
-    device: Optional[torch.device] = None,
+    device: DeviceLike = None,
 ) -> PQCodebook:
     """Train per-subspace codebooks on a sample of the host mirror (the
-    sample and the init on the host, Lloyd's on ``device``)."""
+    sample and the init on the host, Lloyd's on ``device``: the card
+    unless the caller passes ``device="cpu"``)."""
     emb_host = np.asarray(emb_host, np.float32)
     n, d = emb_host.shape
     m = m or auto_pq_m(d, bits)
@@ -112,7 +114,7 @@ def pq_train(
     if init.shape[1] < c:  # tiny corpora: tile
         reps = -(-c // init.shape[1])
         init = np.tile(init, (1, reps, 1))[:, :c]
-    dev = torch.device("cpu") if device is None else device
+    dev = resolve_device(device)
     cb = _pq_kmeans(torch.from_numpy(sub).to(dev),
                     torch.from_numpy(np.ascontiguousarray(init)).to(dev),
                     c=c, iters=iters)

@@ -61,7 +61,7 @@ def bm25_scores(q_idx: torch.Tensor, q_w: torch.Tensor,
                 k1: float, b: float, avg_len: float,
                 scoring: str = "bm25") -> torch.Tensor:
     """K3 / K3-ip: query terms [Q, T] (i32 ids, f32 weights) against the
-    [P, N] slot mirror (i32 ids, f32 tf), doc lengths [N] and the additive
+    [P, N] slot mirror (i32 ids, bf16 tf), doc lengths [N] and the additive
     mask [N] -> [Q, N] f32."""
     if idx_t.device.type == "cpu":
         return bm25_scores_plain(q_idx, q_w, idx_t, tf_t, doc_len, mask_add,
@@ -74,7 +74,7 @@ def bm25_scores(q_idx: torch.Tensor, q_w: torch.Tensor,
     nq, t = q_idx.shape
     dev = idx_t.device
     check_cuda("idx_t", idx_t, torch.int32, (p, n), dev)
-    check_cuda("tf_t", tf_t, torch.float32, (p, n), dev)
+    check_cuda("tf_t", tf_t, torch.bfloat16, (p, n), dev)
     check_cuda("doc_len", doc_len, torch.float32, (n,), dev)
     check_cuda("mask_add", mask_add, torch.float32, (n,), dev)
     check_cuda("q_idx", q_idx, torch.int32, (nq, t), dev)
@@ -104,7 +104,7 @@ bm25_scores.ip_launches = 0    # the launches in ip mode (K3-ip)
 
 def sparse_topk_kernel(
     idx_t: torch.Tensor,     # [P, N] i32 term-slot-major ids (-1 pad)
-    tf_t: torch.Tensor,      # [P, N] f32
+    tf_t: torch.Tensor,      # [P, N] bf16 (any float on the CPU)
     doc_len: torch.Tensor,   # [N] f32
     df: torch.Tensor,        # [V]
     n_docs: torch.Tensor,    # scalar

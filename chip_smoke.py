@@ -13,8 +13,12 @@ Phases, each printing its elapsed seconds:
    and K3-ip, each against its plain PyTorch version at the main path's
    shapes (N = MAIN_N, Q = 1, 8 and 32; K1 and K2 also at N = 1M): scores (f32, max |err| <= 1e-5 of the largest live score; K2's
    integer dot is exact, <= 1e-6) and tie-aware top-k ids; each kernel's
-   time (CUDA events, mean of 20 warmed launches), its bound on the card,
-   the plain version's time and, for K1, torch's matmul;
+   time (device time: CUDA events around one CUDA-graph replay of 20
+   captured wrapper calls; beside it the time of a wrapper call from the
+   host, CUDA events around 20 warmed calls), its bound on the card,
+   the plain version's time and one library call computing the same
+   function: torch.matmul (K1 bf16), torch.addmm (K1 f32), torch._int_mm
+   (K2 at Q = 32; it takes more than 16 query rows);
 4. main path, once on the bf16 tier and once on the SQ8 tier: a manager
    with fused_rerank at the shipped models' full geometry (6 x 256, 8
    heads, MLP 1024, 384-wide embeddings, random weights from a seeded
@@ -108,6 +112,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn``: one CUDA-graph replay of ``reps``
+    captured calls between two events, so the host's launch overhead (the
+    wrapper's checks and allocation, ctypes) is not in it; ``cuda_ms`` of
+    the same call keeps that overhead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
     return start.elapsed_time(end) / reps
 
 
@@ -212,11 +241,13 @@ def phase_kernels():
 
     def record(key, case):
         results.setdefault(key, []).append(case)
+        lib, lib_call = case["library_ms"], case.get("library_call_ms")
         log(f"kernels: {key} {case['shape']}: max_abs_err {case['max_abs_err']:.3g} "
             f"(rel {case['rel_err']:.3g}), ids differing at ties "
-            f"{case['tie_swaps']}, {case['ms']:.4f} ms, bound {case['bound_ms']:.4f} "
-            f"ms ({case['bound_by']}), plain {case['plain_ms']:.4f} ms, library "
-            f"{case['library_ms'] if case['library_ms'] is None else round(case['library_ms'], 4)} ms")
+            f"{case['tie_swaps']}, {case['ms']:.4f} ms ({case['call_ms']:.4f} a wrapper "
+            f"call), bound {case['bound_ms']:.4f} ms ({case['bound_by']}), plain "
+            f"{case['plain_ms']:.4f} ms, library "
+            + ("none" if lib is None else f"{lib:.4f} ms ({lib_call:.4f} a call)"))
 
     # K1: bf16 rows at the main path's N and at N = 1M, f32 rows at
     # N = 100k; D = 384
@@ -231,15 +262,17 @@ def phase_kernels():
             got = dk.dense_scores(q, rows, m)
             want = dk.dense_scores_plain(q, rows, m)
             err, rel, swaps = compare(got, want, 1e-5)
-            ms = cuda_ms(lambda: dk.dense_scores(q, rows, m))
+            ms = graph_ms(lambda: dk.dense_scores(q, rows, m))
+            call_ms = cuda_ms(lambda: dk.dense_scores(q, rows, m))
             plain_ms = cuda_ms(lambda: dk.dense_scores_plain(q, rows, m), reps=5)
             if dtype == torch.bfloat16:
                 qb = q.to(torch.bfloat16)
-                lib_ms = cuda_ms(lambda: torch.matmul(qb, rows.T))
+                lib = lambda: torch.matmul(qb, rows.T)  # noqa: E731
             else:
-                lib_ms = cuda_ms(lambda: torch.addmm(m[None, :], q, rows.T))
-            if dtype == torch.bfloat16:    # hi + lo query halves: two bf16 passes
-                ops, rate = 2 * 2.0 * nq * n * d, BF16_OPS_PER_S
+                lib = lambda: torch.addmm(m[None, :], q, rows.T)  # noqa: E731
+            lib_ms, lib_call_ms = graph_ms(lib), cuda_ms(lib)
+            if dtype == torch.bfloat16:    # hi, mid, lo query parts: three bf16 passes
+                ops, rate = 3 * 2.0 * nq * n * d, BF16_OPS_PER_S
             else:
                 ops, rate = 2.0 * nq * n * d, F32_OPS_PER_S
             b_ms, b_by = bound(n * d * rows.element_size() + nq * d * 4 + n * 4
@@ -247,8 +280,8 @@ def phase_kernels():
             record("K1", dict(shape=f"{str(dtype)[6:]} rows N={n} D={d} Q={nq}",
                               main=dtype == torch.bfloat16 and (n, nq) == (MAIN_N, 32),
                               max_abs_err=err, rel_err=rel, tie_swaps=swaps,
-                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=b_ms, bound_by=b_by))
+                              ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by))
         del rows
 
     # K2: SQ8 codes at the main path's N and at N = 1M, D = 384
@@ -262,15 +295,24 @@ def phase_kernels():
             got = dk.sq8_scores(q_codes, codes, scale, m)
             want = dk.sq8_scores_plain(q_codes, codes, scale, m)
             err, rel, swaps = compare(got, want, 1e-6)
-            ms = cuda_ms(lambda: dk.sq8_scores(q_codes, codes, scale, m))
+            ms = graph_ms(lambda: dk.sq8_scores(q_codes, codes, scale, m))
+            call_ms = cuda_ms(lambda: dk.sq8_scores(q_codes, codes, scale, m))
             plain_ms = cuda_ms(lambda: dk.sq8_scores_plain(q_codes, codes, scale, m),
                                reps=5)
+            if nq > 16:     # the int8 x int8 -> int32 product, without scale and mask
+                lib = lambda: torch._int_mm(q_codes, codes.T)  # noqa: E731
+                lib_ms, lib_call_ms = graph_ms(lib), cuda_ms(lib)
+            else:
+                lib_ms = lib_call_ms = None
+                log(f"kernels: K2 Q={nq}: no library time, torch._int_mm takes "
+                    "more than 16 rows")
             b_ms, b_by = bound(n * d + nq * d + n * 8 + nq * n * 4,
                                2.0 * nq * n * d, INT8_OPS_PER_S)
             record("K2", dict(shape=f"int8 codes N={n} D={d} Q={nq}",
                               main=(n, nq) == (MAIN_N, 32), max_abs_err=err,
-                              rel_err=rel, tie_swaps=swaps, ms=ms, plain_ms=plain_ms,
-                              library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                              rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by))
         del codes, scale
 
     # K3 / K3-ip: the main path's N, P = 256 slots (30-90 live, the rest
@@ -284,7 +326,7 @@ def phase_kernels():
     idx[np.arange(p)[None, :] >= live[:, None]] = -1
     tf = np.where(idx >= 0, rng.integers(1, 5, size=(n, p)), 0).astype(np.float32)
     idx_t = torch.from_numpy(np.ascontiguousarray(idx.T)).to(dev)
-    tf_t = torch.from_numpy(np.ascontiguousarray(tf.T)).to(dev)
+    tf_t = torch.from_numpy(np.ascontiguousarray(tf.T)).to(torch.bfloat16).to(dev)
     dlen = torch.from_numpy(tf.sum(1).astype(np.float32)).to(dev)
     avg_len = float(dlen.mean())
     m = third_masked(n)
@@ -301,14 +343,16 @@ def phase_kernels():
             got = sk.bm25_scores(*args)
             want = sk.bm25_scores_plain(*args)
             err, rel, swaps = compare(got, want, 1e-5)
-            ms = cuda_ms(lambda: sk.bm25_scores(*args))
+            ms = graph_ms(lambda: sk.bm25_scores(*args))
+            call_ms = cuda_ms(lambda: sk.bm25_scores(*args))
             plain_ms = cuda_ms(lambda: sk.bm25_scores_plain(*args), reps=2, warmup=1)
-            b_ms, b_by = bound(p * n * 8 + n * 8 + nq * t * 8 + nq * n * 4,
+            b_ms, b_by = bound(p * n * 6 + n * 8 + nq * t * 8 + nq * n * 4,
                                2.0 * live_slots * int(q_live.sum()), F32_OPS_PER_S)
             record(key, dict(shape=f"N={n} P={p} T={t} Q={nq}", main=nq == 32,
                              max_abs_err=err,
-                             rel_err=rel, tie_swaps=swaps, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                             rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by))
     del idx_t, tf_t
     torch.cuda.empty_cache()
     ivf_pq_kernel_cases(gen, dev, record)
@@ -358,8 +402,10 @@ def ivf_pq_kernel_cases(gen, dev, record):
                     raise AssertionError("K5 on SQ8 slabs is not bit-identical")
                 err, rel, swaps = compare(got.reshape(nq, -1), want.reshape(nq, -1),
                                           1e-6 if sq8 else 1e-5)
-                ms = cuda_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
-                                                   single=single))
+                ms = graph_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
+                                                    single=single))
+                call_ms = cuda_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
+                                                        single=single))
                 plain_ms = cuda_ms(lambda: ik.ivf_scores_plain(probes, q_in, packed,
                                                                scale), reps=3, warmup=1)
                 item = packed.element_size()
@@ -377,7 +423,7 @@ def ivf_pq_kernel_cases(gen, dev, record):
                     shape=f"{'int8' if sq8 else 'bf16'} nlist={nlist} cap={cap} "
                           f"D={d} nprobe={nprobe} Q={nq}",
                     main=(key == "K4" or (nlist, nq) == (IVF_MANAGER[0], 32)) and not sq8,
-                    max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=ms,
+                    max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
                     plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                     streamed_bound_ms=streamed_ms, unique_slabs=uniq))
         del packed, scale
@@ -391,13 +437,15 @@ def ivf_pq_kernel_cases(gen, dev, record):
             got = pk.pq_scores(codes, lut)
             want = pq_scores_xla(codes, lut)
             err, rel, swaps = compare(got, want, 1e-5)
-            ms = cuda_ms(lambda: pk.pq_scores(codes, lut))
+            ms = graph_ms(lambda: pk.pq_scores(codes, lut))
+            call_ms = cuda_ms(lambda: pk.pq_scores(codes, lut))
             plain_ms = cuda_ms(lambda: pq_scores_xla(codes, lut), reps=3, warmup=1)
             b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
                                F32_OPS_PER_S)
             record("K6", dict(shape=f"N={n} m={m} c={c} Q={nq}",
                               main=(n, nq) == (MAIN_N, 32), max_abs_err=err, rel_err=rel,
-                              tie_swaps=swaps, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              tie_swaps=swaps, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                              library_ms=None,
                               bound_ms=b_ms, bound_by=b_by, lookups=nq * n * m))
         del codes
         torch.cuda.empty_cache()
@@ -991,8 +1039,8 @@ def main() -> None:
                 launches[key] += rec["launches"][key]
 
     meta = {
-        "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "kernels.cu", True),
-        "K2": ("advanced_rag_tpu/ops/pallas_dense.py:61", "kernels.cu", True),
+        "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "dense_scan.cu", True),
+        "K2": ("advanced_rag_tpu/ops/pallas_dense.py:61", "dense_scan.cu", True),
         "K3": ("advanced_rag_tpu/ops/pallas_sparse.py:43", "kernels.cu", True),
         # K3-ip (scoring="ip") and K4 (the single-query IVF entry, which the
         # JAX package's own path never calls either) are off the main path
@@ -1011,7 +1059,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[key],
             "on_main_path": on_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "cases": cases,

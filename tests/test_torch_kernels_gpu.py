@@ -10,7 +10,8 @@ Tolerances: K1, K3, K5 on bf16/f32 slabs and K6 sum in another order
 than the plain version's matmul / reductions, so f32 scores agree to 1e-5
 relative to the largest live score of the call (a dot of 384 terms
 cancels, so a per-element relative bound would not hold near 0); masked
-entries are equal.  K2's and K5-SQ8's integer dots are exact and their
+entries are equal.  K3 reads bf16 term frequencies, as the sparse index
+stores them.  K2's and K5-SQ8's integer dots are exact and their
 scale and mask round separately, so their scores are bit-identical to the
 plain version's.
 """
@@ -88,6 +89,72 @@ def test_k2_is_bit_identical_to_plain(cuda, nq, n, d):
     assert torch.equal(got, want)
 
 
+EDGE_N = (9, 777, 4097, 131073)            # ragged to the 128-row tile
+EDGE_Q = (1, 8, 9, 17, 32, 33, 40)          # across the 8/16/32 query tiles
+
+
+def _rows(rng, n, d, dtype, dev, offset=0):
+    """[n, d] rows of ``dtype`` on ``dev``; ``offset`` elements into their
+    buffer, so offset 1 gives a contiguous view whose base is not 16-byte
+    aligned."""
+    x = rng.standard_normal((n * d + offset,), np.float32)
+    if dtype == torch.int8:
+        buf = torch.from_numpy(np.clip(np.rint(x * 40), -127, 127).astype(np.int8))
+    else:
+        buf = torch.from_numpy(x).to(dtype)
+    return buf.to(dev)[offset:].view(n, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq", EDGE_Q)
+@pytest.mark.parametrize("d", [7, 20, 36, 384])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_k1_edges_match_plain(cuda, dtype, n, d, nq):
+    rng = np.random.default_rng(n * 31 + d * 7 + nq)
+    rows = _rows(rng, n, d, dtype, cuda)
+    q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(cuda)
+    m = _mask(n, rng, cuda)
+    got = dk.dense_scores(q, rows, m)
+    torch.cuda.synchronize()
+    assert_rel_close(got, dk.dense_scores_plain(q, rows, m))
+
+
+@pytest.mark.parametrize("nq", EDGE_Q)
+@pytest.mark.parametrize("d", [20, 36, 384])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_k2_edges_are_bit_identical_to_plain(cuda, n, d, nq):
+    rng = np.random.default_rng(n * 31 + d * 7 + nq)
+    codes = _rows(rng, n, d, torch.int8, cuda)
+    q_codes = _rows(rng, nq, d, torch.int8, cuda)
+    scale = torch.from_numpy(rng.random(n, np.float32) * 0.01).to(cuda)
+    m = _mask(n, rng, cuda)
+    got = dk.sq8_scores(q_codes, codes, scale, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dk.sq8_scores_plain(q_codes, codes, scale, m))
+
+
+@pytest.mark.parametrize("nq,n,d", [(1, 4097, 384), (32, 131073, 384), (17, 777, 384),
+                                    (9, 777, 20)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_dense_scans_on_unaligned_rows(cuda, dtype, nq, n, d):
+    """A row view whose base is not 16-byte aligned takes the element-copy
+    staging inside the kernel; same results as the plain versions."""
+    rng = np.random.default_rng(n + d + nq)
+    rows = _rows(rng, n, d, dtype, cuda, offset=1)
+    assert rows.is_contiguous() and rows.data_ptr() % 16 != 0
+    assert dk.aligned_rows(rows) == 0
+    m = _mask(n, rng, cuda)
+    if dtype == torch.int8:
+        q_codes = _rows(rng, nq, d, torch.int8, cuda)
+        scale = torch.from_numpy(rng.random(n, np.float32)).to(cuda)
+        got = dk.sq8_scores(q_codes, rows, scale, m)
+        assert torch.equal(got, dk.sq8_scores_plain(q_codes, rows, scale, m))
+    else:
+        q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(cuda)
+        got = dk.dense_scores(q, rows, m)
+        assert_rel_close(got, dk.dense_scores_plain(q, rows, m))
+
+
 def test_k2_rejects_d_not_divisible_by_4(cuda):
     codes = torch.zeros((8, 6), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
@@ -106,12 +173,13 @@ def _sparse_inputs(rng, nq, t, p, n, vocab, dev):
     idx = rng.integers(0, vocab, size=(p, n)).astype(np.int32)
     idx[rng.random((p, n)) < 0.5] = -1          # padding slots anywhere
     tf = rng.integers(1, 5, size=(p, n)).astype(np.float32)
+    tf[rng.random((p, n)) < 0.01] = 257.0       # stored as 256 in bf16
     q_idx = rng.integers(0, vocab, size=(nq, t)).astype(np.int32)
     q_idx[:, t // 2:] = -1
     q_w = np.where(q_idx >= 0, rng.random((nq, t)), 0.0).astype(np.float32)
     dlen = rng.integers(1, 200, size=n).astype(np.float32)
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return to(q_idx), to(q_w), to(idx), to(tf), to(dlen)
+    return to(q_idx), to(q_w), to(idx), to(tf).to(torch.bfloat16), to(dlen)
 
 
 @pytest.mark.parametrize("scoring", ["bm25", "ip"])

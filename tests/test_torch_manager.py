@@ -52,7 +52,9 @@ def texts(n, seed):
             for _ in range(n)]
 
 
-def build(tier):
+def models_and_managers(tier):
+    """Empty JAX and port managers of ``tier`` with the same converted
+    weights, and their rerankers: (jmgr, jrr, tmgr, trr)."""
     enc_f32 = tier != "bfloat16"
     jcfg = JEncoderConfig(**GEOM, lexical_pool=True,
                           **({"dtype": jnp.float32} if enc_f32 else {}))
@@ -77,8 +79,12 @@ def build(tier):
     jc.semantic_dim = 32
     tc = PipelineConfig(fused_rerank=True, semantic_dtype=tier)
     tc.semantic_dim = 32
-    jmgr = JManager(jc, embedder=jemb)
-    tmgr = MultiIndexManager(tc, embedder=temb, device="cpu")
+    return (JManager(jc, embedder=jemb), jrr,
+            MultiIndexManager(tc, embedder=temb, device="cpu"), trr)
+
+
+def build(tier):
+    jmgr, jrr, tmgr, trr = models_and_managers(tier)
     docs = texts(96, 0)
     for lo in (0, 60):                 # two ingest batches, one growth-free
         jrep = jmgr.index_chunks([JRecord(chunk_id=f"c{i}", doc_id=f"d{i // 3}",
@@ -229,3 +235,26 @@ def test_dense_only_manager_matches_jax(monkeypatch):
                        for i, t in enumerate(docs)])
     queries = texts(4, 4)
     assert served(tmgr, trr, queries)[0] == served(jmgr, jrr, queries)[0]
+
+
+def test_fused_retrieve_tf_above_256_matches_jax():
+    """BM25 term frequencies are bf16 on the device in both packages, so a
+    chunk's tf of 257 is served as 256 by the fused path's BM25 rung and
+    its exact rescore alike (tests/test_torch_sparse.py holds search_texts).
+    At these lengths the two chunks' order on "alpha" turns on that
+    rounding: tf 257 kept in f32 would put c1 first."""
+    jmgr, jrr, tmgr, trr = models_and_managers("float32")
+    docs = ["alpha " * 300 + "zeta " * 18, "alpha " * 257 + "delta"]
+    jmgr.index_chunks([JRecord(chunk_id=f"c{i}", doc_id=f"d{i}", content=t)
+                       for i, t in enumerate(docs)])
+    tmgr.index_chunks([ChunkRecord(chunk_id=f"c{i}", doc_id=f"d{i}", content=t)
+                       for i, t in enumerate(docs)])
+    queries = ["alpha", "alpha delta", "delta"]
+    want, jout = served(jmgr, jrr, queries)
+    got, tout = served(tmgr, trr, queries)
+    assert got == want
+    assert got[0] == ["c0", "c1"]
+    for th, jh in zip(tout, jout):
+        for a, b in zip(th, jh):
+            for key in ("score", "rerank_score"):
+                assert a[key] == pytest.approx(b[key], rel=1e-5), key

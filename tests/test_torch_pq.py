@@ -47,7 +47,7 @@ def data():
 
 def test_pq_train_and_encode_match_jax(data):
     x, _, _, jcb, jcodes = data
-    tcb = tpq.pq_train(x, M, 4, iters=6, seed=0)
+    tcb = tpq.pq_train(x, M, 4, iters=6, seed=0, device="cpu")
     assert (tcb.m, tcb.bits, tcb.c, tcb.dsub, tcb.dim) == (M, 4, 16, D // M, D)
     np.testing.assert_allclose(to_np(tcb.codebooks), np.asarray(jcb.codebooks),
                                rtol=1e-5, atol=1e-6)
@@ -57,6 +57,19 @@ def test_pq_train_and_encode_match_jax(data):
     np.testing.assert_array_equal(tpq.pq_encode(x, same_cb), jcodes)
     for dim, bits in ((384, 4), (384, 8), (36, 4), (10, 4)):
         assert tpq.auto_pq_m(dim, bits) == jpq.auto_pq_m(dim, bits)
+
+
+def test_pq_train_runs_on_the_card_unless_told(data, monkeypatch):
+    """pq_train is an entry point: without a card it raises, as every entry
+    point does, unless the caller passes device="cpu"."""
+    x, _, _, jcb, _ = data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpq.pq_train(x, M, 4, iters=6, seed=0)
+    tcb = tpq.pq_train(x, M, 4, iters=6, seed=0, device="cpu")
+    assert tcb.codebooks.device.type == "cpu"
+    np.testing.assert_allclose(to_np(tcb.codebooks), np.asarray(jcb.codebooks),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_lut_and_decode_match_jax(data):

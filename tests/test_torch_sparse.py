@@ -16,8 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from advanced_rag_tpu.config import IndexConfig as JIndexConfig
+from advanced_rag_tpu.config import IndexType as JIndexType
+from advanced_rag_tpu.index.sparse_index import SparseIndex as JSparse
 from advanced_rag_tpu.ops import sparse as jsparse
 from advanced_rag_tpu.ops.pallas_sparse import sparse_topk_pallas
+from advanced_rag_tpu_torch.config import IndexConfig, IndexType
+from advanced_rag_tpu_torch.index.sparse_index import SparseIndex
+from advanced_rag_tpu_torch.index.text import encode_documents
 from advanced_rag_tpu_torch.ops import sparse as tsparse
 from advanced_rag_tpu_torch.ops import sparse_kernels as tk
 from test_torch_parity import assert_ids_tie_aware, assert_scores_close, to_np
@@ -114,3 +120,51 @@ def test_cpu_tensors_take_the_plain_version():
                           torch.tensor(50.0), torch.from_numpy(q_idx),
                           torch.from_numpy(q_tf), 5)
     assert tk.bm25_scores.launches == before
+
+
+# A chunk's term frequency above 256 rounds in bf16 (257 -> 256), as the JAX
+# package stores doc_tf on the device; the f32 host mirror keeps 257.  At
+# these lengths the query "alpha" ranks row 0 first with tf 256 for row 1,
+# and row 1 first with tf 257.
+TF_ABOVE_256 = ["alpha " * 300 + "zeta zeta", "alpha " * 257 + "delta"]
+
+
+def tf_above_256_indexes():
+    jsp = JSparse(JIndexConfig(index_type=JIndexType.SPARSE))
+    tsp = SparseIndex(IndexConfig(index_type=IndexType.SPARSE), device="cpu")
+    jsp.append_texts(0, TF_ABOVE_256)
+    tsp.append_encoded(0, *encode_documents(TF_ABOVE_256, tsp.vocab_size,
+                                            tsp.doc_nnz))
+    return jsp, tsp
+
+
+def test_tf_above_256_search_texts_matches_jax():
+    jsp, tsp = tf_above_256_indexes()
+    queries = ["alpha", "alpha delta", "delta"]
+    js, ji = jsp.search_texts(queries, 2)
+    ts, ti = tsp.search_texts(queries, 2)
+    np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
+    assert_scores_close(ts, js, rtol=1e-5, atol=0)
+    assert to_np(ti)[0].tolist() == [0, 1]
+
+
+def test_sparse_device_state_is_bf16_and_counted():
+    _, tsp = tf_above_256_indexes()
+
+    def held():
+        return (tsp.doc_idx, tsp.doc_tf, tsp.doc_len, tsp.idx_t, tsp.tf_t)
+
+    assert tsp.doc_tf.dtype == tsp.tf_t.dtype == torch.bfloat16
+    assert float(tsp.doc_tf[1].float().max()) == 256.0
+    assert float(tsp._host_tf[1].max()) == 257.0          # the host mirror: f32
+    assert tsp.memory_bytes() == sum(t.nbytes for t in held())
+    # an append that grows the capacity: both copies are uploaded again in
+    # bf16, and the appended rows are written in bf16
+    cap = tsp.capacity
+    tsp.append_encoded(4, *encode_documents(["alpha " * 259] * cap, tsp.vocab_size,
+                                            tsp.doc_nnz))
+    assert tsp.capacity > cap
+    assert tsp.doc_tf.dtype == tsp.tf_t.dtype == torch.bfloat16
+    assert float(tsp.tf_t[:, 4].float().max()) == 260.0    # 259 -> 260
+    assert float(tsp.tf_t[:, 1].float().max()) == 256.0
+    assert tsp.memory_bytes() == sum(t.nbytes for t in held())
