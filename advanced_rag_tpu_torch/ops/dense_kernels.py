@@ -30,10 +30,8 @@ from .quant import sq8_quantize
 
 #: Largest query chunk one launch takes (``ART_QMAX`` in kernels.cu).
 QMAX = 32
-#: Shared memory a launch may use without opting in to more.
-SMEM_BYTES = 48 * 1024
-#: Shared memory a block of the dense scans may opt in to (227 KB), and the
-#: bytes of one staged row in their ring of row tiles (128 + 16 pad).
+#: Shared memory a block may opt in to (227 KB), and the bytes of one staged
+#: row in the dense scans' ring of row tiles (128 + 16 pad).
 SCAN_SMEM_MAX = 232448
 SCAN_STAGE_ROW = 144
 
@@ -80,18 +78,6 @@ def aligned_rows(rows: torch.Tensor) -> int:
     else 0 (staged by element copies)."""
     return int(rows.shape[1] * rows.element_size() % 16 == 0
                and rows.data_ptr() % 16 == 0)
-
-
-def query_chunk(bytes_per_query: int) -> int:
-    """Largest power of two <= QMAX whose queries fit SMEM_BYTES."""
-    c = QMAX
-    while c > 1 and c * bytes_per_query > SMEM_BYTES:
-        c //= 2
-    if c * bytes_per_query > SMEM_BYTES:
-        raise ValueError(
-            f"one query needs {bytes_per_query} bytes of shared memory, "
-            f"more than the {SMEM_BYTES} a launch takes")
-    return c
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -278,7 +264,6 @@ __all__ = [
     "sq8_scores",
     "sq8_scores_plain",
     "dense_topk_sq8_kernel",
-    "query_chunk",
     "scan_chunk",
     "scan_plan",
     "split_query_bf16",

@@ -5,25 +5,82 @@
 LUT_bf16[q, m, codes[n, m]]`` with an f32 sum -> [Q, SB] f32, for bits <= 4
 (c <= 16 entries a subspace).  The table is rounded to bf16 here, where the
 TPU wrapper rounds it.  Bound on the H100: bytes, the N * m code bytes plus
-the [Q, N] f32 output; the Q * N * m table lookups are counted beside it
-(the source note says what the design does about both).
+the [Q, N] f32 output.
+
+Two kernels compute it, chosen by the query count of a launch
+(``pq_kernel_for``): above ``LOOKUP_MAX_Q`` queries the one-hot kernel, the
+TPU kernel's own formulation (a one-hot [rows, m * 16] matrix times the
+table [m * 16, Q], on the tensor cores with ``mma.sync``; the wrapper lays
+the table out as [m][Q][16] bf16, ``onehot_table``), and at or below it
+the lookup kernel (one shared-memory load per row, subspace and query),
+which leaves no n8 tile of the tensor cores mostly empty.  This is a shape
+dispatch between two kernels: each launch runs its kernel or raises.
 
 The wrapper serves a CPU tensor with ``pq_scores_xla`` (the JAX package's
-one-hot matmul, ``ops/pq.py``); for a CUDA tensor it launches the kernel or
-raises.  ``pq_scores.launches`` counts the kernel's launches.
+one-hot matmul, ``ops/pq.py``); for a CUDA tensor it launches a kernel or
+raises.  ``pq_scores.launches`` counts the launches of both kernels and
+``pq_scores.onehot_launches`` those of the one-hot kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dense_kernels import check_cuda, raise_on_error
+from .dense_kernels import QMAX, SCAN_SMEM_MAX, check_cuda, raise_on_error
 from .pq import pq_scores_xla
 
-#: Largest query chunk one launch takes (``PQ_QMAX`` in pq.cu).
-QMAX = 32
-#: Shared memory a launch may stage its table in (the card allows 227 KB).
-SMEM_BYTES = 200 * 1024
+#: The most queries a launch of the lookup kernel takes; more go to the
+#: one-hot kernel.  On an H100 at N = 1M, m = 96 the two take about the same
+#: time from 5 to 8 queries, the lookup kernel less below, the one-hot
+#: kernel less above (chip_smoke.py phase 3; PERF.md § 6).
+LOOKUP_MAX_Q = 8
+#: Subspaces summed in one fresh tensor-core fragment (``PQ_GROUP``).
+GROUP = 8
+
+
+def onehot_smem_bytes(qc: int, mt: int, m: int) -> int:
+    """Shared memory of one one-hot launch, as ``pq_onehot_smem`` in pq.cu
+    works it out: the table [m8][qc][32 bytes] and two stages, each the
+    codes of 256 * mt rows (16 warps of mt m16 tiles) at a pitch of an odd
+    number of 16-byte units or the epilogue's [min(qc, 16)][256 * mt + 4]
+    f32, whichever is larger."""
+    m8 = -(-m // GROUP) * GROUP
+    pitch = 16 * (-(-m // 16) | 1)
+    bm = 256 * mt
+    stage = max(bm * pitch, min(qc, 16) * (bm + 4) * 4)
+    return m8 * qc * 32 + 2 * stage
+
+
+def onehot_chunk(m: int) -> int:
+    """Queries per one-hot launch: the largest of 32, 16, 8 whose table fits
+    the 227 KB a block may opt in to (with 256-row tiles at the least)."""
+    for qc in (QMAX, 16, 8):
+        if onehot_smem_bytes(qc, 1, m) <= SCAN_SMEM_MAX:
+            return qc
+    raise ValueError(f"K6: m={m} subspaces need {onehot_smem_bytes(8, 1, m)} bytes "
+                     f"of shared memory for 8 queries, more than {SCAN_SMEM_MAX}")
+
+
+def pq_kernel_for(nq: int) -> str:
+    """The kernel a launch of ``nq`` queries runs: "lookup" or "onehot"."""
+    return "lookup" if nq <= LOOKUP_MAX_Q else "onehot"
+
+
+#: The one-hot kernel's k order inside a subspace: slot k holds code
+#: ONEHOT_K[k], so that lane t's slots (2t, 2t + 1, 2t + 8, 2t + 9) hold
+#: codes 4t .. 4t + 3 (``onehot_pair`` in pq.cu).
+ONEHOT_K = [4 * (k % 8 // 2) + k % 2 + 2 * (k // 8) for k in range(16)]
+
+
+def onehot_table(lut: torch.Tensor) -> torch.Tensor:
+    """The table [Q, m, c] f32 -> [m, Q, 16] bf16 in the kernel's k order
+    (``ONEHOT_K``), zero for codes past c: the one-hot kernel's B operand,
+    16 entries (32 bytes) of one (subspace, query) contiguous."""
+    q, m, c = lut.shape
+    t = torch.zeros((m, q, 16), dtype=torch.bfloat16, device=lut.device)
+    t[:, :, :c] = lut.to(torch.bfloat16).transpose(0, 1)
+    # code 4 t + 2 h + e -> slot 8 h + 2 t + e: a transpose of (t, h)
+    return t.view(m, q, 4, 2, 2).transpose(2, 3).reshape(m, q, 16)
 
 
 def pq_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -31,11 +88,22 @@ def pq_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     f32 -> [Q, SB] f32."""
     if codes.device.type == "cpu":
         return pq_scores_xla(codes, lut)
+    return pq_scores_by(codes, lut, None)
+
+
+def pq_scores_by(codes: torch.Tensor, lut: torch.Tensor, kernel) -> torch.Tensor:
+    """K6 on the card, every launch through ``kernel`` ("lookup" or
+    "onehot"), or through ``pq_kernel_for`` of its query count when
+    ``kernel`` is None (what ``pq_scores`` does)."""
     from .. import _build
 
     sb, m = codes.shape
     nq, m2, c = lut.shape
     dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"pq_scores_by runs on the card, got codes on {dev}")
+    if kernel not in (None, "lookup", "onehot"):
+        raise ValueError(f"unknown K6 kernel: {kernel}")
     if m2 != m:
         raise ValueError(f"codes have m={m}, the table m={m2}")
     if c > 16 or c < 2 or c & (c - 1):
@@ -45,28 +113,34 @@ def pq_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     check_cuda("codes", codes, codes.dtype, (sb, m), dev)
     lut_b = lut.to(torch.bfloat16).contiguous()   # rounded where the TPU rounds
     check_cuda("lut", lut_b, torch.bfloat16, (nq, m, c), dev)
-    per_q = m * c * 2
-    chunk = QMAX
-    while chunk > 1 and chunk * per_q > SMEM_BYTES:
-        chunk //= 2
-    if chunk * per_q > SMEM_BYTES:
-        raise ValueError(f"one query's table ({per_q} bytes) exceeds "
-                         f"{SMEM_BYTES} bytes of shared memory")
+    chunk = onehot_chunk(m)
+    kinds = [kernel or pq_kernel_for(min(chunk, nq - q0)) for q0 in range(0, nq, chunk)]
+    if "lookup" in kinds and min(chunk, nq) * m * c * 2 > SCAN_SMEM_MAX:
+        raise ValueError(f"K6: the lookup table of {min(chunk, nq)} queries exceeds "
+                         f"{SCAN_SMEM_MAX} bytes of shared memory")
+    table = onehot_table(lut) if "onehot" in kinds else None
     lib = _build.load()
     out = torch.empty((nq, sb), dtype=torch.float32, device=dev)
     vec = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        for q0 in range(0, nq, chunk):
+        for q0, kind in zip(range(0, nq, chunk), kinds):
             nc = min(chunk, nq - q0)
-            rc = lib.art_pq_scores(codes.data_ptr(), lut_b[q0].data_ptr(),
-                                   out[q0].data_ptr(), nc, sb, m, c, vec, stream)
-            raise_on_error(rc, "pq_scores (K6)")
+            if kind == "onehot":
+                rc = lib.art_pq_onehot(codes.data_ptr(), table[0, q0].data_ptr(),
+                                       out[q0].data_ptr(), nc, nq, sb, m, c, vec, stream)
+                pq_scores.onehot_launches += 1
+            else:
+                rc = lib.art_pq_scores(codes.data_ptr(), lut_b[q0].data_ptr(),
+                                       out[q0].data_ptr(), nc, sb, m, c, vec, stream)
+            raise_on_error(rc, f"pq_scores (K6, {kind})")
             pq_scores.launches += 1
     return out
 
 
-pq_scores.launches = 0
+pq_scores.launches = 0          # every launch of either kernel
+pq_scores.onehot_launches = 0   # the launches of the one-hot kernel
 
 
-__all__ = ["pq_scores"]
+__all__ = ["LOOKUP_MAX_Q", "ONEHOT_K", "onehot_chunk", "onehot_smem_bytes", "onehot_table",
+           "pq_kernel_for", "pq_scores", "pq_scores_by"]

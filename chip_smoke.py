@@ -11,14 +11,20 @@ Phases, each printing its elapsed seconds:
 2. build: the one nvcc call that builds csrc/*.cu (plain C ABI, ctypes);
 3. kernels: K1 (dense scan, bf16 and f32 rows), K2 (SQ8 scan), K3 (BM25)
    and K3-ip, each against its plain PyTorch version at the main path's
-   shapes (N = MAIN_N, Q = 1, 8 and 32; K1 and K2 also at N = 1M): scores (f32, max |err| <= 1e-5 of the largest live score; K2's
-   integer dot is exact, <= 1e-6) and tie-aware top-k ids; each kernel's
-   time (device time: CUDA events around one CUDA-graph replay of 20
-   captured wrapper calls; beside it the time of a wrapper call from the
-   host, CUDA events around 20 warmed calls), its bound on the card,
-   the plain version's time and one library call computing the same
-   function: torch.matmul (K1 bf16), torch.addmm (K1 f32), torch._int_mm
-   (K2 at Q = 32; it takes more than 16 query rows);
+   shapes (N = MAIN_N, Q = 1, 8 and 32; K1 and K2 also at N = 1M): scores
+   (f32, max |err| <= 1e-5 of the largest live score; K2's integer dot is
+   exact, <= 1e-6) and tie-aware top-k ids; each kernel's time (device
+   time: CUDA events around one CUDA-graph replay of 20 captured wrapper
+   calls; beside it the time of a wrapper call from the host, CUDA events
+   around 20 warmed calls), its bound on the card (the function's work:
+   each input read once, each output written once, its own operations;
+   for K3 one FMA per live slot and query, with the first port's
+   compare-loop count beside it), the plain version's time and one
+   library call computing the same function: torch.matmul (K1 bf16),
+   torch.addmm (K1 f32), torch._int_mm (K2 at Q = 32; it takes more than
+   16 query rows), torch.sparse.mm of the CSR tfw matrix [N, V] by the
+   dense [V, Q] weight table (K3), torch.matmul of the bf16 table by a
+   bf16 one-hot of the codes (K6);
 4. main path, once on the bf16 tier and once on the SQ8 tier: a manager
    with fused_rerank at the shipped models' full geometry (6 x 256, 8
    heads, MLP 1024, 384-wide embeddings, random weights from a seeded
@@ -49,8 +55,10 @@ Phases, each printing its elapsed seconds:
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's), K4 (Q = 1) and K6 (N = 1M and the PQ
-manager's N, m 96) against their plain versions: K5-SQ8 bit-identical,
-the others within 1e-5 of the largest score.
+manager's N, m 96; at N = 1M also both of K6's kernels, lookup and
+one-hot, at Q = 1, 2, 4, 8, 9, 16 and 32 for the crossover) against their
+plain versions: K5-SQ8 bit-identical, the others within 1e-5 of the
+largest score.
 
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}.  Any failed check raises, so the run exits
@@ -246,7 +254,8 @@ def phase_kernels():
             f"(rel {case['rel_err']:.3g}), ids differing at ties "
             f"{case['tie_swaps']}, {case['ms']:.4f} ms ({case['call_ms']:.4f} a wrapper "
             f"call), bound {case['bound_ms']:.4f} ms ({case['bound_by']}), plain "
-            f"{case['plain_ms']:.4f} ms, library "
+            + ("-" if case["plain_ms"] is None else f"{case['plain_ms']:.4f} ms")
+            + ", library "
             + ("none" if lib is None else f"{lib:.4f} ms ({lib_call:.4f} a call)"))
 
     # K1: bf16 rows at the main path's N and at N = 1M, f32 rows at
@@ -331,7 +340,17 @@ def phase_kernels():
     avg_len = float(dlen.mean())
     m = third_masked(n)
     live_slots = int((idx >= 0).sum())
+    csr_cols = torch.from_numpy(idx.astype(np.int64)).to(dev)           # [N, P]
     for scoring, key in (("bm25", "K3"), ("ip", "K3-ip")):
+        # the library's operands, built outside the timed region: the CSR
+        # matrix [N, V] of each row's tfw (coalesced: a row's repeated id
+        # sums its slots, as the scan does)
+        tfw = sk.slot_weights(idx_t, tf_t, dlen, 1.2, 0.75, avg_len, scoring).T  # [N, P]
+        live_rc = csr_cols >= 0
+        rows_rc = torch.arange(n, device=dev)[:, None].expand(n, p)[live_rc]
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows_rc, csr_cols[live_rc]]), tfw[live_rc],
+            (n, vocab), check_invariants=False).coalesce().to_sparse_csr()
         for nq in BATCHES:
             q_idx = rng.choice(vocab, size=(nq, t), p=zipf).astype(np.int32)
             q_live = rng.integers(8, t + 1, size=nq)
@@ -346,14 +365,30 @@ def phase_kernels():
             ms = graph_ms(lambda: sk.bm25_scores(*args))
             call_ms = cuda_ms(lambda: sk.bm25_scores(*args))
             plain_ms = cuda_ms(lambda: sk.bm25_scores_plain(*args), reps=2, warmup=1)
+            # the dense [V, Q] table of t-order weight sums; cuSPARSE SpMM
+            # gives [N, Q] without the mask: the easier function
+            ids, w = sk.bm25_query_table(qi, qw)
+            wd = torch.zeros((vocab, nq), dtype=torch.float32, device=dev)
+            wd[ids.long()] = w
+            lib = lambda: torch.sparse.mm(csr, wd)  # noqa: E731
+            lib_ms, lib_call_ms = graph_ms(lib), cuda_ms(lib)
+            # the function's work: every input read once, the output written
+            # once, one FMA per (live slot, query); the first port's compare
+            # loop did live slots x live query terms
             b_ms, b_by = bound(p * n * 6 + n * 8 + nq * t * 8 + nq * n * 4,
-                               2.0 * live_slots * int(q_live.sum()), F32_OPS_PER_S)
+                               2.0 * live_slots * nq, F32_OPS_PER_S)
+            cmp_ms, cmp_by = bound(p * n * 6 + n * 8 + nq * t * 8 + nq * n * 4,
+                                   2.0 * live_slots * int(q_live.sum()), F32_OPS_PER_S)
             record(key, dict(shape=f"N={n} P={p} T={t} Q={nq}", main=nq == 32,
                              max_abs_err=err,
                              rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
-                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                             bound_by=b_by))
-    del idx_t, tf_t
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             library_call_ms=lib_call_ms,
+                             library="torch.sparse.mm [N, V] CSR x [V, Q]",
+                             bound_ms=b_ms, bound_by=b_by,
+                             compare_loop_bound_ms=cmp_ms, compare_loop_bound_by=cmp_by))
+        del csr
+    del idx_t, tf_t, csr_cols
     torch.cuda.empty_cache()
     ivf_pq_kernel_cases(gen, dev, record)
     return results
@@ -424,7 +459,10 @@ def ivf_pq_kernel_cases(gen, dev, record):
                           f"D={d} nprobe={nprobe} Q={nq}",
                     main=(key == "K4" or (nlist, nq) == (IVF_MANAGER[0], 32)) and not sq8,
                     max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
-                    plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    plain_ms=plain_ms, library_ms=None,
+                    library="none: no single PyTorch call gathers each query's own "
+                            "probed slabs",
+                    bound_ms=b_ms, bound_by=b_by,
                     streamed_bound_ms=streamed_ms, unique_slabs=uniq))
         del packed, scale
         torch.cuda.empty_cache()
@@ -432,22 +470,48 @@ def ivf_pq_kernel_cases(gen, dev, record):
     m, c = PQ_M, 16
     for n, batches in ((N_TIER, BATCHES), (MAIN_N, (32,))):
         codes = torch.randint(0, c, (n, m), generator=gen, device=dev).to(torch.int8)
+        # the library's operand: the bf16 one-hot [m * c, N] of the codes
+        onehot = torch.nn.functional.one_hot(codes.long(), c).to(torch.bfloat16)
+        onehot = onehot.reshape(n, m * c).T.contiguous()
         for nq in batches:
             lut = torch.randn(nq, m, c, generator=gen, device=dev) * 0.05
-            got = pk.pq_scores(codes, lut)
             want = pq_scores_xla(codes, lut)
-            err, rel, swaps = compare(got, want, 1e-5)
-            ms = graph_ms(lambda: pk.pq_scores(codes, lut))
-            call_ms = cuda_ms(lambda: pk.pq_scores(codes, lut))
+            lut_b = lut.to(torch.bfloat16).reshape(nq, m * c)
+            lib = lambda: torch.matmul(lut_b, onehot)  # noqa: E731
+            lib_ms, lib_call_ms = graph_ms(lib), cuda_ms(lib)
             plain_ms = cuda_ms(lambda: pq_scores_xla(codes, lut), reps=3, warmup=1)
             b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
                                F32_OPS_PER_S)
-            record("K6", dict(shape=f"N={n} m={m} c={c} Q={nq}",
-                              main=(n, nq) == (MAIN_N, 32), max_abs_err=err, rel_err=rel,
-                              tie_swaps=swaps, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                              library_ms=None,
-                              bound_ms=b_ms, bound_by=b_by, lookups=nq * n * m))
-        del codes
+            # pq_scores (the kernel pq_kernel_for picks), and at N = 1M both
+            # kernels either side of the crossover
+            kernels = [None] + (["lookup", "onehot"] if n == N_TIER else [])
+            for kernel in kernels:
+                fn = ((lambda: pk.pq_scores(codes, lut)) if kernel is None else
+                      (lambda k=kernel: pk.pq_scores_by(codes, lut, k)))
+                err, rel, swaps = compare(fn(), want, 1e-5)
+                run = kernel or pk.pq_kernel_for(nq)
+                record("K6" if kernel is None else "K6-" + kernel, dict(
+                    shape=f"N={n} m={m} c={c} Q={nq} ({run})", kernel=run,
+                    main=kernel is None and (n, nq) == (MAIN_N, 32), max_abs_err=err,
+                    rel_err=rel, tie_swaps=swaps, ms=graph_ms(fn), call_ms=cuda_ms(fn),
+                    plain_ms=plain_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
+                    library="torch.matmul bf16 [Q, m*c] x one-hot [m*c, N] -> bf16",
+                    bound_ms=b_ms, bound_by=b_by, lookups=nq * n * m))
+        if n == N_TIER:     # the crossover: more Q through both kernels
+            for nq in (2, 4, pk.LOOKUP_MAX_Q + 1, 16):
+                lut = torch.randn(nq, m, c, generator=gen, device=dev) * 0.05
+                want = pq_scores_xla(codes, lut)
+                b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
+                                   F32_OPS_PER_S)
+                for kernel in ("lookup", "onehot"):
+                    fn = lambda k=kernel: pk.pq_scores_by(codes, lut, k)  # noqa: E731
+                    err, rel, swaps = compare(fn(), want, 1e-5)
+                    record("K6-" + kernel, dict(
+                        shape=f"N={n} m={m} c={c} Q={nq} ({kernel})", kernel=kernel,
+                        main=False, max_abs_err=err, rel_err=rel, tie_swaps=swaps,
+                        ms=graph_ms(fn), call_ms=cuda_ms(fn), plain_ms=None,
+                        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del codes, onehot
         torch.cuda.empty_cache()
 
 
@@ -1051,7 +1115,9 @@ def main() -> None:
     }
     kernels = []
     for key, (replaces, src, on_path) in meta.items():
-        cases = kernel_results[key]
+        # K6's cases through either kernel by name (the crossover) go with it
+        cases = kernel_results[key] + [c for k in (key + "-lookup", key + "-onehot")
+                                       for c in kernel_results.get(k, [])]
         main = next(c for c in cases if c["main"])
         kernels.append({
             "name": key, "route": "cuda",

@@ -11,9 +11,11 @@ than the plain version's matmul / reductions, so f32 scores agree to 1e-5
 relative to the largest live score of the call (a dot of 384 terms
 cancels, so a per-element relative bound would not hold near 0); masked
 entries are equal.  K3 reads bf16 term frequencies, as the sparse index
-stores them.  K2's and K5-SQ8's integer dots are exact and their
-scale and mask round separately, so their scores are bit-identical to the
-plain version's.
+stores them.  K6's one-hot kernel sums on the tensor cores, whose f32
+accumulation may round otherwise than IEEE addition; it adds each group
+of 8 subspaces into an IEEE f32 sum, and stays within the same 1e-5.
+K2's and K5-SQ8's integer dots are exact and their scale and mask round
+separately, so their scores are bit-identical to the plain version's.
 """
 
 import numpy as np
@@ -296,3 +298,128 @@ def test_k6_rejects_eight_bit_codes(cuda):
     codes = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         pk.pq_scores(codes, torch.zeros((1, 4, 256), device=cuda))
+
+
+def _k3_case(rng, nq, t, p, n, ids, dev, dead_rows=0.05):
+    """Slots drawn from ``ids`` (so most slots hit the batch's terms), live
+    slots at the front of each row, some rows all padding; queries with
+    repeated terms, padding terms and one all-padding query."""
+    live = rng.integers(0, p + 1, size=n)
+    live[rng.random(n) < dead_rows] = 0
+    idx = rng.choice(ids, size=(p, n)).astype(np.int32)
+    idx[np.arange(p)[:, None] >= live[None, :]] = -1
+    tf = rng.integers(1, 6, size=(p, n)).astype(np.float32)
+    q_idx = rng.choice(ids, size=(nq, t)).astype(np.int32)
+    q_idx[:, t - t // 4:] = -1
+    q_idx[:, 1] = q_idx[:, 0]
+    q_idx[nq // 2] = -1
+    q_w = np.where(q_idx >= 0, rng.standard_normal((nq, t)), 0.0).astype(np.float32)
+    dlen = rng.integers(1, 200, size=n).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return to(q_idx), to(q_w), to(idx), to(tf).to(torch.bfloat16), to(dlen)
+
+
+@pytest.mark.parametrize("scoring", ["bm25", "ip"])
+@pytest.mark.parametrize("t", [8, 32, 64])
+@pytest.mark.parametrize("nq", [1, 3, 17, 32, 33])
+def test_k3_table_matches_plain(cuda, scoring, nq, t):
+    """Q across the chunk's 1 / 4 / 32 query tables and past one launch
+    (33), T across the chunk plan (T = 64 takes 16 queries a launch); N not
+    a multiple of the 512-row block."""
+    rng = np.random.default_rng(nq * 100 + t)
+    n, p = 3001, 64
+    q_idx, q_w, idx, tf, dlen = _k3_case(rng, nq, t, p, n, np.arange(300), cuda)
+    m = _mask(n, rng, cuda)
+    before = sk.bm25_scores.launches
+    got = sk.bm25_scores(q_idx, q_w, idx, tf, dlen, m, 1.2, 0.75, 73.5, scoring)
+    torch.cuda.synchronize()
+    chunk = sk.bm25_chunk(t)
+    assert sk.bm25_scores.launches == before + -(-nq // chunk)
+    want = sk.bm25_scores_plain(q_idx, q_w, idx, tf, dlen, m, 1.2, 0.75, 73.5, scoring)
+    assert_rel_close(got, want)
+
+
+@pytest.mark.parametrize("t", [32, 33])
+def test_k3_table_full_of_distinct_terms(cuda, t):
+    """32 queries whose 32 * T terms are all distinct ids spread over a
+    large id range: the table and its hash hold as many ids as they can."""
+    rng = np.random.default_rng(t)
+    nq, n, p = 32, 2048, 96
+    terms = rng.choice(10 ** 7, size=nq * t, replace=False).astype(np.int32)
+    ids = np.concatenate([terms, rng.integers(0, 10 ** 7, 500)])
+    q_idx, q_w, idx, tf, dlen = _k3_case(rng, nq, t, p, n, ids, cuda)
+    q_idx = torch.from_numpy(terms.reshape(nq, t)).to(cuda)
+    q_w = torch.from_numpy(rng.random((nq, t)).astype(np.float32)).to(cuda)
+    assert sk.bm25_chunk(t) == 32
+    m = _mask(n, rng, cuda)
+    for scoring in ("bm25", "ip"):
+        got = sk.bm25_scores(q_idx, q_w, idx, tf, dlen, m, 1.2, 0.75, 50.0, scoring)
+        want = sk.bm25_scores_plain(q_idx, q_w, idx, tf, dlen, m, 1.2, 0.75, 50.0,
+                                    scoring)
+        assert_rel_close(got, want)
+
+
+def test_k3_all_padding_rows_and_queries(cuda):
+    """Rows of padding slots only score their mask, and so does every row
+    for a batch with no live term."""
+    rng = np.random.default_rng(11)
+    n, p, t = 777, 32, 8
+    q_idx, q_w, idx, tf, dlen = _k3_case(rng, 5, t, p, n, np.arange(50), cuda,
+                                         dead_rows=0.5)
+    m = _mask(n, rng, cuda)
+    got = sk.bm25_scores(q_idx, q_w, idx, tf, dlen, m, 1.2, 0.75, 40.0)
+    dead = (idx < 0).all(dim=0)
+    assert bool(dead.any())
+    assert torch.equal(got[:, dead], m[dead][None, :].expand(5, -1))
+    assert_rel_close(got, sk.bm25_scores_plain(q_idx, q_w, idx, tf, dlen, m, 1.2,
+                                               0.75, 40.0))
+    none = torch.full_like(q_idx, -1)
+    got = sk.bm25_scores(none, torch.zeros_like(q_w), idx, tf, dlen, m, 1.2, 0.75, 40.0)
+    assert torch.equal(got, m[None, :].expand(5, -1))
+
+
+@pytest.mark.parametrize("n", [1, 1023, 262144])
+@pytest.mark.parametrize("nq", [1, 5, 8, 17, 32, 33])
+@pytest.mark.parametrize("m", [8, 96, 100])
+@pytest.mark.parametrize("c", [2, 4, 8, 16])
+def test_k6_kernels_match_plain(cuda, c, m, nq, n):
+    rng = np.random.default_rng(c * 1000 + m * 10 + nq + n)
+    codes = torch.from_numpy(rng.integers(0, c, size=(n, m)).astype(np.int8)).to(cuda)
+    lut = torch.from_numpy(rng.standard_normal((nq, m, c), np.float32) * 0.1).to(cuda)
+    before = pk.pq_scores.onehot_launches
+    got = pk.pq_scores(codes, lut)
+    torch.cuda.synchronize()
+    chunks = [min(32, nq - q0) for q0 in range(0, nq, 32)]
+    assert pk.pq_scores.onehot_launches - before == sum(
+        pk.pq_kernel_for(nc) == "onehot" for nc in chunks)
+    assert_rel_close(got, pq_scores_xla(codes, lut))
+
+
+@pytest.mark.parametrize("kernel", ["lookup", "onehot"])
+@pytest.mark.parametrize("nq", [1, 9, 32])
+def test_k6_on_unaligned_codes(cuda, kernel, nq):
+    """A codes view whose base is not 16-byte aligned: both kernels stage
+    its bytes one by one."""
+    rng = np.random.default_rng(nq)
+    n, m = 5000, 96
+    buf = torch.from_numpy(rng.integers(0, 16, size=n * m + 1).astype(np.int8)).to(cuda)
+    codes = buf[1:].view(n, m)
+    assert codes.is_contiguous() and codes.data_ptr() % 16 != 0
+    lut = torch.from_numpy(rng.standard_normal((nq, m, 16), np.float32)).to(cuda)
+    got = pk.pq_scores_by(codes, lut, kernel)
+    assert_rel_close(got, pq_scores_xla(codes, lut))
+
+
+@pytest.mark.parametrize("nq", [pk.LOOKUP_MAX_Q, pk.LOOKUP_MAX_Q + 1])
+def test_k6_both_kernels_at_the_crossover(cuda, nq):
+    """Either side of the crossover, each kernel matches the plain ADC, and
+    pq_scores takes the one pq_kernel_for names."""
+    rng = np.random.default_rng(nq + 40)
+    codes = torch.from_numpy(rng.integers(0, 16, size=(131072, 96)).astype(np.int8)).to(cuda)
+    lut = torch.from_numpy(rng.standard_normal((nq, 96, 16), np.float32)).to(cuda)
+    want = pq_scores_xla(codes, lut)
+    for kernel in ("lookup", "onehot"):
+        assert_rel_close(pk.pq_scores_by(codes, lut, kernel), want)
+    before = pk.pq_scores.onehot_launches
+    assert_rel_close(pk.pq_scores(codes, lut), want)
+    assert pk.pq_scores.onehot_launches - before == int(pk.pq_kernel_for(nq) == "onehot")
