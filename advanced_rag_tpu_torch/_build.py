@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
             lib.art_bm25_scores.restype = i
             lib.art_ivf_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.art_ivf_scores.restype = i
+            lib.art_ivf_grouped.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.art_ivf_grouped.restype = i
             lib.art_pq_scores.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.art_pq_scores.restype = i
             lib.art_pq_onehot.argtypes = [p, p, p, i, i, i, i, i, i, p]

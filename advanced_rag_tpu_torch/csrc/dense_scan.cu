@@ -578,9 +578,10 @@ int launch_scan(const void* q, const void* rows, const void* scale, const void* 
     kern = dense_scores_kernel<QC, KIND == KIND_BF16, BM>;
   }
   // the opt-in and the resident-block count of the last (device, smem)
-  // this instance launched with, so a steady caller pays neither again
-  static int last_dev = -1, resident = 0;
-  static size_t last_smem = 0;
+  // this instance launched with on this host thread (a ctypes call
+  // releases the GIL), so a steady caller pays neither again
+  static thread_local int last_dev = -1, resident = 0;
+  static thread_local size_t last_smem = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

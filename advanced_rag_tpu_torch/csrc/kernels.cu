@@ -240,9 +240,10 @@ int launch_k3(const void* q_idx, const void* q_w, const void* idx_t, const void*
   if (smem > K3_SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kern = bm25_scores_kernel<QC>;
   // the opt-in and the resident-block count of the last (device, smem)
-  // this instance launched with, so a steady caller pays neither again
-  static int last_dev = -1, resident = 0;
-  static size_t last_smem = 0;
+  // this instance launched with on this host thread (a ctypes call
+  // releases the GIL), so a steady caller pays neither again
+  static thread_local int last_dev = -1, resident = 0;
+  static thread_local size_t last_smem = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

@@ -329,9 +329,10 @@ int launch_onehot(const uint8_t* codes, const uint16_t* lut, float* out, int nq,
   const size_t smem = pq_onehot_smem(QC, MT, m);
   if (smem > PQ_SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kern = pq_onehot_kernel<QC, MT>;
-  // the opt-in and the resident-block count of the last (device, smem)
-  static int last_dev = -1, resident = 0;
-  static size_t last_smem = 0;
+  // the opt-in and the resident-block count of the last (device, smem),
+  // per host thread (a ctypes call releases the GIL)
+  static thread_local int last_dev = -1, resident = 0;
+  static thread_local size_t last_smem = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

@@ -54,11 +54,20 @@ Phases, each printing its elapsed seconds:
    agree (top-10 overlap >= 0.9).
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
-geometry and the manager's), K4 (Q = 1) and K6 (N = 1M and the PQ
-manager's N, m 96; at N = 1M also both of K6's kernels, lookup and
-one-hot, at Q = 1, 2, 4, 8, 9, 16 and 32 for the crossover) against their
-plain versions: K5-SQ8 bit-identical, the others within 1e-5 of the
-largest score.
+geometry and the manager's, random probe lists; for the route rule both
+routes, streaming and grouped, on the manager's slabs at Q = 1, 2, 4, 8,
+12, 16 and 32 (bf16) and 8, 12, 16, 32 (SQ8), and on the 1M geometry's
+bf16 and SQ8 slabs at the (nprobe, Q) of CROSS_1M; f32 slabs, which only
+stream, at the manager's geometry, Q = 8 and 32;
+beside each case its unique probed slabs, the bounds with each slab read
+once per batch and once per (query, probe), and the flat superset: one
+torch.matmul / torch._int_mm of the queries by every slab row), K4
+(Q = 1) and K6 (N = 1M and the PQ manager's N, m 96; at N = 1M also both
+of K6's kernels, lookup and one-hot, at Q = 1, 2, 4, 8, 9, 16 and 32 for
+the crossover) against their plain versions: K5-SQ8 bit-identical, the
+others within 1e-5 of the largest score.  Phases 6 and 7 add K5 cases on
+real probes through both routes: each IVF tier's own slabs and the probe
+lists that 32 of its queries get at the tier's nprobe.
 
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}.  Any failed check raises, so the run exits
@@ -94,6 +103,9 @@ BATCHES = (1, 8, 32)
 #: cap = 2 * N / nlist) and the manager phase's tier over N_CHUNKS rows
 IVF_1M = (1000, 2000, 32)
 IVF_MANAGER = (312, 648, 32)
+#: (nprobe, Q) that phase 3 runs through both K5 routes at the 1M geometry,
+#: for the route rule: phase 6 serves at its tuned nprobe (8)
+CROSS_1M = ((32, 8), (32, 16), (32, 32), (8, 16), (8, 32), (8, 64))
 N_TIER = 1_000_000             # phase 6: rows of the 1M-row tiers
 N_CENTRES = 2000
 PQ_M = 96
@@ -230,6 +242,22 @@ def phase_build():
         f"{time.perf_counter() - t:.2f}s with loading")
 
 
+def log_case(key, case):
+    lib, lib_call = case["library_ms"], case.get("library_call_ms")
+    log(f"kernels: {key} {case['shape']}: max_abs_err {case['max_abs_err']:.3g} "
+        f"(rel {case['rel_err']:.3g}), ids differing at ties "
+        f"{case['tie_swaps']}, {case['ms']:.4f} ms ({case['call_ms']:.4f} a wrapper "
+        f"call), bound {case['bound_ms']:.4f} ms ({case['bound_by']}), plain "
+        + ("-" if case["plain_ms"] is None else f"{case['plain_ms']:.4f} ms")
+        + ", library "
+        + ("none" if lib is None else f"{lib:.4f} ms ({lib_call:.4f} a call)")
+        + ("" if "unique_slabs" not in case else
+           f"; {case['probes']} probes, unique slabs {case['unique_slabs']}, streamed "
+           f"bound {case['streamed_bound_ms']:.4f} ms, flat superset "
+           + ("-" if case["flat_superset_ms"] is None
+              else f"{case['flat_superset_ms']:.4f} ms")))
+
+
 def phase_kernels():
     import numpy as np
     import torch
@@ -249,14 +277,7 @@ def phase_kernels():
 
     def record(key, case):
         results.setdefault(key, []).append(case)
-        lib, lib_call = case["library_ms"], case.get("library_call_ms")
-        log(f"kernels: {key} {case['shape']}: max_abs_err {case['max_abs_err']:.3g} "
-            f"(rel {case['rel_err']:.3g}), ids differing at ties "
-            f"{case['tie_swaps']}, {case['ms']:.4f} ms ({case['call_ms']:.4f} a wrapper "
-            f"call), bound {case['bound_ms']:.4f} ms ({case['bound_by']}), plain "
-            + ("-" if case["plain_ms"] is None else f"{case['plain_ms']:.4f} ms")
-            + ", library "
-            + ("none" if lib is None else f"{lib:.4f} ms ({lib_call:.4f} a call)"))
+        log_case(key, case)
 
     # K1: bf16 rows at the main path's N and at N = 1M, f32 rows at
     # N = 100k; D = 384
@@ -394,9 +415,73 @@ def phase_kernels():
     return results
 
 
+def k5_case(probes, q_in, packed, scale, route, store=None, kind="random",
+            single=False):
+    """K5 (K4 when ``single``) through ``route`` against its plain version
+    on these inputs: SQ8 bit-identical, bf16 within 1e-5 of the
+    largest score.  Device ms (CUDA-graph replay) and a wrapper call's ms,
+    the bound with each probed slab read once per batch (unique slabs) and
+    streamed once per (query, probe) as the TPU kernel reads them, and, given
+    ``store`` (the slabs as one [nlist * cap, D] matrix), the flat superset:
+    one torch.matmul of the bf16 queries by every slab row (torch._int_mm of
+    the int8 codes, which takes more than 16 query rows), more work than K5
+    does, which tells whether the tier's kernel beats scanning everything
+    (f32 slabs: an f32 torch.matmul)."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+
+    nq, nprobe = probes.shape
+    nlist, cap, d = packed.shape
+    sq8 = packed.dtype == torch.int8
+    name = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[packed.dtype]
+
+    def fn():
+        return ik.ivf_scores_by(probes, q_in, packed, scale, route, single=single)
+
+    got = fn()
+    want = ik.ivf_scores_plain(probes, q_in, packed, scale)
+    if sq8 and not torch.equal(got, want):
+        raise AssertionError(f"K5 ({route}) on SQ8 slabs is not bit-identical")
+    err, rel, swaps = compare(got.reshape(nq, -1), want.reshape(nq, -1),
+                              1e-6 if sq8 else 1e-5)
+    plain_ms = cuda_ms(lambda: ik.ivf_scores_plain(probes, q_in, packed, scale),
+                       reps=3, warmup=1)
+    item = packed.element_size()
+    slab_b = cap * d * item + (cap * 4 if sq8 else 0)
+    out_b = nq * nprobe * cap * 4 + nq * d * item + nq * nprobe * 4
+    ops = 2.0 * nq * nprobe * cap * d
+    ops, rate = ((ops, INT8_OPS_PER_S) if sq8 else (2 * ops, BF16_OPS_PER_S)
+                 if packed.dtype == torch.bfloat16 else (ops, F32_OPS_PER_S))
+    # each input byte counted once: a slab probed by several queries of the
+    # batch is read once; the TPU kernel streams it once per (query, probe)
+    uniq = int(torch.unique(probes).numel())
+    b_ms, b_by = bound(uniq * slab_b + out_b, ops, rate)
+    streamed_ms = (nq * nprobe * slab_b + out_b) / HBM_BYTES_PER_S * 1e3
+    flat_ms = None
+    if store is not None and (not sq8 or nq > 16):
+        if sq8:
+            flat = lambda: torch._int_mm(q_in, store.T)  # noqa: E731
+        else:
+            qb = q_in.to(store.dtype)
+            flat = lambda: torch.matmul(qb, store.T)  # noqa: E731
+        flat_ms = graph_ms(flat)
+    return dict(
+        shape=f"{name} nlist={nlist} cap={cap} D={d} "
+              f"nprobe={nprobe} Q={nq} ({route})",
+        route=route, main=False, max_abs_err=err, rel_err=rel, tie_swaps=swaps,
+        ms=graph_ms(fn), call_ms=cuda_ms(fn), plain_ms=plain_ms, library_ms=None,
+        library="none: no single PyTorch call gathers each query's own probed slabs",
+        bound_ms=b_ms, bound_by=b_by, streamed_bound_ms=streamed_ms, unique_slabs=uniq,
+        flat_superset_ms=flat_ms, probes=kind)
+
+
 def ivf_pq_kernel_cases(gen, dev, record):
     """K5 (bf16 and SQ8 slabs) at the 1M-row IVF geometry and at the manager
-    phase's, K4 at Q = 1, K6 at N = 1M and at the PQ manager's N."""
+    phase's, with random probe lists (``randperm``: they share the least);
+    both of K5's routes (for the route rule) on the manager geometry and at
+    CROSS_1M on the 1M one; f32 slabs (streaming only) on the manager's; K4
+    at Q = 1, K6 at N = 1M and at the PQ manager's N."""
     import torch
 
     from advanced_rag_tpu_torch.ops import ivf_kernels as ik
@@ -419,52 +504,38 @@ def ivf_pq_kernel_cases(gen, dev, record):
         return x.to(dtype).reshape(nlist, cap, d).contiguous(), None
 
     cases = ((IVF_1M, torch.bfloat16, BATCHES), (IVF_1M, torch.int8, BATCHES),
-             (IVF_MANAGER, torch.bfloat16, BATCHES), (IVF_MANAGER, torch.int8, (32,)))
-    for (nlist, cap, nprobe), dtype, batches in cases:
+             (IVF_MANAGER, torch.bfloat16, (1, 2, 4, 8, 12, 16, 32)),
+             (IVF_MANAGER, torch.int8, (8, 12, 16, 32)),
+             (IVF_MANAGER, torch.float32, (8, 32)))
+    for (nlist, cap, nprobe0), dtype, batches in cases:
         packed, scale = slabs(nlist, cap, dtype)
+        store = packed.reshape(nlist * cap, d)
         sq8 = dtype == torch.int8
-        for nq in batches:
+        manager = nlist == IVF_MANAGER[0]
+        # (nprobe, Q, both routes): the manager's batches through both, the
+        # 1M batches through the route ivf_scores takes, then CROSS_1M
+        # through both; f32 slabs have one route, streaming
+        runs = [(nprobe0, nq, manager and dtype in ik.GROUPED) for nq in batches]
+        if not manager:
+            runs += [(npb, nq, True) for npb, nq in CROSS_1M]
+        for nprobe, nq, both in runs:
             q = l2_normalize(torch.randn(nq, d, generator=gen, device=dev)).contiguous()
             q_in = sq8_quantize(q)[0].contiguous() if sq8 else q
             probes = torch.stack([torch.randperm(nlist, generator=gen, device=dev)[:nprobe]
                                   for _ in range(nq)]).to(torch.int32).contiguous()
-            keys = [("K5", False)] + ([("K4", True)] if nq == 1 and not sq8
-                                      and nlist == IVF_1M[0] else [])
-            for key, single in keys:
-                got = ik.ivf_scores(probes, q_in, packed, scale, single=single)
-                want = ik.ivf_scores_plain(probes, q_in, packed, scale)
-                if sq8 and not torch.equal(got, want):
-                    raise AssertionError("K5 on SQ8 slabs is not bit-identical")
-                err, rel, swaps = compare(got.reshape(nq, -1), want.reshape(nq, -1),
-                                          1e-6 if sq8 else 1e-5)
-                ms = graph_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
-                                                    single=single))
-                call_ms = cuda_ms(lambda: ik.ivf_scores(probes, q_in, packed, scale,
-                                                        single=single))
-                plain_ms = cuda_ms(lambda: ik.ivf_scores_plain(probes, q_in, packed,
-                                                               scale), reps=3, warmup=1)
-                item = packed.element_size()
-                slab_b = cap * d * item + (cap * 4 if sq8 else 0)
-                out_b = nq * nprobe * cap * 4 + nq * d * item + nq * nprobe * 4
-                ops = 2.0 * nq * nprobe * cap * d
-                ops, rate = ((ops, INT8_OPS_PER_S) if sq8 else (2 * ops, BF16_OPS_PER_S))
-                # each input byte counted once: a slab probed by several
-                # queries of the batch is read once (the L2 can serve the
-                # rest); the TPU kernel streams it once per (query, probe)
-                uniq = int(torch.unique(probes).numel())
-                b_ms, b_by = bound(uniq * slab_b + out_b, ops, rate)
-                streamed_ms = (nq * nprobe * slab_b + out_b) / HBM_BYTES_PER_S * 1e3
-                record(key, dict(
-                    shape=f"{'int8' if sq8 else 'bf16'} nlist={nlist} cap={cap} "
-                          f"D={d} nprobe={nprobe} Q={nq}",
-                    main=(key == "K4" or (nlist, nq) == (IVF_MANAGER[0], 32)) and not sq8,
-                    max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
-                    plain_ms=plain_ms, library_ms=None,
-                    library="none: no single PyTorch call gathers each query's own "
-                            "probed slabs",
-                    bound_ms=b_ms, bound_by=b_by,
-                    streamed_bound_ms=streamed_ms, unique_slabs=uniq))
-        del packed, scale
+            # the route ivf_scores takes, with the flat superset beside it
+            auto = ik.ivf_route(nq, nprobe, nlist, cap, dtype, d)
+            for route in ("stream", "grouped") if both else (auto,):
+                case = k5_case(probes, q_in, packed, scale, route,
+                               store if route == auto else None)
+                case["main"] = (manager and dtype == torch.bfloat16 and nq == 32
+                                and route == auto)
+                record(f"K5-{route}" if both else "K5", case)
+            if nq == 1 and dtype == torch.bfloat16 and not manager:
+                case = k5_case(probes, q_in, packed, scale, "stream", single=True)
+                case["main"] = True
+                record("K4", case)
+        del packed, scale, store
         torch.cuda.empty_cache()
 
     m, c = PQ_M, 16
@@ -601,6 +672,7 @@ def reset_counters():
     sk.bm25_scores.ip_launches = 0
     ik.ivf_scores.launches = 0
     ik.ivf_scores.k4_launches = 0
+    ik.ivf_scores.grouped_launches = 0
     pk.pq_scores.launches = 0
 
 
@@ -615,6 +687,7 @@ def read_counters():
     return {"K1": dk.dense_scores.launches, "K2": dk.sq8_scores.launches,
             "K3": sk.bm25_scores.launches - ip, "K3-ip": ip,
             "K4": k4, "K5": ik.ivf_scores.launches - k4,
+            "K5-grouped": ik.ivf_scores.grouped_launches,
             "K6": pk.pq_scores.launches}
 
 
@@ -912,6 +985,9 @@ def phase_tiers_1m():
             raise AssertionError(f"tier {name} did not run {key}: {rec['launches']}")
         if rec["recall_at_10"] < 0.5:
             raise AssertionError(f"tier {name}: recall@10 {rec['recall_at_10']:.3f}")
+        if dtype != "pq":   # after the counters are read: a check, not the path
+            rec["real_probe_cases"] = real_probe_cases(
+                idx._ivf, torch.from_numpy(q[:32]).to(dev), idx.config.nprobe)
         log(f"tiers[{name}]: load {load_s:.2f}s, build {build_s:.2f}s, "
             + (f"nprobe {rec['nprobe']} (tune recall {rec['tune_recall']:.3f}), "
                if dtype != "pq" else "")
@@ -1008,6 +1084,10 @@ def phase_manager_tier(name, mgr, embedder, texts):
     key = "K5" if name == "ivf" else "K6"
     if rec["launches"][key] == 0:
         raise AssertionError(f"manager[{name}] did not run {key}: {rec['launches']}")
+    if name == "ivf":   # after the counters are read: a check, not the path
+        rec["real_probe_cases"] = real_probe_cases(
+            mgr.semantic._ivf, mgr.embedder.encode_device(snippet_queries(rng, texts, 32)),
+            mgr.semantic.config.nprobe)
     log(f"manager[{name}]: build {rec['build_s']:.2f}s"
         + (f", ingest {rec['ingest_s']:.2f}s" if "ingest_s" in rec else "")
         + f", first hybrid (builds postings, cap {rec['postings_cap']}) "
@@ -1020,6 +1100,32 @@ def phase_manager_tier(name, mgr, embedder, texts):
     if name == "pq":
         mgr.close()
     return rec
+
+
+def real_probe_cases(parts, q, nprobe):
+    """K5 through both routes on a tier's own slabs with the probe lists
+    that a batch of real queries ``q`` gets from ``probe_lists`` over that
+    index: real queries cluster, so they share more lists than random ones."""
+    from advanced_rag_tpu_torch.ops import ivf_kernels as ik
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize
+    from advanced_rag_tpu_torch.ops.ivf import probe_lists
+    from advanced_rag_tpu_torch.ops.quant import sq8_quantize
+
+    nlist, cap, d = parts.packed_emb.shape
+    nprobe = min(nprobe, nlist)
+    q = l2_normalize(q.float()).contiguous()
+    probes = probe_lists(parts, q, nprobe).contiguous()
+    scale = parts.packed_scale
+    q_in = q if scale is None else sq8_quantize(q)[0].contiguous()
+    auto = ik.ivf_route(len(q), nprobe, nlist, cap, parts.packed_emb.dtype, d)
+    cases = []
+    for route in ("stream", "grouped"):
+        case = k5_case(probes, q_in, parts.packed_emb, scale, route,
+                       store=parts.packed_emb.reshape(nlist * cap, d)
+                       if route == auto else None, kind="real")
+        log_case(f"K5-{route}", case)
+        cases.append(case)
+    return cases
 
 
 def phase_tier_reference():
@@ -1097,6 +1203,8 @@ def main() -> None:
     phase_reference()
     tiers_1m = phase_tiers_1m()
     phase_tier_reference()
+    for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
+        kernel_results["K5"] += rec.pop("real_probe_cases")
     for runs in (tiers_1m, manager_tiers):
         for rec in runs.values():
             for key in KERNEL_KEYS:
@@ -1115,9 +1223,11 @@ def main() -> None:
     }
     kernels = []
     for key, (replaces, src, on_path) in meta.items():
-        # K6's cases through either kernel by name (the crossover) go with it
-        cases = kernel_results[key] + [c for k in (key + "-lookup", key + "-onehot")
-                                       for c in kernel_results.get(k, [])]
+        # K5's and K6's cases through a route or kernel by name (the
+        # crossovers) go with them
+        cases = kernel_results[key] + [
+            c for k in ("lookup", "onehot", "stream", "grouped")
+            for c in kernel_results.get(f"{key}-{k}", [])]
         main = next(c for c in cases if c["main"])
         kernels.append({
             "name": key, "route": "cuda",

@@ -16,6 +16,8 @@ accumulation may round otherwise than IEEE addition; it adds each group
 of 8 subspaces into an IEEE f32 sum, and stays within the same 1e-5.
 K2's and K5-SQ8's integer dots are exact and their scale and mask round
 separately, so their scores are bit-identical to the plain version's.
+K5's grouped route sums bf16 slabs on the tensor cores over three bf16
+parts of the query (as K1), within the same 1e-5.
 """
 
 import numpy as np
@@ -232,7 +234,13 @@ def _slabs(rng, nlist, cap, d, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
 @pytest.mark.parametrize("nq,nlist,cap,d,nprobe", [
     (1, 64, 136, 384, 16), (8, 312, 648, 384, 32), (32, 100, 200, 384, 32),
-    (3, 9, 40, 36, 5), (2, 5, 8, 20, 5)])
+    (3, 9, 40, 36, 5), (2, 5, 8, 20, 5),
+    # Q > the grouped scan's query chunk; Q either side of the manager
+    # geometry's crossover; nprobe = nlist; more lists than the plan counts
+    # in shared memory
+    (40, 100, 200, 384, 32), (12, 312, 648, 384, 32),
+    (16, 312, 648, 384, 32), (8, 24, 100, 384, 24),
+    (33, 9000, 8, 64, 4)])
 def test_k5_matches_plain(cuda, dtype, nq, nlist, cap, d, nprobe):
     rng = np.random.default_rng(nq * 7 + nlist + cap + d)
     packed, scale, _ = _slabs(rng, nlist, cap, d, dtype, cuda)
@@ -250,6 +258,177 @@ def test_k5_matches_plain(cuda, dtype, nq, nlist, cap, d, nprobe):
         assert torch.equal(got, want)
     else:
         assert_rel_close(got, want)
+
+
+def _k5_inputs(rng, dtype, nq, nlist, cap, d, dev):
+    packed, scale, _ = _slabs(rng, nlist, cap, d, dtype, dev)
+    q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(dev)
+    q_in = sq8_quantize(q)[0].contiguous() if dtype == torch.int8 else q
+    return packed, scale, q_in
+
+
+def _assert_k5(got, want, dtype):
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert_rel_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("pattern", ["same_lists", "one_list"])
+@pytest.mark.parametrize("nq", [2, 9, 32, 40])
+def test_k5_skewed_probes_match_plain(cuda, dtype, pattern, nq):
+    """Every query probes the same lists (groups of Q), or every pair the
+    same list (one group of Q * nprobe, repeated inside each query)."""
+    rng = np.random.default_rng(nq + len(pattern))
+    nlist, cap, d, nprobe = 50, 300, 384, 12
+    packed, scale, q_in = _k5_inputs(rng, dtype, nq, nlist, cap, d, cuda)
+    if pattern == "same_lists":
+        row = rng.choice(nlist, nprobe, replace=False)
+        probes = np.tile(row, (nq, 1))
+    else:
+        probes = np.full((nq, nprobe), 17)
+    probes = torch.from_numpy(probes.astype(np.int32)).to(cuda)
+    for route in ("stream", "grouped") if dtype in ik.GROUPED else ("stream",):
+        got = ik.ivf_scores_by(probes, q_in, packed, scale, route)
+        _assert_k5(got, ik.ivf_scores_plain(probes, q_in, packed, scale), dtype)
+    if dtype not in ik.GROUPED:     # f32 slabs stream; a forced grouped launch raises
+        with pytest.raises(ValueError, match="bf16 or int8"):
+            ik.ivf_scores_by(probes, q_in, packed, scale, "grouped")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_k5_launches_are_bit_identical(cuda, dtype):
+    """The grouped plan orders a group's pairs by atomics; no score depends
+    on that order."""
+    rng = np.random.default_rng(3)
+    nq, nlist, cap, d, nprobe = 32, 40, 333, 384, 16
+    packed, scale, q_in = _k5_inputs(rng, dtype, nq, nlist, cap, d, cuda)
+    probes = torch.from_numpy(np.stack([rng.choice(nlist, nprobe, replace=False)
+                                        for _ in range(nq)]).astype(np.int32)).to(cuda)
+    first = ik.ivf_scores(probes, q_in, packed, scale)
+    for _ in range(3):
+        assert torch.equal(ik.ivf_scores(probes, q_in, packed, scale), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_k5_grouped_launches_from_two_threads(cuda, dtype):
+    """Two host threads launch the grouped scan at once on two slab
+    tensors (a ctypes call releases the GIL): each launch scores its own
+    slabs, so no launch may take the other's tensor map."""
+    import threading
+
+    rng = np.random.default_rng(17)
+    jobs = []
+    for nlist, cap in ((40, 333), (64, 200)):
+        nq, d, nprobe = 32, 384, 16
+        packed, scale, q_in = _k5_inputs(rng, dtype, nq, nlist, cap, d, cuda)
+        probes = torch.from_numpy(np.stack([rng.choice(nlist, nprobe, replace=False)
+                                            for _ in range(nq)]).astype(np.int32)).to(cuda)
+        jobs.append((probes, q_in, packed, scale, []))
+    start = threading.Barrier(len(jobs))
+
+    def run(probes, q_in, packed, scale, outs):
+        start.wait()
+        for _ in range(40):
+            outs.append(ik.ivf_scores_by(probes, q_in, packed, scale, "grouped"))
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for probes, q_in, packed, scale, outs in jobs:
+        assert len(outs) == 40
+        want = ik.ivf_scores_plain(probes, q_in, packed, scale)
+        for got in outs:
+            _assert_k5(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_k5_graph_replay_rebuilds_the_plan(cuda, dtype):
+    """A CUDA graph of the grouped route, replayed after probes are
+    rewritten in place: each replay scores the new probes."""
+    rng = np.random.default_rng(8)
+    nq, nlist, cap, d, nprobe = 32, 312, 648, 384, 32
+    packed, scale, q_in = _k5_inputs(rng, dtype, nq, nlist, cap, d, cuda)
+
+    def draw(skew):
+        p = np.stack([rng.choice(nlist, nprobe, replace=False) for _ in range(nq)])
+        p[:skew] = p[0]
+        return torch.from_numpy(p.astype(np.int32)).to(cuda)
+
+    probes = draw(0)
+    assert ik.ivf_route(nq, nprobe, nlist, cap, dtype, d) == "grouped"
+    ik.ivf_scores(probes, q_in, packed, scale)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        out = ik.ivf_scores(probes, q_in, packed, scale)
+    for skew in (0, 31, 5, 32):
+        probes.copy_(draw(skew))
+        g.replay()
+        torch.cuda.synchronize()
+        _assert_k5(out, ik.ivf_scores_plain(probes, q_in, packed, scale), dtype)
+
+
+def test_k5_counters_follow_the_route(cuda):
+    rng = np.random.default_rng(12)
+    nlist, cap, d, nprobe = 312, 648, 384, 32
+    packed, _, _ = _k5_inputs(rng, torch.bfloat16, 1, nlist, cap, d, cuda)
+    routes = [ik.ivf_route(nq, nprobe, nlist, cap, torch.bfloat16, d) for nq in (1, 32)]
+    assert routes == ["stream", "grouped"]
+    for nq in (1, 12, 16, 32):
+        q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(cuda)
+        probes = torch.from_numpy(np.stack([rng.choice(nlist, nprobe, replace=False)
+                                            for _ in range(nq)]).astype(np.int32)).to(cuda)
+        before = (ik.ivf_scores.launches, ik.ivf_scores.grouped_launches,
+                  ik.ivf_scores.k4_launches)
+        got = ik.ivf_scores(probes, q, packed)
+        grouped = int(ik.ivf_route(nq, nprobe, nlist, cap, torch.bfloat16, d) == "grouped")
+        assert (ik.ivf_scores.launches, ik.ivf_scores.grouped_launches,
+                ik.ivf_scores.k4_launches) == (before[0] + 1, before[1] + grouped, before[2])
+        assert_rel_close(got, ik.ivf_scores_plain(probes, q, packed))
+        if nq == 1:
+            before = (ik.ivf_scores.grouped_launches, ik.ivf_scores.k4_launches)
+            ik.ivf_scores(probes, q, packed, single=True)
+            assert (ik.ivf_scores.grouped_launches, ik.ivf_scores.k4_launches) == (
+                before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("route", ["stream", "grouped"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_k5_out_of_range_probes_score_zero(cuda, route, dtype):
+    rng = np.random.default_rng(21)
+    nq, nlist, cap, d, nprobe = 6, 40, 100, 384, 5
+    packed, scale, q_in = _k5_inputs(rng, dtype, nq, nlist, cap, d, cuda)
+    p = np.stack([rng.choice(nlist, nprobe, replace=False) for _ in range(nq)])
+    p[0, 0], p[-1, -1], p[2, 1] = -1, nlist, nlist + 7
+    probes = torch.from_numpy(p.astype(np.int32)).to(cuda)
+    # NaN in the block the caching allocator hands the output next
+    junk = torch.full((nq, nprobe, cap), float("nan"), device=cuda)
+    del junk
+    out = ik.ivf_scores_by(probes, q_in, packed, scale, route)
+    bad = (probes < 0) | (probes >= nlist)
+    assert bool((out[bad] == 0).all())
+    want = ik.ivf_scores_plain(probes.clamp(0, nlist - 1), q_in, packed, scale)
+    _assert_k5(out[~bad], want[~bad], dtype)
+
+
+def test_k5_grouped_route_refuses_rows_it_cannot_copy_whole(cuda):
+    """The grouped route copies whole 16-byte aligned rows; other slabs
+    stream (and a forced grouped launch raises)."""
+    rng = np.random.default_rng(30)
+    nq, nlist, cap, d, nprobe = 16, 20, 50, 36, 5     # bf16 rows of 72 bytes
+    packed, _, q = _k5_inputs(rng, torch.bfloat16, nq, nlist, cap, d, cuda)
+    probes = torch.from_numpy(np.stack([rng.choice(nlist, nprobe, replace=False)
+                                        for _ in range(nq)]).astype(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ik.ivf_scores_by(probes, q, packed, None, "grouped")
+    before = ik.ivf_scores.grouped_launches
+    assert_rel_close(ik.ivf_scores(probes, q, packed), ik.ivf_scores_plain(probes, q, packed))
+    assert ik.ivf_scores.grouped_launches == before
 
 
 def test_k4_and_k5_search_match_the_plain_path(cuda):
