@@ -39,4 +39,107 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "DeviceLike", "__version__"]
+# The submodules import resolve_device/DeviceLike from this package, so
+# they are defined above, before any submodule is imported.
+from .config import (  # noqa: E402
+    IndexConfig,
+    IndexType,
+    MeshConfig,
+    Metric,
+    PipelineConfig,
+    RetrievalConfig,
+    load_component_configs,
+    load_pipeline_config,
+    load_yaml_config,
+)
+from .index import (  # noqa: E402
+    ChunkRecord,
+    CorpusStore,
+    DenseIndex,
+    MultiIndexManager,
+    SparseIndex,
+)
+from .models.cross_encoder import CrossEncoderReranker  # noqa: E402
+from .pipeline import (  # noqa: E402
+    AdaptiveChunker,
+    AdvancedRAGPipeline,
+    ComplianceManager,
+    DocumentDiagnostics,
+    ExperimentManager,
+    HybridRetriever,
+    LearnedHybridAdapter,
+    LearnedRanker,
+    QueryClassifier,
+    QueryDecomposer,
+    QueryRewriter,
+    RAGEvaluator,
+    RetrievalResult,
+    SemanticEnricher,
+)
+from .pipeline.chunking import Chunk, ChunkMetadata  # noqa: E402
+from .pipeline.compliance import (  # noqa: E402
+    AuditEventType,
+    AuditLog,
+    DocumentVersion,
+)
+from .pipeline.diagnostics import DiagnosticMetrics  # noqa: E402
+from .pipeline.enrichment import EnrichmentResult  # noqa: E402
+from .pipeline.evaluation import DriftReport, EvaluationMetrics  # noqa: E402
+from .pipeline.orchestrator import PipelineStage  # noqa: E402
+from .pipeline.query_ops import DecompositionResult  # noqa: E402
+from .pipeline.ranker import LearnedRankerConfig  # noqa: E402
+from .utils.exceptions import AdvancedRAGException, RAGException  # noqa: E402
+
+# Migration alias, as in the JAX package: the reference exposes its index
+# layer as ``MilvusIndexManager`` (indexing.py:80).
+MilvusIndexManager = MultiIndexManager
+
+__all__ = [
+    "__version__",
+    "DeviceLike",
+    "resolve_device",
+    "AdaptiveChunker",
+    "AuditEventType",
+    "AuditLog",
+    "Chunk",
+    "ChunkMetadata",
+    "CrossEncoderReranker",
+    "DecompositionResult",
+    "DiagnosticMetrics",
+    "DocumentVersion",
+    "DriftReport",
+    "EnrichmentResult",
+    "EvaluationMetrics",
+    "LearnedRankerConfig",
+    "MilvusIndexManager",
+    "PipelineStage",
+    "AdvancedRAGException",
+    "AdvancedRAGPipeline",
+    "ChunkRecord",
+    "ComplianceManager",
+    "CorpusStore",
+    "DenseIndex",
+    "DocumentDiagnostics",
+    "ExperimentManager",
+    "HybridRetriever",
+    "IndexConfig",
+    "IndexType",
+    "LearnedHybridAdapter",
+    "LearnedRanker",
+    "MeshConfig",
+    "Metric",
+    "MultiIndexManager",
+    "PipelineConfig",
+    "QueryClassifier",
+    "QueryDecomposer",
+    "QueryRewriter",
+    "RAGEvaluator",
+    "RAGException",
+    "RetrievalConfig",
+    "RetrievalResult",
+    "SemanticEnricher",
+    "SparseIndex",
+    "load_component_configs",
+    "load_pipeline_config",
+    "load_yaml_config",
+]

@@ -165,7 +165,7 @@ class PipelineConfig:
     chunk_overlap: float = ChunkingConstants.OVERLAP_RATIO
     # storage dtype for the semantic embedding matrix: "bfloat16" (default),
     # "float32", "int8" (SQ8 tier, ops/quant.py: int8 codes + row
-    # scales), or "pq" (product-quantized tier, not ported yet)
+    # scales), or "pq" (product-quantized tier, ops/pq.py)
     semantic_dtype: str = "bfloat16"
     # exact re-score factor for quantized tiers (int8/pq); 0 = auto per
     # tier (int8 -> 2, pq -> 32), 1 disables

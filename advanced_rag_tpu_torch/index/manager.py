@@ -9,9 +9,12 @@ family), ``hybrid_search_batch_sync``/``hybrid_search_sync`` (dense +
 BM25 + RRF + MMR over any tier: flat, SQ8, IVF or PQ) and
 ``fused_retrieve_batch_sync`` (embed + hybrid + cross-encoder rerank, flat
 and SQ8 tiers); the tier builds ``build_semantic``; ``delete_by_filter``,
-``get_collection_stats`` and ``close``.  Maintenance, checkpoints, IVF-PQ,
-the domain family and the hashing-embedder default of the unfused manager
-come with later slices (ROADMAP.md).
+``get_collection_stats`` and ``close``; and ``rescore_candidates_sync``,
+the exact per-tier rescore the unfused rerank stage builds its key from.
+Without an embedder the manager embeds with ``HashingEmbedder``, or with
+``NeuralEmbedder`` under ``config.fused_rerank``, as the JAX manager does.
+Maintenance, checkpoints, IVF-PQ and the domain family come with later
+slices (ROADMAP.md).
 
 Every search passes a row mask (validity or compiled filters), because the
 device tensors are padded to capacity.
@@ -22,14 +25,14 @@ from __future__ import annotations
 import asyncio
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
 from ..config import IndexConfig, IndexType, Metric, PipelineConfig
-from ..models.embedder import Embedder, NeuralEmbedder
+from ..models.embedder import Embedder, HashingEmbedder, NeuralEmbedder
 from ..ops.dense import NEG_INF, l2_normalize
 from ..utils.cache import EmbeddingCache, semantic_cache
 from ..utils.exceptions import IndexingError, ValidationError
@@ -52,18 +55,23 @@ class MultiIndexManager:
         embedder: Optional[Embedder] = None,
         *,
         enable_sparse: bool = True,
+        enable_domain: bool = False,
         semantic_cache_: Optional[EmbeddingCache] = None,
         device: DeviceLike = None,
     ):
+        if enable_domain:
+            raise NotImplementedError(
+                "the domain index family is not ported yet (ROADMAP.md, "
+                "queue A item 3); build the manager with enable_domain=False")
         self.device = resolve_device(device)
         self.config = config or PipelineConfig()
         dev = self.device
         if embedder is None:
-            if not self.config.fused_rerank:
-                raise NotImplementedError(
-                    "the hashing-embedder default of the unfused manager "
-                    "comes with the non-fused search slice; pass an embedder")
-            embedder = NeuralEmbedder(dim=self.config.semantic_dim, device=dev)
+            # the JAX manager's defaults: the neural bi-encoder for the
+            # fused program, else the training-free hashing projection
+            embedder = (NeuralEmbedder(dim=self.config.semantic_dim, device=dev)
+                        if self.config.fused_rerank else
+                        HashingEmbedder(dim=self.config.semantic_dim, device=dev))
         emb_dev = getattr(embedder, "device", dev)
         if torch.device(emb_dev) != dev:
             raise ValueError(f"embedder is on {emb_dev}, the manager on {dev}")
@@ -79,6 +87,11 @@ class MultiIndexManager:
                         pq_opq=self.config.semantic_opq),
             device=dev)
         self.enable_sparse = enable_sparse
+        # no domain family yet: the attributes the JAX manager's callers
+        # read, as the JAX manager has them with enable_domain=False
+        self.enable_domain = False
+        self.domain_embedder = None
+        self.domain = None
         self.sparse = (SparseIndex(IndexConfig(index_type=IndexType.SPARSE),
                                    device=dev)
                        if enable_sparse else None)
@@ -345,6 +358,7 @@ class MultiIndexManager:
         *,
         dense_weight: float = 0.7,
         sparse_weight: float = 0.3,
+        domain_weight: float = 0.2,
         rrf_k: int = 60,
         use_mmr: bool = True,
         mmr_lambda: float = 0.8,
@@ -361,7 +375,9 @@ class MultiIndexManager:
         or the exact scan (K1).  BM25 takes the inverted postings once the
         corpus reaches ``SparseIndex.POSTINGS_AUTO_THRESHOLD`` live rows
         (building them on first use) or once they exist, and the
-        compare-scan kernel K3 below that.
+        compare-scan kernel K3 below that.  ``domain_weight`` weights the
+        domain family, which the port does not have yet: it is unused, as
+        in the JAX manager without that family.
         """
         from ..config import Metric
         from ..ops.hybrid import hybrid_retrieve
@@ -704,6 +720,62 @@ class MultiIndexManager:
                                            rerank_score=float(ce)))
             out.append(hits)
         return out
+
+    def rescore_candidates_sync(
+        self,
+        queries: Sequence[str],
+        rows: np.ndarray,                 # [Q, K] i32 candidate rows (-1 pad)
+        filters: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact per-tier rescore of retrieval candidates (host entry).
+
+        -> (dense [Q, K], bm25 [Q, K]) f32: each candidate's exact dense
+        dot and full-body BM25 (``ops/rescore.py``).  The unfused rerank
+        stage builds its base key from these; the fused program computes
+        the same in-program (``rerank_base="exact"``).  PQ corpora keep
+        no full-precision rows, so they raise, as in the JAX manager.
+        """
+        from ..ops.rescore import exact_tier_scores
+
+        if self._closed:
+            raise IndexingError("index manager is closed")
+        if self.semantic._pq_mode:
+            raise IndexingError(
+                "rescore_candidates_sync needs full-precision embeddings "
+                "(bf16/f32/SQ8 tiers); PQ corpora keep ADC scores")
+        rows = np.asarray(rows, np.int32)
+        if rows.ndim != 2 or len(queries) != rows.shape[0]:
+            raise ValidationError(
+                "rescore_candidates_sync needs rows shaped [len(queries), K]")
+        if not queries:
+            return (np.zeros((0, 0), np.float32),) * 2
+        dev = self.device
+        q = self.embedder.encode_device(list(queries)).float()
+        if self.semantic.config.metric == Metric.COSINE:
+            q = l2_normalize(q)
+        mask = self._row_mask(filters)
+        if self.sparse is not None:
+            sp = self.sparse
+            q_idx, q_tf = sp.encode_query(list(queries))
+            sparse_args = (sp.doc_idx, sp.doc_tf, sp.doc_len, sp.df,
+                           self._scalar(max(sp.n_docs, 1)))
+        else:
+            n_cap = self.semantic.capacity
+            q_idx = np.full((len(queries), 1), -1, np.int32)
+            q_tf = np.zeros((len(queries), 1), np.float32)
+            sparse_args = (
+                torch.full((n_cap, 1), -1, dtype=torch.int32, device=dev),
+                torch.zeros((n_cap, 1), dtype=torch.float32, device=dev),
+                torch.zeros(n_cap, dtype=torch.float32, device=dev),
+                torch.zeros(8, dtype=torch.int32, device=dev),
+                self._scalar(1.0))
+        with torch.inference_mode():
+            d_ex, s_ex = exact_tier_scores(
+                torch.from_numpy(rows).to(dev), q,
+                torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_tf).to(dev),
+                self.semantic.emb, *sparse_args, valid=mask,
+                emb_scale=self.semantic.emb_scale if self.semantic._sq8 else None)
+        return (d_ex.float().cpu().numpy(), s_ex.float().cpu().numpy())
 
     # -- admin ---------------------------------------------------------------------
 

@@ -10,8 +10,10 @@ for ``BiEncoder`` or ``CrossEncoder`` of ``models/encoder.py``:
   weights, with the [heads, hd] biases flattened to [H];
 - ``nn.Embed`` tables keep their [vocab, H] layout.
 
-``ivf_partitions_from_numpy``, ``pq_from_numpy`` and ``postings_from_numpy``
-carry the JAX package's index state (IVF partitions, PQ codebooks and
+``hashing_from_numpy`` builds a ``HashingEmbedder`` around the JAX
+embedder's signed projection, so two default (unfused) managers embed
+alike.  ``ivf_partitions_from_numpy``, ``pq_from_numpy`` and
+``postings_from_numpy`` carry the JAX package's index state (IVF partitions, PQ codebooks and
 codes, inverted postings), given as numpy, over into the port's tensors,
 so that both packages can search identical state.
 
@@ -98,6 +100,16 @@ def encoder_config_from_meta(meta: Mapping[str, Any], **overrides: Any):
     return EncoderConfig(**kw)
 
 
+def hashing_from_numpy(proj: Any, device: DeviceLike = None):
+    """The JAX ``HashingEmbedder``'s projection [vocab_size, dim] (numpy)
+    -> the port's ``HashingEmbedder`` with that projection on ``device``."""
+    from .embedder import HashingEmbedder
+
+    proj = np.asarray(proj, np.float32)
+    return HashingEmbedder(dim=proj.shape[1], vocab_size=proj.shape[0],
+                           proj=proj, device=device)
+
+
 def _tensor(a: Any, device: DeviceLike) -> torch.Tensor:
     """numpy (bf16 arrays from ml_dtypes included) -> tensor on device."""
     arr = np.asarray(a)
@@ -143,5 +155,5 @@ def postings_from_numpy(post_rows: Any, post_tf: Any, post_tfw: Any,
             _tensor(post_tfw, device).to(torch.bfloat16))
 
 
-__all__ = ["params_from_jax", "encoder_config_from_meta",
+__all__ = ["params_from_jax", "encoder_config_from_meta", "hashing_from_numpy",
            "ivf_partitions_from_numpy", "pq_from_numpy", "postings_from_numpy"]

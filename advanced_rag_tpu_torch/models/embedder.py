@@ -87,9 +87,12 @@ class NeuralEmbedder:
 class HashingEmbedder:
     """Deterministic signed-random-projection embedder (device gather).
 
-    The projection is drawn from a seeded ``torch.Generator``; it is not the
-    JAX package's projection (the two frameworks draw different numbers
-    from one seed), only the same construction.
+    Without ``proj`` the projection is drawn from a seeded
+    ``torch.Generator``; it is not the JAX package's projection (the two
+    frameworks draw different numbers from one seed), only the same
+    construction.  ``proj`` ([vocab_size, dim] f32) gives the projection
+    itself, for example the JAX embedder's, carried over by
+    ``models/convert.py:hashing_from_numpy``.
     """
 
     def __init__(
@@ -98,16 +101,27 @@ class HashingEmbedder:
         vocab_size: int = 16384,
         doc_nnz: int = 128,
         seed: int = 0,
+        proj: Optional[Any] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
         self.dim = dim
         self.vocab_size = vocab_size
         self.doc_nnz = doc_nnz
-        self.cache_tag = f"hash{dim}v{vocab_size}s{seed}"
-        gen = torch.Generator().manual_seed(seed)
-        signs = torch.randint(0, 2, (vocab_size, dim), generator=gen)
-        self._proj = ((signs.float() * 2.0 - 1.0) / np.sqrt(dim)).to(self.device)
+        if proj is None:
+            self.cache_tag = f"hash{dim}v{vocab_size}s{seed}"
+            gen = torch.Generator().manual_seed(seed)
+            signs = torch.randint(0, 2, (vocab_size, dim), generator=gen)
+            proj = (signs.float() * 2.0 - 1.0) / np.sqrt(dim)
+        else:
+            proj = torch.from_numpy(np.array(proj, np.float32, copy=True))
+            if tuple(proj.shape) != (vocab_size, dim):
+                raise ValueError(f"proj is {tuple(proj.shape)}, expected "
+                                 f"({vocab_size}, {dim})")
+            # a given projection is not the seeded draw: its own cache
+            # identity, so the two never exchange cached embeddings
+            self.cache_tag = f"hash{dim}v{vocab_size}p{uuid.uuid4().hex[:12]}"
+        self._proj = proj.to(self.device)
 
     @torch.inference_mode()
     def encode_device(self, texts: Sequence[str]) -> torch.Tensor:

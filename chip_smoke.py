@@ -51,7 +51,27 @@ Phases, each printing its elapsed seconds:
    (BM25 from the inverted postings, built at the first call since the
    corpus is over 50k rows); last, both tiers on a small corpus, on the
    card and by the plain path on the CPU with the card's tier state, must
-   agree (top-10 overlap >= 0.9).
+   agree (top-10 overlap >= 0.9);
+8. service (after phases 4 and 7, with no other manager alive): the
+   port's aiohttp app (create_app over AdvancedRAGPipeline, driven
+   in-process through aiohttp's test server and client on a localhost
+   socket; the phase fails if aiohttp is not installed) in both
+   configurations the service starts in.  Fused: a bf16 manager of its
+   own over the same 100k chunks with phase 4's embedder and
+   cross-encoder; POST /ingest of SERVICE_DOCS seeded documents
+   (diagnostics, chunking, enrichment, index_chunks, compliance), long
+   enough that chunking splits each, then POST /retrieve from 1, 8 and 32
+   concurrent clients (the orchestrator micro-batches them into
+   fused_retrieve_batch_sync) and 8 probes, each a one-sentence
+   document's text, which must come back in its top 10; K1 and K3 must
+   run.  Default: a HashingEmbedder manager over the same 100k chunks,
+   HybridRetriever micro-batching into hybrid_search_batch_sync; the same
+   requests; K1 must run.  Every answer must be a 200 with results.
+   Printed: /retrieve p50/p99 per concurrency against the 80 ms SLA,
+   requests/s, /perf's stage p50s, ingest documents/s, launches.  Last,
+   the pipeline on the card against the CPU plain path on a small corpus
+   (fused f32 and int8 tiers, default f32 tier, seeded f32 weights):
+   top-10 overlap >= 0.9.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -71,12 +91,13 @@ lists that 32 of its queries get at the tier's nprobe.
 
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}.  Any failed check raises, so the run exits
-non-zero and prints no result.  The script starts no server and no
-background thread.
+non-zero and prints no result.  Phase 8's server listens on localhost
+only and stops, with its worker threads, before the phase ends.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import subprocess
 import time
@@ -586,19 +607,26 @@ def ivf_pq_kernel_cases(gen, dev, record):
         torch.cuda.empty_cache()
 
 
-def synthetic_corpus(n: int, seed: int):
-    """n chunks of WORDS_PER_CHUNK words from a seeded Zipf vocabulary."""
+def zipf_vocab(rng):
+    """30,000 random lowercase words and their Zipf weights, from ``rng``."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
     vocab_n = 30_000
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     lens = rng.integers(3, 11, size=vocab_n)
     pool = letters[rng.integers(0, 26, size=(vocab_n, 10))]
     vocab = np.array(["".join(pool[i, :lens[i]]) for i in range(vocab_n)])
     p = 1.0 / (np.arange(vocab_n) + 20.0)
-    p /= p.sum()
-    words = vocab[rng.choice(vocab_n, size=(n, WORDS_PER_CHUNK), p=p)]
+    return vocab, p / p.sum()
+
+
+def synthetic_corpus(n: int, seed: int):
+    """n chunks of WORDS_PER_CHUNK words from a seeded Zipf vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab, p = zipf_vocab(rng)
+    words = vocab[rng.choice(len(vocab), size=(n, WORDS_PER_CHUNK), p=p)]
     return [" ".join(row[:PROBE_WORDS] if i % PROBE_EVERY == 0 else row)
             for i, row in enumerate(words)]
 
@@ -730,7 +758,8 @@ def phase_main_path(texts, after_bf16):
     """Phase 4; ``after_bf16(mgr)`` runs on the bf16 tier's manager
     once its measurements are read (phase 7 builds the IVF tier on it), and
     the manager is closed before the SQ8 tier starts, so each tier's
-    numbers are taken with no other manager alive."""
+    numbers are taken with no other manager alive.  Returns the launches,
+    the tiers' records, the embedder and the cross-encoder."""
     import numpy as np
     import torch
 
@@ -823,7 +852,7 @@ def phase_main_path(texts, after_bf16):
         mgr.close()
         del mgr
         torch.cuda.empty_cache()
-    return launches, tiers, embedder
+    return launches, tiers, embedder, reranker
 
 
 def phase_reference():
@@ -1187,6 +1216,435 @@ def phase_tier_reference():
         SparseIndex.POSTINGS_AUTO_THRESHOLD = saved
 
 
+#: phase 8 (the service): documents POSTed to /ingest (600-1500 words,
+#: which the default chunking splits into two to four chunks each; its
+#: target is about 500 tokens), the probe documents among them (one
+#: sentence of PROBE_WORDS words: a query made of it sees the tokens the
+#: chunk was embedded from), /retrieve requests from one client, and
+#: rounds per client at 8 and 32 concurrent clients
+SERVICE_DOCS = 256
+SERVICE_SEQUENTIAL = 200
+SERVICE_ROUNDS = {8: 12, 32: 6}
+SERVICE_TOP_K = 10
+SLA_MS = 80.0                  # PerformanceConstants.TARGET_LATENCY_MS
+#: the service's per-client rate limits (10 ingests, 60 retrieves a
+#: minute) would refuse a load test from one address; RAG_*_RPM raise
+#: them, as a deployment does for a bulk load.  Everything else stands
+#: at the service's defaults: the 300 ms degrade budget, 64 requests in
+#: flight, micro-batches of up to 16 queries.
+SERVICE_ENV = {"RAG_RETRIEVE_RPM": "1000000000", "RAG_INGEST_RPM": "1000000000"}
+
+
+def service_documents(seed: int, n: int):
+    """n documents of 600-1500 words in sentences of 8-24 words, then
+    SERVICE_PROBES one-sentence probe documents; returns (docs, probes)
+    with probes = [(doc_id, query)], the query being the probe's text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab, p = zipf_vocab(rng)
+    docs = []
+    for i in range(n):
+        sents, total = [], int(rng.integers(600, 1501))
+        while total > 0:
+            k = min(total, int(rng.integers(8, 25)))
+            total -= k
+            w = vocab[rng.choice(len(vocab), size=k, p=p)]
+            sents.append(w[0].capitalize() + " " + " ".join(w[1:]) + ".")
+        docs.append({"doc_id": f"svc{i}", "content": " ".join(sents)})
+    probes = []
+    for i in range(8):
+        text = " ".join(vocab[rng.choice(len(vocab), size=PROBE_WORDS, p=p)])
+        docs.append({"doc_id": f"probe{i}", "content": text})
+        probes.append((f"probe{i}", text))
+    return docs, probes
+
+
+class HttpDriver:
+    """The service through aiohttp's test server and client on a
+    localhost socket: what a user's HTTP client sees."""
+
+    def __init__(self, client):
+        self.client = client
+
+    async def ingest(self, docs):
+        resp = await self.client.post("/ingest", json={"documents": docs})
+        if resp.status != 200:
+            raise AssertionError(f"/ingest answered {resp.status}: {await resp.text()}")
+        return await resp.json()
+
+    async def retrieve(self, query):
+        resp = await self.client.post("/retrieve",
+                                      json={"query": query, "top_k": SERVICE_TOP_K})
+        return resp.status, await resp.json()
+
+    async def warm_up(self):
+        resp = await self.client.post("/admin/warmup", json={"top_k": [SERVICE_TOP_K]})
+        if resp.status != 200:
+            raise AssertionError(f"/admin/warmup answered {resp.status}")
+
+    async def perf(self):
+        resp = await self.client.get("/perf")
+        return await resp.json()
+
+
+async def drive_service(driver, pipeline, batches, docs, probes, queries,
+                        warm_route):
+    """Ingest, warm, then /retrieve from 1, 8 and 32 concurrent clients
+    and the probes; every answer must be a 200 with results.  Each level
+    also reads, from the pipeline's own telemetry, the p50 of its
+    requests' ``AdvancedRAGPipeline.retrieve`` and of their stages, so the
+    client's latency splits into the service's share (HTTP, event loop,
+    thread hop) and the pipeline's, and ``batches`` (the manager's batch
+    calls, (ms, queries), appended by ``timed_manager``) gives the device
+    batch's own time."""
+    import numpy as np
+
+    rec = {}
+    t = time.perf_counter()
+    chunks = 0
+    for s0 in range(0, len(docs), 64):
+        rep = await driver.ingest(docs[s0:s0 + 64])
+        if rep["errors"]:
+            raise AssertionError(f"ingest errors: {rep['errors'][:3]}")
+        chunks += rep["indexed"]
+    rec["ingest_s"] = time.perf_counter() - t
+    rec["ingest_docs_per_s"] = len(docs) / rec["ingest_s"]
+    rec["ingest_chunks"] = chunks
+
+    async def one(q):
+        """(ms, None or how the answer failed, payload)"""
+        t0 = time.perf_counter()
+        status, payload = await driver.retrieve(q)
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = (None if status == 200 and payload.get("results")
+               else f"{status} with {len(payload.get('results') or [])} results")
+        return ms, bad, payload
+
+    async def client(qs):
+        return [(await one(q))[:2] for q in qs]
+
+    def telemetry():
+        return {"retrieve": len(pipeline._retrieve_latencies), "batches": len(batches),
+                **{k: len(v) for k, v in pipeline._stage_latencies.items()}}
+
+    def p50_since(before):
+        """p50 ms of the samples each window gained since ``before``
+        (the windows hold LATENCY_WINDOW samples, more than a level adds)."""
+        out = {}
+        for key, n0 in before.items():
+            if key == "batches":
+                new = batches[n0:]
+                out["manager_batch"] = float(np.percentile([b[0] for b in new], 50))
+                out["queries_per_batch"] = float(np.mean([b[1] for b in new]))
+                continue
+            vals = (pipeline._retrieve_latencies if key == "retrieve"
+                    else pipeline._stage_latencies[key])[n0:]
+            if vals:
+                out[key] = float(np.percentile(vals, 50))
+        return out
+
+    async def load(conc, rounds, qs):
+        before = telemetry()
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*[client(qs[i * rounds:(i + 1) * rounds])
+                                     for i in range(conc)])
+        wall = time.perf_counter() - t0
+        ms = np.asarray([m for c in out for m, _ in c])
+        rec = dict(requests=int(ms.size), p50_ms=float(np.percentile(ms, 50)),
+                   p99_ms=float(np.percentile(ms, 99)), mean_ms=float(ms.mean()),
+                   max_ms=float(ms.max()), requests_per_s=ms.size / wall,
+                   pipeline_p50_ms=p50_since(before))
+        bad = [b for c in out for _, b in c if b]
+        if bad:     # every answer must be a 200 with results
+            raise AssertionError(f"/retrieve from {conc} client(s): {len(bad)} of "
+                                 f"{ms.size} answers failed ({sorted(set(bad))}); "
+                                 f"level {rec}")
+        return rec
+
+    # warm: the first use builds nothing new (phase 2 built the kernels),
+    # but each batch size's first launches are slower; the default
+    # configuration warms its program shapes through /admin/warmup, the
+    # fused one by traffic (/admin/warmup would also warm the unfused
+    # shapes, whose first hybrid search builds the postings, and the
+    # fused program would then take its BM25 from them instead of K3)
+    t = time.perf_counter()
+    if warm_route:
+        await driver.warm_up()
+    for conc in (1, 8, 32):
+        await load(conc, 2, queries[:2 * conc])
+    rec["warm_s"] = time.perf_counter() - t
+    qi = 2 * 32
+    rec["retrieve"] = {}
+    for conc, rounds in ((1, SERVICE_SEQUENTIAL), *SERVICE_ROUNDS.items()):
+        rec["retrieve"][conc] = await load(conc, rounds, queries[qi:qi + conc * rounds])
+        qi += conc * rounds
+    found = 0
+    for doc_id, text in probes:
+        _, bad, payload = await one(text)
+        if bad:
+            raise AssertionError(f"/retrieve of a probe answered {bad}")
+        found += doc_id in [r["doc_id"] for r in payload["results"]]
+    rec["probes_found"] = found
+    perf = await driver.perf()
+    rec["stage_p50_ms"] = {k: v["p50"] for k, v in perf["stages_ms"].items()
+                           if v["count"]}
+    rec["micro_batcher"] = perf.get("fused_micro_batcher", perf.get("micro_batcher"))
+    return rec
+
+
+def timed_manager(mgr, batches):
+    """Time the manager's batch entry points on this instance: each call
+    appends (ms, queries) to ``batches`` (the calls end in a device->host
+    copy, so the host clock covers the device work)."""
+    for name in ("fused_retrieve_batch_sync", "hybrid_search_batch_sync"):
+        def timed(queries, *args, _fn=getattr(mgr, name), **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(queries, *args, **kwargs)
+            batches.append(((time.perf_counter() - t0) * 1e3, len(queries)))
+            return out
+        setattr(mgr, name, timed)
+
+
+def run_service(pipeline, db, docs, probes, queries, warm_route):
+    """``drive_service`` over the port's app on a localhost socket; the
+    counters are zeroed just before and read just after.  The app's
+    shutdown closes the pipeline and its manager."""
+    import torch
+
+    batches = []
+    timed_manager(pipeline.index_manager, batches)
+
+    async def go():
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from advanced_rag_tpu_torch.service import create_app
+        from advanced_rag_tpu_torch.service.metrics import PROM
+
+        client = TestClient(TestServer(create_app(pipeline.config, pipeline=pipeline,
+                                                  db=db)))
+        await client.start_server()
+        try:
+            reset_counters()
+            rec = await drive_service(HttpDriver(client), pipeline, batches, docs,
+                                      probes, queries, warm_route)
+            torch.cuda.synchronize()
+            rec["launches"] = read_counters()
+            # without prometheus_client the service answers 501 there
+            resp = await client.get("/metrics")
+            text = await resp.text()
+            if (resp.status, "rag_retrieve_latency_ms" in text) != (
+                    (200, True) if PROM else (501, False)):
+                raise AssertionError(f"/metrics answered {resp.status}")
+        finally:
+            await client.close()     # on_shutdown closes the pipeline
+        return rec
+
+    try:
+        return asyncio.run(go())
+    finally:
+        for name in ("fused_retrieve_batch_sync", "hybrid_search_batch_sync"):
+            delattr(pipeline.index_manager, name)
+
+
+def log_service(name, rec):
+    log(f"service[{name}]: ingest {rec['ingest_chunks']} chunks of "
+        f"{SERVICE_DOCS + 8} documents in {rec['ingest_s']:.2f}s "
+        f"({rec['ingest_docs_per_s']:.1f} documents/s); warm {rec['warm_s']:.2f}s")
+    for conc, v in rec["retrieve"].items():
+        pl = v["pipeline_p50_ms"]
+        log(f"service[{name}]: /retrieve from {conc} client(s): {v['requests']} requests, "
+            f"p50 {v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms, max {v['max_ms']:.2f} ms "
+            f"(SLA {SLA_MS:.0f} ms: "
+            f"p99 {'within' if v['p99_ms'] <= SLA_MS else 'over'}), "
+            f"{v['requests_per_s']:.1f} requests/s; inside: pipeline.retrieve p50 "
+            f"{pl['retrieve']:.2f} ms; the manager's batch p50 {pl['manager_batch']:.2f} "
+            f"ms at {pl['queries_per_batch']:.1f} queries a batch; stages p50 "
+            + ", ".join(f"{k} {pl[k]:.3f}" for k in
+                        ("query_rewrite", "retrieval", "reranking", "evaluation",
+                         "compliance") if k in pl))
+    log(f"service[{name}]: /perf stage p50 ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["stage_p50_ms"].items())
+        + f"; micro-batcher {rec['micro_batcher']}")
+    log(f"service[{name}]: probes found {rec['probes_found']}/8; launches "
+        f"{rec['launches']}")
+
+
+def phase_service(embedder, reranker, texts):
+    """Phase 8: the port's service (create_app over AdvancedRAGPipeline) in
+    both configurations it starts in, each over a manager of its own that
+    the app's shutdown closes.
+
+    - fused: a bf16 manager over the 100k chunks with phase 4's embedder
+      and, on the retriever, phase 4's cross-encoder; POST /ingest of
+      SERVICE_DOCS documents (diagnostics, chunking, enrichment,
+      index_chunks, compliance), then /retrieve from 1, 8 and 32
+      concurrent clients (the orchestrator's micro-batcher forms the
+      batches) and 8 probes; K1 and K3 must run;
+    - default: a HashingEmbedder manager over the same 100k texts (built
+      through index_chunks), HybridRetriever micro-batching into
+      hybrid_search_batch_sync, the host passthrough rerank; the same
+      requests; K1 must run.
+
+    Every answer must be a 200 with results and every probe document must
+    come back in its top 10.  Returns the records and the launches."""
+    import gc
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline, HybridRetriever
+    from advanced_rag_tpu_torch.utils.db_pool import DatabasePool
+
+    if importlib.util.find_spec("aiohttp") is None:
+        raise AssertionError("phase 8 drives the port's HTTP service, which needs "
+                             "aiohttp; it is not installed on this machine")
+    saved_env = {k: os.environ.get(k) for k in (*SERVICE_ENV, "API_KEY")}
+    os.environ.update(SERVICE_ENV)
+    os.environ.pop("API_KEY", None)
+    gc_threshold = gc.get_threshold()
+    docs, probes = service_documents(31, SERVICE_DOCS)
+    rng = np.random.default_rng(29)
+    n_queries = 2 * 32 + SERVICE_SEQUENTIAL + sum(c * r for c, r in SERVICE_ROUNDS.items())
+    queries = snippet_queries(rng, texts, n_queries)
+    db_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(db_dir, exist_ok=True)
+    out = {}
+
+    def manager(name, cfg, embedder=None):
+        t = time.perf_counter()
+        mgr = MultiIndexManager(cfg, embedder=embedder, device="cuda")
+        ingest_all(mgr, texts)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        log(f"service[{name}]: {type(mgr.embedder).__name__} manager over "
+            f"{mgr.store.n_valid()} chunks built through index_chunks in {build_s:.2f}s")
+        return mgr, build_s
+
+    try:
+        # fused: the pipeline's config carries the serving knobs phase 4 ran
+        cfg = PipelineConfig(fused_rerank=True, semantic_dtype="bfloat16",
+                             rerank_mode="residual", rerank_base="exact",
+                             rerank_alpha=0.5, rescore_mix=0.65)
+        cfg.semantic_dim = embedder.dim
+        mgr, build_s = manager("fused", cfg, embedder)
+        pipe = AdvancedRAGPipeline(cfg, index_manager=mgr, retriever=HybridRetriever(
+            mgr, cfg.retrieval, reranker=reranker))
+        if not pipe._use_fused_path():
+            raise AssertionError("the fused service does not take the fused path")
+        rows_before = mgr.store.size
+        # the heap setup that /admin/warmup applies for serving
+        # (RAG_GC_TUNE), which this configuration does not call
+        # (drive_service says why): without it, full collections rescan
+        # the process's heap under load
+        gc.collect()
+        gc.freeze()
+        gc.set_threshold(200_000, 50, 100)
+        log(f"service[fused]: {gc.get_freeze_count()} objects frozen")
+        db = DatabasePool(sqlite_path=os.path.join(db_dir, "service_fused.db"))
+        rec = run_service(pipe, db, docs, probes, queries, warm_route=False)
+        if mgr.store.size - rows_before != rec["ingest_chunks"]:
+            raise AssertionError("the ingested chunks did not all reach the store")
+        if rec["ingest_chunks"] < 2 * SERVICE_DOCS:
+            raise AssertionError(f"chunking split too few documents: "
+                                 f"{rec['ingest_chunks']} chunks")
+        rec["manager_build_s"] = build_s
+        log_service("fused", rec)
+        if rec["launches"]["K1"] == 0 or rec["launches"]["K3"] == 0:
+            raise AssertionError(f"the fused service ran no K1 or K3: {rec['launches']}")
+        out["fused"] = rec
+        del pipe, mgr
+        torch.cuda.empty_cache()
+
+        # default: the hashing embedder, the unfused micro-batched search
+        dcfg = PipelineConfig()
+        dmgr, build_s = manager("default", dcfg)
+        dpipe = AdvancedRAGPipeline(dcfg, index_manager=dmgr)
+        if dpipe._use_fused_path():
+            raise AssertionError("the default service took the fused path")
+        db = DatabasePool(sqlite_path=os.path.join(db_dir, "service_default.db"))
+        rec = run_service(dpipe, db, docs, probes, queries, warm_route=True)
+        rec["manager_build_s"] = build_s
+        log_service("default", rec)
+        if rec["launches"]["K1"] == 0:
+            raise AssertionError(f"the default service ran no K1: {rec['launches']}")
+        out["default"] = rec
+        del dpipe, dmgr
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gc.unfreeze()            # /admin/warmup freezes the heap for serving
+        gc.set_threshold(*gc_threshold)
+    for name in ("fused", "default"):
+        if out[name]["probes_found"] != 8:
+            raise AssertionError(f"service[{name}]: probes found "
+                                 f"{out[name]['probes_found']}/8")
+    return out
+
+
+def phase_service_reference():
+    """Phase 8's check: AdvancedRAGPipeline on the card against the CPU
+    plain path on a small corpus, same seeded f32 weights: fused on the f32
+    tier (K1, K3) and on the int8 tier (K2), default (hashing embedder) on
+    the f32 tier; top-10 overlap >= 0.9 in each."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
+    from advanced_rag_tpu_torch.models.embedder import HashingEmbedder, NeuralEmbedder
+    from advanced_rag_tpu_torch.models.encoder import SHIPPED_BIENCODER, SHIPPED_RERANKER
+    from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline
+
+    bi = dataclasses.replace(SHIPPED_BIENCODER, num_layers=2, dtype=torch.float32)
+    ce = dataclasses.replace(SHIPPED_RERANKER, num_layers=2, dtype=torch.float32)
+    docs, probes = service_documents(37, 96)
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    texts = [d["content"] for d in docs]
+    queries = snippet_queries(rng, texts, 16) + [q for _, q in probes[:4]]
+    out = {}
+    for name, fused, tier in (("fused-f32", True, "float32"), ("fused-int8", True, "int8"),
+                              ("default-f32", False, "float32")):
+        ids = {}
+        for d in ("cuda", "cpu"):
+            cfg = PipelineConfig(fused_rerank=fused, semantic_dtype=tier)
+            cfg.semantic_dim = 384
+            cfg.retrieval.timeout_seconds = 120.0   # a check, not a measurement
+            emb = (NeuralEmbedder(dim=384, config=bi, seed=3, device=d) if fused
+                   else HashingEmbedder(dim=384, seed=3, device=d))
+            pipe = AdvancedRAGPipeline(cfg, index_manager=MultiIndexManager(
+                cfg, embedder=emb, device=d), device=d)
+            if fused:
+                pipe.retriever.reranker = CrossEncoderReranker(config=ce, seed=4,
+                                                               device=d)
+            pipe.ingest_documents(docs)
+            res = [pipe.retrieve(q, top_k=10) for q in queries]
+            if any(r["degraded"] or not r["results"] for r in res):
+                raise AssertionError(f"service reference[{name}]: an empty result")
+            ids[d] = [[h.chunk_id for h in r["results"]] for r in res]
+            pipe.close()
+        overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
+        frac = overlap / sum(len(b) for b in ids["cpu"])
+        out[name] = frac
+        log(f"service reference[{name}]: card vs CPU plain path, /retrieve's pipeline "
+            f"top-10 overlap {frac:.3f} over {len(queries)} queries")
+        if frac < 0.9:
+            raise AssertionError(f"card and CPU disagree ({name}: {frac:.3f})")
+    return out
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -1196,16 +1654,21 @@ def main() -> None:
     log(f"corpus: {len(texts)} chunks of {WORDS_PER_CHUNK} words made in "
         f"{time.perf_counter() - t:.2f}s")
     manager_tiers = {}
-    launches, tiers, embedder = phase_main_path(
-        texts, lambda mgr: manager_tiers.update(
-            ivf=phase_manager_tier("ivf", mgr, mgr.embedder, texts)))
+
+    def after_bf16(mgr):
+        manager_tiers.update(ivf=phase_manager_tier("ivf", mgr, mgr.embedder, texts))
+
+    launches, tiers, embedder, reranker = phase_main_path(texts, after_bf16)
     manager_tiers["pq"] = phase_manager_tier("pq", None, embedder, texts)
+    service = phase_service(embedder, reranker, texts)
     phase_reference()
+    service["reference"] = phase_service_reference()
     tiers_1m = phase_tiers_1m()
     phase_tier_reference()
     for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
         kernel_results["K5"] += rec.pop("real_probe_cases")
-    for runs in (tiers_1m, manager_tiers):
+    for runs in (tiers_1m, manager_tiers,
+                 {k: service[k] for k in ("fused", "default")}):
         for rec in runs.values():
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
@@ -1244,7 +1707,8 @@ def main() -> None:
         if launches[key] == 0:
             raise AssertionError(f"{key} was never launched on the main paths")
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
-                      "manager_tiers": manager_tiers, "nvidia_smi": smi}), flush=True)
+                      "manager_tiers": manager_tiers, "service": service,
+                      "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -3,7 +3,8 @@ kernels are built.
 
 - The port and chip_smoke.py import no JAX, Flax, orbax or JAX package
   (checked in a fresh interpreter, over every module of the port).
-- Entry points run on the CUDA card unless given ``device="cpu"``; with no
+- Entry points (the models, the manager, the pipeline, the retriever and
+  the service) run on the CUDA card unless given ``device="cpu"``; with no
   card they raise instead of moving to the CPU.
 - The kernels build with one nvcc call for sm_90a from sources that
   include no PyTorch header.
@@ -15,6 +16,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -26,6 +28,8 @@ from advanced_rag_tpu_torch.index.manager import MultiIndexManager
 from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
 from advanced_rag_tpu_torch.models.embedder import HashingEmbedder, NeuralEmbedder
 from advanced_rag_tpu_torch.models.encoder import EncoderConfig
+from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline, HybridRetriever
+from advanced_rag_tpu_torch.service import create_app
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = EncoderConfig(vocab_size=256, hidden_dim=16, num_layers=1, num_heads=2,
@@ -82,9 +86,20 @@ def test_entry_points_raise_without_a_card(no_card):
         HashingEmbedder(dim=8, vocab_size=64)
     with pytest.raises(RuntimeError):
         MultiIndexManager(PipelineConfig(fused_rerank=True))
+    with pytest.raises(RuntimeError):
+        MultiIndexManager(PipelineConfig())
+    with pytest.raises(RuntimeError):
+        AdvancedRAGPipeline()
+    with pytest.raises(RuntimeError):
+        AdvancedRAGPipeline(PipelineConfig(fused_rerank=True))
+    cpu_mgr = MultiIndexManager(PipelineConfig(), device="cpu")
+    with pytest.raises(RuntimeError):
+        HybridRetriever(cpu_mgr, device="cuda")
+    with pytest.raises(RuntimeError):
+        create_app()
 
 
-def test_entry_points_run_on_cpu_when_asked(no_card):
+def test_entry_points_run_on_cpu_when_asked(no_card, tmp_path, monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     emb = NeuralEmbedder(dim=8, config=SMALL, device="cpu")
     assert emb.encode(["a b c"]).shape == (1, 8)
@@ -98,6 +113,31 @@ def test_entry_points_run_on_cpu_when_asked(no_card):
     assert mgr.device == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
+    # the default (unfused) manager and pipeline: the hashing embedder
+    pipe = AdvancedRAGPipeline(device="cpu")
+    assert pipe.device == pipe.index_manager.device == torch.device("cpu")
+    assert isinstance(pipe.index_manager.embedder, HashingEmbedder)
+    assert pipe.index_manager.embedder.device == torch.device("cpu")
+    ret = HybridRetriever(pipe.index_manager)
+    assert ret.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="reranker is on cuda"):
+        HybridRetriever(pipe.index_manager,
+                        reranker=SimpleNamespace(device=torch.device("cuda")))
+    cfg = PipelineConfig(fused_rerank=True)
+    cfg.semantic_dim = 8
+    fused = AdvancedRAGPipeline(cfg, index_manager=mgr)
+    assert fused.device == torch.device("cpu")
+    monkeypatch.setenv("CHAT_DB_PATH", str(tmp_path / "chat.db"))
+    for name in ("RAG_EMBEDDER", "RAG_RERANKER", "RAG_CHECKPOINT_DIR"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("RAG_FUSED_E2E", "1")
+    app = create_app(device="cpu")
+    state = app["state"]
+    assert state.device == state.pipeline.device == torch.device("cpu")
+    assert state.pipeline.retriever.reranker.device == torch.device("cpu")
+    state.pipeline.close()
+    state.db.close()
+    pipe.close()
 
 
 def test_build_is_one_nvcc_call_for_sm_90a(tmp_path):

@@ -602,3 +602,102 @@ def test_k6_both_kernels_at_the_crossover(cuda, nq):
     before = pk.pq_scores.onehot_launches
     assert_rel_close(pk.pq_scores(codes, lut), want)
     assert pk.pq_scores.onehot_launches - before == int(pk.pq_kernel_for(nq) == "onehot")
+
+
+def test_k1_and_k3_launch_from_two_threads(cuda):
+    """The service launches K1 and K3 from its executor threads at once
+    (a ctypes call releases the GIL): two host threads, each launching
+    both kernels 40 times on its own tensors, get the plain versions'
+    scores every time."""
+    import threading
+
+    rng = np.random.default_rng(23)
+    jobs = []
+    for nq, n in ((1, 131072), (32, 4097)):
+        rows = torch.from_numpy(rng.standard_normal((n, 384), np.float32)).to(cuda)
+        q = torch.from_numpy(rng.standard_normal((nq, 384), np.float32)).to(cuda)
+        m = _mask(n, rng, cuda)
+        sparse = _sparse_inputs(rng, nq, 32, 64, n, 512, cuda)
+        jobs.append((q, rows.to(torch.bfloat16), m, sparse, []))
+    start = threading.Barrier(len(jobs))
+
+    def run(q, rows, m, sparse, outs):
+        start.wait()
+        for _ in range(40):
+            outs.append((dk.dense_scores(q, rows, m),
+                         sk.bm25_scores(*sparse, m, 1.2, 0.75, 73.5, "bm25")))
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for q, rows, m, sparse, outs in jobs:
+        assert len(outs) == 40
+        want_d = dk.dense_scores_plain(q, rows, m)
+        want_s = sk.bm25_scores_plain(*sparse, m, 1.2, 0.75, 73.5, "bm25")
+        for got_d, got_s in outs:
+            assert_rel_close(got_d, want_d)
+            assert_rel_close(got_s, want_s)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_pipeline_retrieve_on_the_card_matches_the_cpu_plain_path(cuda, fused):
+    """AdvancedRAGPipeline on the card (K1, and K3 in the fused program)
+    against the same pipeline on the CPU (the plain versions), with the
+    same seeded f32 weights on the f32 tier: top-10 overlap >= 0.9.  The
+    unfused pipeline's host rerank key must come from the manager's exact
+    rescore on each retrieve, not from the fused-score fallback."""
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
+    from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
+    from advanced_rag_tpu_torch.models.encoder import EncoderConfig
+    from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline
+
+    words = np.array("dense sparse fusion rank vector token query index shard cache "
+                     "filter chunk model score merge tier scan kernel batch recall "
+                     "latency corpus embed rerank bucket hash table slot".split())
+    rng = np.random.default_rng(3)
+    docs = [". ".join(" ".join(rng.choice(words, 9)) for _ in range(6)) + "."
+            for _ in range(120)]
+    queries = [" ".join(rng.choice(words, 5)) for _ in range(8)]
+    geom = dict(vocab_size=4096, hidden_dim=64, num_layers=2, num_heads=4,
+                mlp_dim=128, max_len=128, dtype=torch.float32)
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        cfg = PipelineConfig(fused_rerank=fused, semantic_dtype="float32",
+                             chunk_base_size=30, chunk_min_size=8, chunk_max_size=60)
+        cfg.semantic_dim = 64
+        cfg.retrieval.timeout_seconds = 120.0
+        emb = NeuralEmbedder(dim=64, config=EncoderConfig(**geom, lexical_pool=True),
+                             seed=5, device=dev)
+        pipe = AdvancedRAGPipeline(cfg, index_manager=MultiIndexManager(
+            cfg, embedder=emb, device=dev), device=dev)
+        pipe.retriever.reranker = CrossEncoderReranker(
+            config=EncoderConfig(**geom, lexical_match=True), seed=6, device=dev)
+        assert pipe._use_fused_path() == fused
+        rescores = []
+        rescore = pipe.index_manager.rescore_candidates_sync
+
+        def counted(*args, **kwargs):
+            rescores.append(len(args[0]))
+            return rescore(*args, **kwargs)
+
+        pipe.index_manager.rescore_candidates_sync = counted
+        pipe.ingest_documents([{"doc_id": f"d{i}", "content": t}
+                               for i, t in enumerate(docs)])
+        before = (dk.dense_scores.launches, sk.bm25_scores.launches)
+        outs = [pipe.retrieve(q, top_k=10) for q in queries]
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert dk.dense_scores.launches > before[0]
+            if fused:
+                assert sk.bm25_scores.launches > before[1]
+        assert all(o["degraded"] is None and o["results"] for o in outs)
+        assert len(rescores) == (0 if fused else len(queries))
+        ids[dev] = [[r.chunk_id for r in o["results"]] for o in outs]
+        pipe.close()
+    overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
+    assert overlap / sum(len(b) for b in ids["cpu"]) >= 0.9, ids
