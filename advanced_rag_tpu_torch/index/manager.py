@@ -1,20 +1,26 @@
 """Multi-index manager: the port of ``advanced_rag_tpu/index/manager.py``.
 
 Row-aligned index families over one CorpusStore: ``semantic`` (dense
-bi-encoder embeddings), ``sparse`` (BM25 over hashed terms) and, with
+bi-encoder embeddings), ``sparse`` (BM25 over hashed terms), optionally
+``domain`` (dense domain embeddings, ``enable_domain=True``) and, with
 ``config.fused_rerank``, the token table the cross-encoder gathers from.
 The ported methods keep the JAX manager's signatures and result dicts:
 the ingest ``index_chunks``; the searches ``search_sync``/``search`` (one
 family), ``hybrid_search_batch_sync``/``hybrid_search_sync`` (dense +
 BM25 + RRF + MMR over any tier: flat, SQ8, IVF or PQ) and
 ``fused_retrieve_batch_sync`` (embed + hybrid + cross-encoder rerank, flat
-and SQ8 tiers); the tier builds ``build_semantic``; ``delete_by_filter``,
-``get_collection_stats`` and ``close``; and ``rescore_candidates_sync``,
-the exact per-tier rescore the unfused rerank stage builds its key from.
-Without an embedder the manager embeds with ``HashingEmbedder``, or with
-``NeuralEmbedder`` under ``config.fused_rerank``, as the JAX manager does.
-Maintenance, checkpoints, IVF-PQ and the domain family come with later
-slices (ROADMAP.md).
+and SQ8 tiers); the tier builds ``build_semantic``; the maintenance pass
+``maintenance_tick`` (first IVF build behind a recall guardrail, IVF
+rebuild once the appended tail outgrows the partitions, postings
+compaction) and its daemon ``start_maintenance``/``stop_maintenance``;
+``delete_by_filter``, ``get_collection_stats``, ``reset_state`` (the
+rollback of a failed ``utils/checkpoint.py`` restore) and ``close``; and
+``rescore_candidates_sync``, the exact per-tier rescore the unfused rerank
+stage builds its key from.  Without an embedder the manager embeds with
+``HashingEmbedder``, or with ``NeuralEmbedder`` under
+``config.fused_rerank``, as the JAX manager does; the domain family
+defaults to ``HashingEmbedder(dim=config.domain_dim, seed=17)``.  IVF-PQ
+and OPQ come with later slices (ROADMAP.md, queue A items 4 and 5).
 
 Every search passes a row mask (validity or compiled filters), because the
 device tensors are padded to capacity.
@@ -23,6 +29,7 @@ device tensors are padded to capacity.
 from __future__ import annotations
 
 import asyncio
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -34,12 +41,15 @@ from .. import DeviceLike, resolve_device
 from ..config import IndexConfig, IndexType, Metric, PipelineConfig
 from ..models.embedder import Embedder, HashingEmbedder, NeuralEmbedder
 from ..ops.dense import NEG_INF, l2_normalize
-from ..utils.cache import EmbeddingCache, semantic_cache
+from ..utils.cache import EmbeddingCache, domain_cache, semantic_cache
+from ..utils.constants import IndexConstants
 from ..utils.exceptions import IndexingError, ValidationError
 from .corpus import ChunkRecord, CorpusStore, next_pow2
 from .dense_index import DenseIndex
 from .sparse_index import SparseIndex
 from .text import encode_documents
+
+logger = logging.getLogger(__name__)
 
 
 class MultiIndexManager:
@@ -53,16 +63,14 @@ class MultiIndexManager:
         self,
         config: Optional[PipelineConfig] = None,
         embedder: Optional[Embedder] = None,
+        domain_embedder: Optional[Embedder] = None,
         *,
         enable_sparse: bool = True,
         enable_domain: bool = False,
         semantic_cache_: Optional[EmbeddingCache] = None,
+        domain_cache_: Optional[EmbeddingCache] = None,
         device: DeviceLike = None,
     ):
-        if enable_domain:
-            raise NotImplementedError(
-                "the domain index family is not ported yet (ROADMAP.md, "
-                "queue A item 3); build the manager with enable_domain=False")
         self.device = resolve_device(device)
         self.config = config or PipelineConfig()
         dev = self.device
@@ -72,9 +80,10 @@ class MultiIndexManager:
             embedder = (NeuralEmbedder(dim=self.config.semantic_dim, device=dev)
                         if self.config.fused_rerank else
                         HashingEmbedder(dim=self.config.semantic_dim, device=dev))
-        emb_dev = getattr(embedder, "device", dev)
-        if torch.device(emb_dev) != dev:
-            raise ValueError(f"embedder is on {emb_dev}, the manager on {dev}")
+        for emb in (embedder, domain_embedder):
+            emb_dev = getattr(emb, "device", dev)
+            if emb is not None and torch.device(emb_dev) != dev:
+                raise ValueError(f"embedder is on {emb_dev}, the manager on {dev}")
         self.embedder = embedder
         if self.embedder.dim != self.config.semantic_dim:
             self.config.semantic_dim = self.embedder.dim
@@ -87,14 +96,19 @@ class MultiIndexManager:
                         pq_opq=self.config.semantic_opq),
             device=dev)
         self.enable_sparse = enable_sparse
-        # no domain family yet: the attributes the JAX manager's callers
-        # read, as the JAX manager has them with enable_domain=False
-        self.enable_domain = False
-        self.domain_embedder = None
-        self.domain = None
         self.sparse = (SparseIndex(IndexConfig(index_type=IndexType.SPARSE),
                                    device=dev)
                        if enable_sparse else None)
+        self.enable_domain = enable_domain
+        self.domain_embedder = domain_embedder
+        self.domain: Optional[DenseIndex] = None
+        if enable_domain:
+            self.domain_embedder = domain_embedder or HashingEmbedder(
+                dim=self.config.domain_dim, seed=17, device=dev)
+            self.domain = DenseIndex(
+                IndexConfig(index_type=IndexType.DOMAIN,
+                            dim=self.domain_embedder.dim, metric=Metric.COSINE),
+                device=dev)
         # the token table: the text column on the device, which the fused
         # retrieve program gathers the reranker's candidates from
         self.token_table = None
@@ -109,8 +123,14 @@ class MultiIndexManager:
         self._dev_scalars: Dict[Any, torch.Tensor] = {}
         self._default_reranker: Any = None
         self._semantic_cache = semantic_cache_ or semantic_cache
+        self._domain_cache = domain_cache_ or domain_cache
+        # the namespaces carry each embedder's identity: the module-level
+        # caches are shared across managers
         self._sem_ns = "semantic:" + getattr(self.embedder, "cache_tag", "")
+        self._dom_ns = "domain:" + getattr(self.domain_embedder, "cache_tag", "")
         self._closed = False
+        self._maint_thread: Optional[threading.Thread] = None
+        self._maint_stop: Optional[threading.Event] = None
         # Serializes corpus mutations.  Distinct batches embed
         # concurrently outside the critical section; duplicate ingests
         # wait on the condition for in-flight rows, so "indexed" always
@@ -146,6 +166,13 @@ class MultiIndexManager:
         """Single-text semantic embedding (through the cache)."""
         return self._embed_batch_cached([text], self.embedder,
                                         self._semantic_cache, self._sem_ns)[0]
+
+    def generate_domain_embedding(self, text: str) -> np.ndarray:
+        """Single-text domain embedding (through the domain cache)."""
+        if not self.domain_embedder:
+            raise IndexingError("domain index not enabled")
+        return self._embed_batch_cached([text], self.domain_embedder,
+                                        self._domain_cache, self._dom_ns)[0]
 
     # -- ingest ----------------------------------------------------------------
 
@@ -211,6 +238,10 @@ class MultiIndexManager:
             if self.sparse is not None:
                 sp_enc = encode_documents(texts, self.sparse.vocab_size,
                                           self.sparse.doc_nnz)
+            demb = None
+            if self.domain is not None and self.domain_embedder is not None:
+                demb = self._embed_batch_cached(texts, self.domain_embedder,
+                                                self._domain_cache, self._dom_ns)
 
             # Phase 3 (locked): write every family's rows in place, in
             # ascending row order across concurrent ingests.
@@ -226,11 +257,15 @@ class MultiIndexManager:
                 sem_vals = self.semantic.prepare_append(start, emb)
                 sp_vals = (self.sparse.prepare_append_encoded(start, *sp_enc)
                            if self.sparse is not None else None)
+                dom_vals = (self.domain.prepare_append(start, demb)
+                            if demb is not None else None)
                 tok_vals = (self.token_table.prepare_append(start, texts)
                             if self.token_table is not None else None)
                 self.semantic.commit_append(start, sem_vals)
                 if sp_vals is not None:
                     self.sparse.commit_append(start, sp_vals)
+                if dom_vals is not None:
+                    self.domain.commit_append(start, dom_vals)
                 if tok_vals is not None:
                     self.token_table.commit_append(start, tok_vals)
                 if store_pending is not None:
@@ -301,9 +336,8 @@ class MultiIndexManager:
         """Search one index family; returns hydrated hit dicts sorted by
         score.  SEMANTIC runs the dense tier's own search (IVF, PQ, SQ8 or
         the exact scan, with the quantized tiers' exact refinement); SPARSE
-        the compare-scan BM25 (kernel K3).  The port has no domain family
-        yet, so DOMAIN returns no hits, as the JAX manager does without
-        one."""
+        the compare-scan BM25 (kernel K3); DOMAIN the domain family's exact
+        scan (K1), or no hits without that family, as in the JAX manager."""
         index_type = IndexType(index_type)
         if self._closed:
             raise IndexingError("index manager is closed")
@@ -323,7 +357,12 @@ class MultiIndexManager:
                 return []
             scores, rows = self.sparse.search_texts([query], k, mask)
         elif index_type == IndexType.DOMAIN:
-            return []
+            if self.domain is None or self.domain_embedder is None:
+                return []
+            q = (query_embedding if query_embedding is not None
+                 else self.generate_domain_embedding(query))
+            scores, rows = self.domain.search(np.asarray(q, np.float32)[None, :],
+                                              k, mask)
         else:
             raise ValidationError(f"cannot search index type {index_type}")
         return self._hydrate(scores.cpu().numpy()[0], rows.cpu().numpy()[0],
@@ -375,9 +414,9 @@ class MultiIndexManager:
         or the exact scan (K1).  BM25 takes the inverted postings once the
         corpus reaches ``SparseIndex.POSTINGS_AUTO_THRESHOLD`` live rows
         (building them on first use) or once they exist, and the
-        compare-scan kernel K3 below that.  ``domain_weight`` weights the
-        domain family, which the port does not have yet: it is unused, as
-        in the JAX manager without that family.
+        compare-scan kernel K3 below that.  With the domain family, its
+        exact scan (K1) is a third RRF list, weighted ``domain_weight``;
+        without it the weight is unused, as in the JAX manager.
         """
         from ..config import Metric
         from ..ops.hybrid import hybrid_retrieve
@@ -453,6 +492,19 @@ class MultiIndexManager:
             sparse_args = (None, None, None, None, None)
             sparse_impl = "kernel"
 
+        weights = [dense_weight, sparse_weight]
+        if self.domain is not None and self.domain_embedder is not None:
+            if self.domain.capacity != sem.capacity:
+                raise IndexingError("index capacities diverged (domain)")
+            qd = self._embed_batch_cached(list(queries), self.domain_embedder,
+                                          self._domain_cache, self._dom_ns)
+            qd = torch.from_numpy(np.pad(qd, ((0, qb - nq), (0, 0)))).to(dev)
+            kw.update(domain_emb=self.domain.emb,
+                      q_domain=(l2_normalize(qd)
+                                if self.domain.config.metric == Metric.COSINE
+                                else qd))
+            weights.append(domain_weight)
+
         pq_refine = 0
         if sem.has_ivf:
             tail = sem.size - sem._ivf_size
@@ -477,7 +529,6 @@ class MultiIndexManager:
             dense_impl = "scan"
         if sem._sq8:
             kw["emb_scale"] = sem.emb_scale
-        weights = [dense_weight, sparse_weight]
         sparse_agg = ("scatter"
                       if (sparse_impl == "postings" and dev.type == "cuda"
                           and qb <= 2 and sem.capacity >= 4_000_000)
@@ -495,9 +546,10 @@ class MultiIndexManager:
             ids, scores, counts = self._refuse_exact(
                 q_host[:nq], res.dense_ids.cpu().numpy()[:nq],
                 res.sparse_ids.cpu().numpy()[:nq],
+                res.domain_ids.cpu().numpy()[:nq],
                 k_cand=k_cand, k_out=k_out, rrf_k=rrf_k, use_mmr=use_mmr,
                 mmr_lambda=mmr_lambda, weights=np.asarray(weights, np.float32),
-                sparse_on=sparse_on)
+                sparse_on=sparse_on, domain_on="domain_emb" in kw)
         else:
             ids = res.ids.cpu().numpy()
             scores = res.scores.cpu().numpy()
@@ -523,6 +575,7 @@ class MultiIndexManager:
         q_host: np.ndarray,       # [Q, D] f32 normalized queries
         d_ids_deep: np.ndarray,   # [Q, depth] raw-PQ dense candidates
         s_ids: np.ndarray,        # [Q, k_cand] sparse candidates
+        dom_ids: np.ndarray,      # [Q, k_cand] domain candidates (-1 pad)
         *,
         k_cand: int,
         k_out: int,
@@ -531,6 +584,7 @@ class MultiIndexManager:
         mmr_lambda: float,
         weights: np.ndarray,
         sparse_on: bool,
+        domain_on: bool,
     ):
         """Host-side exact re-fusion for the PQ tier: the deep dense
         candidates re-scored exactly from the f32 mirror, then RRF and MMR
@@ -542,6 +596,8 @@ class MultiIndexManager:
         methods = [d_i.astype(np.int32)]
         if sparse_on:
             methods.append(np.asarray(s_ids)[:, :k_cand].astype(np.int32))
+        if domain_on:
+            methods.append(np.asarray(dom_ids)[:, :k_cand].astype(np.int32))
         cand = torch.from_numpy(np.stack(methods, axis=0))      # [M, Q, K]
         w = torch.from_numpy(np.asarray(weights, np.float32)[: len(methods)])
         fused_s, fused_i, counts = rrf_fuse(cand, w, rrf_k=rrf_k, k_out=k_cand)
@@ -810,7 +866,34 @@ class MultiIndexManager:
                 "vocab_size": self.sparse.vocab_size,
                 "memory_bytes": self.sparse.memory_bytes(),
             }
+        if self.domain is not None:
+            stats["domain"] = {
+                "rows": self.domain.size,
+                "dim": self.domain.dim,
+                "memory_bytes": self.domain.memory_bytes(),
+            }
         return stats
+
+    def reset_state(self) -> None:
+        """Reinitialize the store and every index family to empty, with the
+        same configurations.
+
+        Rolls back a partly applied restore: ``load_index`` fills the store
+        before the dense files stream in, so a failure midway would leave
+        a torn manager whose chunk ids block both a retry and a re-ingest."""
+        dev = self.device
+        self.store = CorpusStore(device=dev)
+        self.semantic = DenseIndex(self.semantic.config, device=dev)
+        if self.sparse is not None:
+            self.sparse = SparseIndex(self.sparse.config, device=dev)
+        if self.domain is not None:
+            self.domain = DenseIndex(self.domain.config, device=dev)
+        if self.token_table is not None:
+            from .token_table import TokenTable
+
+            self.token_table = TokenTable(self.token_table.tokenizer,
+                                          max_len=self.token_table.max_len,
+                                          device=dev)
 
     def build_semantic(self, *, pq: bool = False,
                        ivf: bool = False) -> Dict[str, Any]:
@@ -829,7 +912,125 @@ class MultiIndexManager:
                 out["ivf_built"] = True
         return out
 
+    # -- background maintenance ------------------------------------------------
+
+    def maintenance_tick(self) -> Dict[str, Any]:
+        """One maintenance pass, under the write lock (tier builds swap
+        ``semantic.emb`` and ``_ivf``, which must never interleave with an
+        ingest's commit basing itself on the old storage):
+
+        - the first IVF build once ``IndexConstants.IVF_AUTO_THRESHOLD``
+          rows are valid, kept only if the recall guardrail passes
+          (``_demotion_recall_ok``), else the exact scan stays;
+        - an IVF rebuild (same nlist) once the appended tail outgrows
+          ``DenseIndex.REBUILD_TAIL_FRACTION`` of the rows;
+        - postings compaction once more than 10% of the postings belong to
+          deleted rows.
+
+        Build-then-swap: the new partitions are built from the host mirror
+        while the old ones stay searchable, then assigned.  On a PQ tier
+        the JAX manager's first PQ + IVF-PQ build raises, naming ROADMAP
+        queue A item 5, before anything is touched."""
+        with self._write_lock:
+            return self._maintenance_tick_locked()
+
+    def _demotion_recall_ok(self, actions: Dict[str, Any], tier: str) -> bool:
+        """Recall guardrail on an automatic tier demotion: probe the new
+        IVF tier's recall@10 against the exact scan (``tune_nprobe``'s
+        sweep, which also sets the serving nprobe) and return False when
+        even the deepest probe misses ``config.demote_recall_target``; the
+        caller then restores the previous tier.
+
+        Only the data errors the probe can raise (``ValueError``,
+        ``IndexingError``) are recorded and let the tick go on; anything
+        else, a kernel's launch failure on the card included, propagates
+        (the JAX manager catches every exception here)."""
+        target = float(self.semantic.config.demote_recall_target)
+        if target <= 0.0:
+            return True
+        try:
+            nprobe, recall = self.semantic.tune_nprobe(
+                recall_target=target, k=10, sample=min(64, self.semantic.size))
+        except (ValueError, IndexingError) as exc:
+            logger.exception("demotion recall probe failed")
+            actions["demotion_probe_error"] = str(exc)[:200]
+            return True
+        actions["demotion_recall"] = round(float(recall), 4)
+        if recall >= target:
+            return True
+        actions["demotion_blocked"] = {
+            "tier": tier, "recall": round(float(recall), 4),
+            "target": target, "nprobe": int(nprobe)}
+        logger.warning("maintenance: %s demotion blocked: recall@10 %.3f < "
+                       "target %.2f at nprobe %d; keeping the previous tier",
+                       tier, recall, target, nprobe)
+        return False
+
+    def _maintenance_tick_locked(self) -> Dict[str, Any]:
+        actions: Dict[str, Any] = {"ivf_rebuilt": False}
+        sem = self.semantic
+        if sem._pq_mode:
+            # the JAX tick trains PQ codebooks and IVF-PQ partitions here;
+            # an IVF-PQ re-pack needs partitions only that build makes
+            if (not sem.has_pq
+                    and self.store.n_valid() >= IndexConstants.IVF_AUTO_THRESHOLD):
+                raise NotImplementedError(
+                    "maintenance's first PQ + IVF-PQ build is not ported yet "
+                    "(ROADMAP.md, queue A item 5)")
+        elif (not sem.has_ivf
+                and self.store.n_valid() >= IndexConstants.IVF_AUTO_THRESHOLD):
+            prev = (sem._ivf, sem._ivf_size, sem.config.nprobe)
+            sem.build_ivf()
+            if self._demotion_recall_ok(actions, "ivf"):
+                actions["ivf_rebuilt"] = True
+                actions["ivf_rows"] = sem._ivf_size
+            else:
+                sem._ivf, sem._ivf_size, sem.config.nprobe = prev
+        elif sem.ivf_needs_rebuild:
+            sem.build_ivf(nlist=int(sem._ivf.centroids.shape[0]))
+            actions["ivf_rebuilt"] = True
+            actions["ivf_rows"] = sem._ivf_size
+        # deleted rows' postings occupy list slots (masked at query time):
+        # rebuild without them once more than 10% are dead
+        if (self.sparse is not None
+                and self.sparse.postings_stale_fraction > 0.10):
+            self.sparse.build_postings(
+                valid=self.store._host_valid[: self.sparse.size])
+            actions["postings_compacted"] = True
+        return actions
+
+    def start_maintenance(self, interval_s: float = 30.0) -> None:
+        """Run ``maintenance_tick`` on a daemon thread every ``interval_s``
+        seconds, under ``torch.inference_mode`` (grad mode is per thread).
+        A failed tick is logged and the loop goes on; callers that must
+        see a fault call ``maintenance_tick`` themselves."""
+        if self._maint_thread is not None:
+            return
+        stop = threading.Event()
+
+        def loop() -> None:
+            with torch.inference_mode():
+                while not stop.wait(interval_s):
+                    if self._closed:
+                        return
+                    try:
+                        self.maintenance_tick()
+                    except Exception:
+                        logger.exception("maintenance tick failed")
+
+        self._maint_stop = stop
+        self._maint_thread = threading.Thread(
+            target=loop, name="index-maintenance", daemon=True)
+        self._maint_thread.start()
+
+    def stop_maintenance(self) -> None:
+        if self._maint_thread is not None:
+            self._maint_stop.set()
+            self._maint_thread.join(timeout=5.0)
+            self._maint_thread = None
+
     def close(self) -> None:
+        self.stop_maintenance()
         self._closed = True
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import itertools
 import re
 from collections import Counter
 from typing import List, Sequence, Tuple
@@ -71,16 +72,20 @@ def encode_documents(
     doc_idx = np.full((n, doc_nnz), -1, dtype=np.int32)
     doc_tf = np.zeros((n, doc_nnz), dtype=np.float32)
     doc_len = np.zeros((n,), dtype=np.float32)
-    df_delta = np.zeros((vocab_size,), dtype=np.int32)
+    kept: List[int] = []          # every row's distinct kept terms, for df
     for row, text in enumerate(texts):
         toks = tokenize(text)
         doc_len[row] = float(len(toks))
-        counts: Counter[int] = Counter(hash_term(t, vocab_size) for t in toks)
+        counts: Counter[int] = Counter(map(hash_term, toks,
+                                           itertools.repeat(vocab_size)))
         items = counts.most_common(doc_nnz)
-        for j, (term_id, tf) in enumerate(items):
-            doc_idx[row, j] = term_id
-            doc_tf[row, j] = float(tf)
-            df_delta[term_id] += 1
+        if items:
+            ids, tfs = zip(*items)
+            doc_idx[row, : len(ids)] = ids
+            doc_tf[row, : len(ids)] = tfs
+            kept.extend(ids)
+    df_delta = np.bincount(np.asarray(kept, dtype=np.int64),
+                           minlength=vocab_size).astype(np.int32)
     return doc_idx, doc_tf, doc_len, df_delta
 
 

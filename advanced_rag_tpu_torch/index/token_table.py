@@ -58,6 +58,20 @@ class TokenTable:
         n = vals["tok"].shape[0]
         self.tokens[start: start + n] = vals["tok"]
 
+    def rebuild(self, contents: Sequence[Optional[str]]) -> None:
+        """Checkpoint restore: re-tokenize the corpus (tokens are
+        deterministic given the contents, so checkpoints do not persist the
+        table) and upload it in one put.  A forgotten row (None content)
+        tokenizes as the empty text."""
+        texts = ["" if c is None else c for c in contents]
+        self.size = 0
+        self._ensure_capacity(next_pow2(max(len(texts), 1)))
+        self._host[:] = 0
+        if texts:
+            self._host[: len(texts)] = self._encode(texts)
+            self.size = len(texts)
+        self.tokens = torch.from_numpy(self._host).to(self.device)
+
     def memory_bytes(self) -> int:
         return self.capacity * self.max_len * 4
 

@@ -2,7 +2,8 @@
 ``advanced_rag_tpu/ops/fusion.py``.
 
 Weighted reciprocal-rank fusion with dedup (RRF k=60, weights dense 0.7 /
-sparse 0.3) and MMR diversification on embedding cosine.  Shapes are
+sparse 0.3), MMR diversification on embedding cosine, and the exponential
+recency factor ``recency_boost``.  Shapes are
 static: every method contributes exactly K candidates (padded with id -1),
 and both functions are batched over queries.
 """
@@ -108,4 +109,19 @@ def mmr_select(
     return selected[0] if single else selected
 
 
-__all__ = ["rrf_fuse", "mmr_select"]
+def recency_boost(
+    timestamps: torch.Tensor,               # [K] seconds since the epoch
+    now: Union[torch.Tensor, float],        # scalar seconds
+    half_life_days: Union[torch.Tensor, float],  # scalar days
+) -> torch.Tensor:
+    """Exponential recency factor in [0, 1], ``2^(-age_days / half_life)``,
+    in f32 as the JAX function computes it (a timestamp near 1.7e9 s is
+    then exact to 128 s)."""
+    ts = torch.as_tensor(timestamps).to(torch.float32)
+    now = torch.as_tensor(now, dtype=torch.float32, device=ts.device)
+    half = torch.as_tensor(half_life_days, dtype=torch.float32, device=ts.device)
+    age_days = torch.clamp(now - ts, min=0.0) / 86400.0
+    return torch.exp2(-age_days / torch.clamp(half, min=1e-6))
+
+
+__all__ = ["rrf_fuse", "mmr_select", "recency_boost"]

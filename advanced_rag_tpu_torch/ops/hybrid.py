@@ -13,7 +13,9 @@ one of:
 
 The sparse rung is BM25 through kernel K3 over the term-slot-major [P, N]
 mirror (``sparse_impl="kernel"``) or the inverted postings
-(``"postings"``, ``ops/postings.py``).  Then weighted RRF with dedup, the
+(``"postings"``, ``ops/postings.py``).  The optional domain family
+(``domain_emb``, ``q_domain``; both or neither) adds the exact scan of its
+rows through K1 as a third list.  Then weighted RRF with dedup, the
 candidate embedding gather (PQ candidates decoded from their codes) and
 greedy MMR.
 
@@ -41,6 +43,8 @@ class HybridResult(NamedTuple):
     dense_scores: torch.Tensor   # (deeper than k_cand when PQ over-retrieves)
     sparse_ids: torch.Tensor     # [Q, k_cand]
     sparse_scores: torch.Tensor
+    domain_ids: torch.Tensor     # [Q, k_cand] (-1-filled without the domain family)
+    domain_scores: torch.Tensor
 
 
 def hybrid_retrieve(
@@ -54,7 +58,7 @@ def hybrid_retrieve(
     q_idx: torch.Tensor,         # [Q, T] i32
     q_tf: torch.Tensor,          # [Q, T] f32
     valid: Optional[torch.Tensor],   # [N] bool row mask (validity AND filters)
-    weights: torch.Tensor,       # [2] f32: (dense, sparse)
+    weights: torch.Tensor,       # [M] f32: (dense, sparse[, domain])
     mmr_lambda,                  # scalar
     emb_scale: Optional[torch.Tensor] = None,   # [N] f32 when emb is SQ8
     post_rows: Optional[torch.Tensor] = None,   # [V, L] (sparse_impl="postings")
@@ -62,6 +66,8 @@ def hybrid_retrieve(
     post_tfw: Optional[torch.Tensor] = None,    # [V, L] build-time tf-weights
     pq_codebooks: Optional[torch.Tensor] = None,  # [m, c, dsub] (dense_impl="pq")
     ivf_parts=None,              # ops.ivf.IVFPartitions (dense_impl="ivf")
+    domain_emb: Optional[torch.Tensor] = None,  # [N, Dd] bf16/f32 domain rows
+    q_domain: Optional[torch.Tensor] = None,    # [Q, Dd] f32 (normalized if cosine)
     *,
     k_cand: int,
     k_out: int,
@@ -150,6 +156,15 @@ def hybrid_retrieve(
                          device=d_s.device)
         s_i = torch.full((d_i.shape[0], k_cand), -1, dtype=d_i.dtype,
                          device=d_i.device)
+    if domain_emb is not None and q_domain is not None:
+        dom_s, dom_i = dense_topk_kernel(domain_emb, q_domain, k_cand, valid,
+                                         metric=metric, normalize_queries=False)
+        methods_i.append(dom_i)
+    else:
+        dom_s = torch.full((d_s.shape[0], k_cand), NEG_INF, dtype=d_s.dtype,
+                           device=d_s.device)
+        dom_i = torch.full((d_i.shape[0], k_cand), -1, dtype=d_i.dtype,
+                           device=d_i.device)
     cand_ids = torch.stack(methods_i, dim=0)                 # [M, Q, K]
     w = weights[: len(methods_i)]
 
@@ -180,7 +195,7 @@ def hybrid_retrieve(
         out_s = fused_s[:, :k_out]
         out_c = counts[:, :k_out]
 
-    return HybridResult(out_i, out_s, out_c, d_i, d_s, s_i, s_s)
+    return HybridResult(out_i, out_s, out_c, d_i, d_s, s_i, s_s, dom_i, dom_s)
 
 
 __all__ = ["hybrid_retrieve", "HybridResult"]

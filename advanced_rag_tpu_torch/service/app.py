@@ -2,12 +2,15 @@
 
 The port of ``advanced_rag_tpu/service/app.py``: the same routes, knobs
 and responses over the port's pipeline, on the CUDA card unless
-``create_app(device="cpu")``.  Paths whose modules are not ported yet
-refuse instead of serving something else: ``RAG_EMBEDDER=ckpt:``,
-``RAG_RERANKER=ckpt:`` and ``RAG_RERANKER=hf:`` raise at startup, as
-does a ``RAG_CHECKPOINT_DIR`` restore, and ``/admin/index/checkpoint``
-and ``/admin/index/maintain`` answer 501 (ROADMAP.md, queue A items 2,
-3 and 6).
+``create_app(device="cpu")``.  ``RAG_EMBEDDER=ckpt:<dir>`` and
+``RAG_RERANKER=ckpt:<dir>`` serve encoders saved in the port's format
+(``train/loop.py``; ``scripts/torch_convert_checkpoints.py`` converts the
+JAX package's orbax ones); ``/admin/index/checkpoint`` saves and restores
+the index (``utils/checkpoint.py``, the JAX package's format) and a boot
+with ``RAG_CHECKPOINT_DIR`` restores it, raising if that fails (the JAX
+service logs and starts empty); ``/admin/index/maintain`` runs the
+manager's maintenance pass.  ``RAG_RERANKER=hf:`` raises at startup: HF
+cross-encoders are ROADMAP.md queue A item 6.
 
 Capability parity with reference service.py (FastAPI, 799 LoC):
 - request-ID middleware (:97-105), API-key auth (:275-280),
@@ -106,21 +109,26 @@ class ServiceState:
         # (RAG_COMPILE_CACHE); the port compiles nothing per shape: its
         # CUDA kernels are built once into build/kernels/ by _build.py.
         self.config = config or self._config_from_env()
-        # the settings that load models the port cannot read yet, where
-        # the JAX service would use them: a built pipeline brings its own
-        # embedder, and a wired reranker is kept
-        if (pipeline is None
-                and os.environ.get("RAG_EMBEDDER", "").startswith("ckpt:")):
+        rk_env = os.environ.get("RAG_RERANKER", "")
+        # the one model kind the port cannot load yet, where the JAX
+        # service would use it (a wired reranker is kept)
+        if ((pipeline is None or pipeline.retriever.reranker is None)
+                and rk_env.lower().startswith("hf:")):
             raise NotImplementedError(
-                _not_ported("RAG_EMBEDDER=ckpt: (bi-encoder checkpoints)", 2))
-        rk_env = os.environ.get("RAG_RERANKER", "").lower()
-        if pipeline is None or pipeline.retriever.reranker is None:
-            if rk_env.startswith("ckpt:"):
-                raise NotImplementedError(
-                    _not_ported("RAG_RERANKER=ckpt: (reranker checkpoints)", 2))
-            if rk_env.startswith("hf:"):
-                raise NotImplementedError(
-                    _not_ported("RAG_RERANKER=hf: (HF cross-encoders)", 6))
+                _not_ported("RAG_RERANKER=hf: (HF cross-encoders)", 6))
+        dev = resolve_device(device) if pipeline is None else pipeline.device
+        # Preload a ckpt reranker before the manager builds the device
+        # token table: the table truncates every chunk to fused_token_len
+        # tokens, so it must cover the checkpoint's trained doc window
+        # (pair_d_len).
+        self._preloaded_reranker = None
+        if (pipeline is None and self.config.fused_rerank
+                and rk_env.lower().startswith("ckpt:")):
+            self._preloaded_reranker = self._load_reranker(rk_env[5:], dev)
+            d_len = self._preloaded_reranker.d_len
+            if not os.environ.get("RAG_FUSED_TOKEN_LEN"):
+                self.config.fused_token_len = max(
+                    self.config.fused_token_len, int(d_len))
         if os.environ.get("RAG_FUSED_TOKEN_LEN"):
             self.config.fused_token_len = int(
                 os.environ["RAG_FUSED_TOKEN_LEN"])
@@ -128,8 +136,8 @@ class ServiceState:
                 and pipeline.device != resolve_device(device):
             raise ValueError(f"the pipeline is on {pipeline.device}, "
                              f"create_app was asked for {device}")
-        self.pipeline = pipeline or AdvancedRAGPipeline(self.config,
-                                                        device=device)
+        self.pipeline = pipeline or AdvancedRAGPipeline(
+            self.config, index_manager=self._make_manager(dev), device=dev)
         self.device = self.pipeline.device
         self._wire_rerankers()
         self.db = db or initialize_pool(
@@ -188,6 +196,42 @@ class ServiceState:
             # RagSlaComplianceLow alert (0 < 0.95 for 10m) before it has
             # served a single retrieve
             SLA_COMPLIANCE.set(1.0)
+
+    @staticmethod
+    def _load_reranker(path: str, device: torch.device):
+        """A ``save_reranker`` checkpoint as the service's reranker, its
+        pair layout restored from the checkpoint itself."""
+        from ..models.cross_encoder import CrossEncoderReranker
+        from ..train.rerank import load_reranker
+
+        ce_cfg, model, layout = load_reranker(path, device)
+        return CrossEncoderReranker(config=ce_cfg, state_dict=model.state_dict(),
+                                    device=device, **layout)
+
+    def _make_manager(self, device: torch.device):
+        """RAG_EMBEDDER=ckpt:<dir>: serve a saved bi-encoder
+        (``train/loop.py:save_biencoder``) instead of the default embedder.
+        Unset -> None (the pipeline builds the default manager)."""
+        kind = os.environ.get("RAG_EMBEDDER", "")
+        if not kind.startswith("ckpt:"):
+            return None
+        from ..index.manager import MultiIndexManager
+        from ..models.embedder import NeuralEmbedder
+        from ..models.tokenizer import HashingTokenizer, TokenizerConfig
+        from ..train.loop import load_biencoder
+
+        enc_cfg, out_dim, model = load_biencoder(kind[5:], device)
+        tok = HashingTokenizer(TokenizerConfig(
+            vocab_size=enc_cfg.vocab_size, max_len=enc_cfg.max_len))
+        emb = NeuralEmbedder(dim=out_dim, config=enc_cfg,
+                             state_dict=model.state_dict(), tokenizer=tok,
+                             device=device)
+        self.config.semantic_dim = out_dim
+        logger.info("embedder from checkpoint %s (dim %d)", kind[5:], out_dim)
+        return MultiIndexManager(
+            self.config, embedder=emb,
+            enable_sparse=self.config.enable_sparse,
+            enable_domain=self.config.enable_domain, device=device)
 
     @staticmethod
     def _config_from_env() -> PipelineConfig:
@@ -267,8 +311,8 @@ class ServiceState:
         return cfg
 
     def _wire_rerankers(self) -> None:
-        """RAG_RERANKER env: cross_encoder | learned | passthrough (the
-        ckpt: and hf: kinds raise in __init__ until they are ported)."""
+        """RAG_RERANKER env: cross_encoder | ckpt:<dir> | learned |
+        passthrough (the hf: kind raises in __init__ until it is ported)."""
         kind = os.environ.get("RAG_RERANKER", "").lower()
         retriever = self.pipeline.retriever
         if (self.config.fused_rerank and not kind
@@ -280,6 +324,11 @@ class ServiceState:
             from ..models.cross_encoder import CrossEncoderReranker
 
             retriever.reranker = CrossEncoderReranker(device=self.device)
+        elif kind.startswith("ckpt:") and retriever.reranker is None:
+            # preloaded in __init__ to size the token table, else loaded here
+            retriever.reranker = (self._preloaded_reranker
+                                  or self._load_reranker(
+                                      os.environ["RAG_RERANKER"][5:], self.device))
         elif kind == "learned" and retriever.learned_ranker is None:
             from ..pipeline.ranker import LearnedRanker
 
@@ -831,23 +880,102 @@ async def index_stats(request: web.Request) -> web.Response:
 
 
 async def index_checkpoint(request: web.Request) -> web.Response:
-    """Persist or restore the full index state: 501 until the port has an
-    index checkpoint format of its own."""
+    """Persist or restore the full index state (``utils/checkpoint.py``).
+    Body: {"dir": "/path", "action": "save"|"load"}.  A restore needs an
+    empty manager (a fresh boot), as ``load_index`` does; a saved OPQ or
+    IVF-PQ tier answers 501 (ROADMAP.md, queue A items 4 and 5)."""
     state: ServiceState = request.app["state"]
     if not _auth_ok(state, request):
         return _json_error(401, "invalid API key", request["request_id"])
-    return _json_error(501, _not_ported("/admin/index/checkpoint", 2),
-                       request["request_id"])
+    body = await request.json() if request.can_read_body else {}
+    ckpt_dir = body.get("dir") or os.environ.get("RAG_CHECKPOINT_DIR")
+    if not ckpt_dir:
+        return _json_error(400, "dir required (or RAG_CHECKPOINT_DIR)",
+                           request["request_id"])
+    # Path confinement: the API key is shared across routes, and an
+    # arbitrary body dir would grant arbitrary file writes ("save") and
+    # reads ("load").  Only RAG_CHECKPOINT_ROOT or the exact
+    # RAG_CHECKPOINT_DIR.
+    root = os.environ.get("RAG_CHECKPOINT_ROOT")
+    fixed = os.environ.get("RAG_CHECKPOINT_DIR")
+    resolved = Path(ckpt_dir).resolve()
+    allowed = (
+        (root and Path(root).resolve() in [resolved, *resolved.parents])
+        or (fixed and resolved == Path(fixed).resolve())
+    )
+    if not allowed:
+        return _json_error(
+            403, "dir outside RAG_CHECKPOINT_ROOT", request["request_id"])
+    action = body.get("action", "save")
+    mgr = state.pipeline.index_manager
+    from ..utils.checkpoint import load_index, save_index
+
+    # the write lock is taken inside the worker thread, never on the loop
+    def _save():
+        with mgr._write_cv:
+            # a lock-only snapshot is not consistent: an ingest claims rows
+            # and releases the lock to embed, so wait until none is in flight
+            while mgr._inflight_rows:
+                mgr._write_cv.wait(timeout=60.0)
+            return save_index(mgr, ckpt_dir)
+
+    def _load():
+        with mgr._write_lock, torch.inference_mode():
+            if mgr.store.size != 0:
+                # refused before anything is touched, so not rolled back:
+                # the JAX app's rollback here empties the serving index
+                raise ValueError("load_index requires a fresh manager")
+            try:
+                load_index(mgr, ckpt_dir)
+            except Exception:
+                # load_index fills the store before the dense files stream
+                # in: roll back so the manager is not torn and a retry works
+                mgr.reset_state()
+                raise
+            return mgr.store.size
+
+    try:
+        if action == "save":
+            manifest = await asyncio.to_thread(_save)
+            return web.json_response({"saved": True,
+                                      "rows": manifest["size"]})
+        if action == "load":
+            rows = await asyncio.to_thread(_load)
+            return web.json_response({"loaded": True, "rows": rows})
+        return _json_error(400, f"unknown action {action!r}",
+                           request["request_id"])
+    except (ValueError, FileNotFoundError) as exc:
+        return _json_error(409, str(exc), request["request_id"])
+    except NotImplementedError as exc:
+        return _json_error(501, str(exc), request["request_id"])
+
+
+def _maintain(state: "ServiceState", body: Dict[str, Any]) -> Dict[str, Any]:
+    """``/admin/index/maintain``'s work in one worker thread: the requested
+    tier builds, one maintenance pass, then the optional nprobe tuning."""
+    mgr = state.pipeline.index_manager
+    sem = mgr.semantic
+    with torch.inference_mode():
+        # builds and maintenance take the manager's write lock: they swap
+        # semantic.emb, which must not race an ingest's commit
+        out = mgr.build_semantic(pq=bool(body.get("build_pq")),
+                                 ivf=bool(body.get("build_ivf")))
+        out.update(mgr.maintenance_tick())
+        target = body.get("tune_recall")
+        if target and (sem.has_ivf or sem.has_ivfpq):
+            out["nprobe"], out["tuned_recall"] = sem.tune_nprobe(float(target))
+    return out
 
 
 async def index_maintain(request: web.Request) -> web.Response:
-    """One maintenance pass (IVF rebuild, nprobe tuning): 501 until the
-    manager's maintenance is ported."""
+    """One maintenance pass now (build-then-swap IVF build or rebuild,
+    postings compaction); body {"build_ivf": true} forces a first build,
+    {"tune_recall": 0.95} tunes nprobe after."""
     state: ServiceState = request.app["state"]
     if not _auth_ok(state, request):
         return _json_error(401, "invalid API key", request["request_id"])
-    return _json_error(501, _not_ported("/admin/index/maintain", 3),
-                       request["request_id"])
+    body = await request.json() if request.can_read_body else {}
+    return web.json_response(await asyncio.to_thread(_maintain, state, body))
 
 
 async def admin_warmup(request: web.Request) -> web.Response:
@@ -900,18 +1028,32 @@ def create_app(config: Optional[PipelineConfig] = None,
                db: Optional[DatabasePool] = None, *,
                device: DeviceLike = None) -> web.Application:
     """The service on ``device`` (the CUDA card unless ``"cpu"``; without
-    a card it raises), or on the given pipeline's device."""
-    ckpt_dir = os.environ.get("RAG_CHECKPOINT_DIR")
-    if (ckpt_dir and (Path(ckpt_dir) / "manifest.json").exists()
-            and (pipeline is None or pipeline.index_manager.store.size == 0)):
-        # the JAX service restores a saved index into an empty manager
-        # at boot; starting empty instead would serve another corpus
-        raise NotImplementedError(
-            _not_ported("the RAG_CHECKPOINT_DIR index restore", 2))
+    a card it raises), or on the given pipeline's device.
+
+    When ``RAG_CHECKPOINT_DIR`` holds a saved index and the manager is
+    empty, the index is restored before the app takes traffic.  A failed
+    restore is rolled back and raises: the JAX service logs and starts
+    empty, which would serve an empty corpus in place of the saved one."""
     app = web.Application(middlewares=[request_id_middleware],
                           client_max_size=16 * 1024 * 1024)
     state = ServiceState(config, pipeline, db, device=device)
     app["state"] = state
+
+    ckpt_dir = os.environ.get("RAG_CHECKPOINT_DIR")
+    if ckpt_dir and (Path(ckpt_dir) / "manifest.json").exists():
+        mgr = state.pipeline.index_manager
+        if mgr.store.size == 0:
+            from ..utils.checkpoint import load_index
+
+            try:
+                with torch.inference_mode():
+                    load_index(mgr, ckpt_dir)
+            except Exception:
+                mgr.reset_state()  # roll back the partial load
+                state.pipeline.close()
+                state.db.close()
+                raise
+            logger.info("restored %d rows from %s", mgr.store.size, ckpt_dir)
 
     # RAG_WARMUP=1: run every retrieval program shape once (all pow2
     # micro-batch buckets) before taking traffic, so the strict latency

@@ -45,8 +45,9 @@ Phases, each printing its elapsed seconds:
    launches, which must be > 0;
 7. manager tiers: phase 4's bf16 manager after build_semantic(ivf=True)
    (run as soon as that tier's phase-4 numbers are read, so the SQ8 tier
-   then runs alone, as before), and a semantic_dtype="pq" manager over the
-   same chunks after build_semantic(pq=True) (after phase 4), each serving
+   then runs alone, as before), and a semantic_dtype="pq" manager restored
+   from phase 9 (b)'s checkpoint of phase 4's bf16 manager (the same chunks
+   and embeddings) after build_semantic(pq=True) (after phase 4), each serving
    search_sync(SEMANTIC) and hybrid_search_batch_sync at Q = 1, 8, 32
    (BM25 from the inverted postings, built at the first call since the
    corpus is over 50k rows); last, both tiers on a small corpus, on the
@@ -57,8 +58,8 @@ Phases, each printing its elapsed seconds:
    in-process through aiohttp's test server and client on a localhost
    socket; the phase fails if aiohttp is not installed) in both
    configurations the service starts in.  Fused: a bf16 manager of its
-   own over the same 100k chunks with phase 4's embedder and
-   cross-encoder; POST /ingest of SERVICE_DOCS seeded documents
+   own restored from that checkpoint (the same 100k chunks and embedder)
+   and phase 4's cross-encoder; POST /ingest of SERVICE_DOCS seeded documents
    (diagnostics, chunking, enrichment, index_chunks, compliance), long
    enough that chunking splits each, then POST /retrieve from 1, 8 and 32
    concurrent clients (the orchestrator micro-batches them into
@@ -71,7 +72,32 @@ Phases, each printing its elapsed seconds:
    requests/s, /perf's stage p50s, ingest documents/s, launches.  Last,
    the pipeline on the card against the CPU plain path on a small corpus
    (fused f32 and int8 tiers, default f32 tier, seeded f32 weights):
-   top-10 overlap >= 0.9.
+   top-10 overlap >= 0.9;
+9. the index lifecycle: (a) after phase 4, its bi-encoder and cross-encoder
+   saved by the port's save_biencoder / save_reranker and loaded on the
+   card: the probe texts' embeddings and CE scores must be bit-identical;
+   (b) right after each phase-4 tier's measurements and phase 7's PQ tier,
+   the manager saved by save_index and restored by load_index into a fresh
+   one: the probes and a 32-query batch must answer with the same ids and
+   scores (save / load seconds, the token table's re-tokenization, bytes);
+   (d) in phase 8, after the load levels, on both apps: POST
+   /admin/index/maintain, POST /admin/index/checkpoint (save) and a fresh
+   app booted from RAG_CHECKPOINT_DIR (the fused one with RAG_EMBEDDER=ckpt:
+   / RAG_RERANKER=ckpt: of (a)'s files), whose probes must answer with the
+   saving app's chunk ids, its launches counted apart from phase 8's;
+   (c) last, a default manager (HashingEmbedder,
+   1536 wide) with the domain family (768 wide) over 200,000 chunks (phase
+   4's and LIFECYCLE_MORE more of its generator): hybrid search with
+   domain_weight 0.2 at Q = 1 and 32, maintenance_tick's first IVF build
+   with its recall guardrail, LIFECYCLE_TAIL more chunks and the rebuild,
+   15% deleted and the postings compaction, each tick's actions and
+   seconds; K1 (both families' rows) and K5 (the tier's own slabs, real
+   probes) against their plain versions; then the manager saved and loaded
+   into a fresh card manager and a CPU manager: the card's domain rung
+   against the CPU plain path, top-10 overlap >= 0.9; the restored manager
+   (given the original's IVF partitions and compacted postings, which
+   checkpoints do not hold) must answer as the original; last the
+   restart's own tick.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -99,10 +125,17 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import shutil
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 T0 = time.perf_counter()
+#: git-ignored scratch space in the checkout: checkpoints, the service's
+#: chat databases
+BUILD_DIR = Path(os.path.dirname(os.path.abspath(__file__))) / "build"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -754,12 +787,16 @@ def check_served_tensors(mgr, queries):
     return out
 
 
-def phase_main_path(texts, after_bf16):
-    """Phase 4; ``after_bf16(mgr)`` runs on the bf16 tier's manager
-    once its measurements are read (phase 7 builds the IVF tier on it), and
-    the manager is closed before the SQ8 tier starts, so each tier's
-    numbers are taken with no other manager alive.  Returns the launches,
-    the tiers' records, the embedder and the cross-encoder."""
+def phase_main_path(texts, after_bf16, work):
+    """Phase 4; once a tier's measurements are read, phase 9 (b) saves its
+    manager and restores it into a fresh one (``index_round_trip``), then
+    ``after_bf16(mgr)`` runs on the bf16 tier's manager (phase 7 builds the
+    IVF tier on it); the manager is closed before the SQ8 tier starts, so
+    each tier's numbers are taken with no other manager alive.  The bf16
+    tier's checkpoint stays under ``work``/index-bf16, where phases 7 and 8
+    restore their managers from.  Returns the launches, the tiers' records
+    (each with its round trip under "lifecycle"), the embedder and the
+    cross-encoder."""
     import numpy as np
     import torch
 
@@ -847,6 +884,10 @@ def phase_main_path(texts, after_bf16):
         tiers[tier] = dict(ingest_s=ingest_s, batches=per_batch, peak_gb=peak_gb,
                            launches=counts,
                            served_tensor_max_abs_err={k: v[0] for k, v in served.items()})
+        tiers[tier]["lifecycle"] = index_round_trip(
+            f"index {tier}", mgr, MultiIndexManager(cfg, embedder=embedder, device=dev),
+            fused_answers(reranker, lifecycle_queries(np.random.default_rng(47), texts)),
+            work / f"index-{tier}", keep=tier == "bfloat16")
         if tier == "bfloat16":
             after_bf16(mgr)
         mgr.close()
@@ -1053,11 +1094,13 @@ def check_hits(out, nq, k):
                 raise AssertionError("non-finite score in results")
 
 
-def phase_manager_tier(name, mgr, embedder, texts):
+def phase_manager_tier(name, mgr, embedder, texts, work=None):
     """Phase 7, one tier: the manager's non-fused entry points over the IVF
     tier (``mgr`` is phase 4's bf16 manager; build_semantic(ivf=True)) or
-    the PQ tier (``mgr`` is None: a semantic_dtype="pq" manager over the
-    same chunks, build_semantic(pq=True)), serving search_sync(SEMANTIC)
+    the PQ tier (``mgr`` is None: a semantic_dtype="pq" manager restored
+    from phase 4's bf16 checkpoint under ``work``, the same chunks and
+    embeddings as an ingest gives, then build_semantic(pq=True)), serving
+    search_sync(SEMANTIC)
     and hybrid_search_batch_sync at Q = 1, 8, 32 with BM25 from the
     postings (built at the first call: the corpus is over 50k rows)."""
     import numpy as np
@@ -1065,6 +1108,7 @@ def phase_manager_tier(name, mgr, embedder, texts):
 
     from advanced_rag_tpu_torch.config import IndexType, PipelineConfig
     from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index
 
     rng = np.random.default_rng(17)
     k = 10
@@ -1077,9 +1121,9 @@ def phase_manager_tier(name, mgr, embedder, texts):
         cfg.semantic_dim = embedder.dim
         mgr = MultiIndexManager(cfg, embedder=embedder, device="cuda")
         t = time.perf_counter()
-        ingest_all(mgr, texts)
+        load_index(mgr, work / "index-bfloat16")
         torch.cuda.synchronize()
-        rec["ingest_s"] = time.perf_counter() - t
+        rec["restore_s"] = time.perf_counter() - t
     t = time.perf_counter()
     built = mgr.build_semantic(ivf=name == "ivf", pq=name == "pq")
     torch.cuda.synchronize()
@@ -1118,7 +1162,8 @@ def phase_manager_tier(name, mgr, embedder, texts):
             mgr.semantic._ivf, mgr.embedder.encode_device(snippet_queries(rng, texts, 32)),
             mgr.semantic.config.nprobe)
     log(f"manager[{name}]: build {rec['build_s']:.2f}s"
-        + (f", ingest {rec['ingest_s']:.2f}s" if "ingest_s" in rec else "")
+        + (f", restored from phase 4's bf16 checkpoint in {rec['restore_s']:.2f}s"
+           if "restore_s" in rec else "")
         + f", first hybrid (builds postings, cap {rec['postings_cap']}) "
           f"{rec['first_hybrid_s']:.2f}s; hybrid "
         + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
@@ -1127,6 +1172,10 @@ def phase_manager_tier(name, mgr, embedder, texts):
           f"{rec['search_sync'][1]['p99_ms']:.2f} ms; peak {rec['peak_gb']:.2f} GB; "
           f"launches {rec['launches']}")
     if name == "pq":
+        rec["lifecycle"] = index_round_trip(
+            "index pq", mgr, MultiIndexManager(cfg, embedder=embedder, device="cuda"),
+            hybrid_answers(lifecycle_queries(np.random.default_rng(53), texts)),
+            work / "index-pq")
         mgr.close()
     return rec
 
@@ -1406,10 +1455,13 @@ def timed_manager(mgr, batches):
         setattr(mgr, name, timed)
 
 
-def run_service(pipeline, db, docs, probes, queries, warm_route):
-    """``drive_service`` over the port's app on a localhost socket; the
-    counters are zeroed just before and read just after.  The app's
-    shutdown closes the pipeline and its manager."""
+def run_service(pipeline, db, docs, probes, queries, warm_route, need, after=None):
+    """``drive_service`` over the port's app on a localhost socket, then
+    ``after(client)`` if given (phase 9 (d)).  The counters are zeroed
+    just before each and read just after, so ``rec["launches"]`` are the
+    load levels' own and must hold every kernel in ``need``; ``after``'s
+    go to ``rec["lifecycle"]["launches"]``.  The app's shutdown closes the
+    pipeline and its manager."""
     import torch
 
     batches = []
@@ -1430,6 +1482,15 @@ def run_service(pipeline, db, docs, probes, queries, warm_route):
                                       probes, queries, warm_route)
             torch.cuda.synchronize()
             rec["launches"] = read_counters()
+            missing = [k for k in need if rec["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"the service's load levels ran no {missing}: "
+                                     f"{rec['launches']}")
+            if after is not None:
+                reset_counters()
+                rec["lifecycle"] = await after(client)
+                torch.cuda.synchronize()
+                rec["lifecycle"]["launches"] = read_counters()
             # without prometheus_client the service answers 501 there
             resp = await client.get("/metrics")
             text = await resp.text()
@@ -1445,6 +1506,107 @@ def run_service(pipeline, db, docs, probes, queries, warm_route):
     finally:
         for name in ("fused_retrieve_batch_sync", "hybrid_search_batch_sync"):
             delattr(pipeline.index_manager, name)
+
+
+async def service_maintain(client):
+    """Phase 9 (d): POST /admin/index/maintain; returns its answer."""
+    t = time.perf_counter()
+    resp = await client.post("/admin/index/maintain", json={})
+    body = await resp.json()
+    if resp.status != 200:
+        raise AssertionError(f"/admin/index/maintain answered {resp.status}: {body}")
+    rec = dict(maintain=body, maintain_s=time.perf_counter() - t)
+    log(f"service lifecycle: /admin/index/maintain in {rec['maintain_s']:.2f}s: {body}")
+    return rec
+
+
+def service_restart(pipeline, probes, enc_root, encoders):
+    """Phase 9 (d): maintain, POST /admin/index/checkpoint (save, inside
+    RAG_CHECKPOINT_ROOT), then a fresh app booted from RAG_CHECKPOINT_DIR
+    with the saving app's settings: for the fused app (``encoders``)
+    RAG_EMBEDDER=ckpt: / RAG_RERANKER=ckpt: of phase 9 (a)'s files (phase
+    4's models, which it serves), for the default app its hashing embedder
+    (a seeded draw, the same in every app).  The fresh app's probes must
+    answer with the chunk ids of the app that saved."""
+    async def probe_ids(client):
+        out = []
+        for _, text in probes:
+            resp = await client.post("/retrieve", json={"query": text,
+                                                        "top_k": SERVICE_TOP_K})
+            body = await resp.json()
+            if resp.status != 200 or not body.get("results"):
+                raise AssertionError(f"/retrieve of a probe answered {resp.status}")
+            out.append([r["chunk_id"] for r in body["results"]])
+        return out
+
+    async def go(client):
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from advanced_rag_tpu_torch.service import create_app
+
+        rec = await service_maintain(client)
+        cfg = pipeline.config
+        ckpt_dir = enc_root / ("service-fused" if encoders else "service-default")
+        env = {"RAG_CHECKPOINT_ROOT": str(enc_root)}
+        saved_env = {k: os.environ.get(k) for k in (
+            "RAG_CHECKPOINT_ROOT", "RAG_CHECKPOINT_DIR", "RAG_EMBEDDER", "RAG_RERANKER",
+            "RAG_FUSED_E2E", "RAG_FUSED_TOKEN_LEN", "RAG_RERANK_MODE", "RAG_RERANK_BASE",
+            "RAG_RERANK_ALPHA", "RAG_RESCORE_MIX", "CHAT_DB_PATH")}
+        os.environ.update(env)
+        fresh = None
+        try:
+            t = time.perf_counter()
+            resp = await client.post("/admin/index/checkpoint",
+                                     json={"dir": str(ckpt_dir), "action": "save"})
+            body = await resp.json()
+            if resp.status != 200 or body.get("rows") != pipeline.index_manager.store.size:
+                raise AssertionError(f"/admin/index/checkpoint answered {resp.status}: "
+                                     f"{body}")
+            rec["save_s"] = time.perf_counter() - t
+            rec["bytes"] = dir_bytes(ckpt_dir)
+            saved = await probe_ids(client)
+            # the settings of the app that saved, as a deployment's restart
+            # would give them
+            os.environ.update({"RAG_CHECKPOINT_DIR": str(ckpt_dir),
+                               "CHAT_DB_PATH": str(ckpt_dir) + ".db"})
+            if encoders:
+                os.environ.update({
+                    "RAG_EMBEDDER": f"ckpt:{enc_root / 'biencoder'}",
+                    "RAG_RERANKER": f"ckpt:{enc_root / 'reranker'}",
+                    "RAG_FUSED_E2E": "1",
+                    "RAG_FUSED_TOKEN_LEN": str(cfg.fused_token_len),
+                    "RAG_RERANK_MODE": cfg.rerank_mode,
+                    "RAG_RERANK_BASE": cfg.rerank_base,
+                    "RAG_RERANK_ALPHA": str(cfg.rerank_alpha),
+                    "RAG_RESCORE_MIX": str(cfg.rescore_mix)})
+            t = time.perf_counter()
+            app = create_app(device="cuda")
+            rec["boot_s"] = time.perf_counter() - t
+            rec["restored_rows"] = app["state"].pipeline.index_manager.store.size
+            fresh = TestClient(TestServer(app))
+            await fresh.start_server()
+            again = await probe_ids(fresh)
+        finally:
+            if fresh is not None:
+                await fresh.close()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        rec["probes_same_ids"] = sum(a == b for a, b in zip(again, saved))
+        log(f"service lifecycle: checkpoint saved in {rec['save_s']:.2f}s "
+            f"({rec['bytes']} bytes); a fresh app booted from it"
+            + (" with the ckpt: encoders" if encoders else "")
+            + f" in {rec['boot_s']:.2f}s ({rec['restored_rows']} rows); probes "
+            f"answered with the saving app's chunk ids: {rec['probes_same_ids']}/"
+            f"{len(probes)}")
+        if rec["restored_rows"] != pipeline.index_manager.store.size or \
+                rec["probes_same_ids"] != len(probes):
+            raise AssertionError("the restarted service does not answer as the one "
+                                 "that saved")
+        return rec
+    return go
 
 
 def log_service(name, rec):
@@ -1468,14 +1630,18 @@ def log_service(name, rec):
         + f"; micro-batcher {rec['micro_batcher']}")
     log(f"service[{name}]: probes found {rec['probes_found']}/8; launches "
         f"{rec['launches']}")
+    if "lifecycle" in rec:
+        log(f"service[{name}]: phase 9 (d) (maintain, checkpoint, restarted app) "
+            f"launches {rec['lifecycle']['launches']}")
 
 
-def phase_service(embedder, reranker, texts):
+def phase_service(embedder, reranker, texts, work):
     """Phase 8: the port's service (create_app over AdvancedRAGPipeline) in
     both configurations it starts in, each over a manager of its own that
     the app's shutdown closes.
 
-    - fused: a bf16 manager over the 100k chunks with phase 4's embedder
+    - fused: a bf16 manager restored from phase 4's bf16 checkpoint
+      (phase 9 (b), under ``work``: the same 100k chunks and embedder)
       and, on the retriever, phase 4's cross-encoder; POST /ingest of
       SERVICE_DOCS documents (diagnostics, chunking, enrichment,
       index_chunks, compliance), then /retrieve from 1, 8 and 32
@@ -1487,7 +1653,10 @@ def phase_service(embedder, reranker, texts):
       requests; K1 must run.
 
     Every answer must be a 200 with results and every probe document must
-    come back in its top 10.  Returns the records and the launches."""
+    come back in its top 10.  After the load levels, phase 9 (d): both apps
+    answer POST /admin/index/maintain, and the fused app (whose models phase
+    9 (a) saved under ``work``) and the default one save their indexes for
+    a restarted app to boot from.  Returns the records and the launches."""
     import gc
     import importlib.util
     import os
@@ -1498,6 +1667,7 @@ def phase_service(embedder, reranker, texts):
     from advanced_rag_tpu_torch.config import PipelineConfig
     from advanced_rag_tpu_torch.index.manager import MultiIndexManager
     from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline, HybridRetriever
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index
     from advanced_rag_tpu_torch.utils.db_pool import DatabasePool
 
     if importlib.util.find_spec("aiohttp") is None:
@@ -1511,18 +1681,22 @@ def phase_service(embedder, reranker, texts):
     rng = np.random.default_rng(29)
     n_queries = 2 * 32 + SERVICE_SEQUENTIAL + sum(c * r for c, r in SERVICE_ROUNDS.items())
     queries = snippet_queries(rng, texts, n_queries)
-    db_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(db_dir, exist_ok=True)
+    db_dir = str(BUILD_DIR)
     out = {}
 
-    def manager(name, cfg, embedder=None):
+    def manager(name, cfg, embedder=None, checkpoint=None):
         t = time.perf_counter()
         mgr = MultiIndexManager(cfg, embedder=embedder, device="cuda")
-        ingest_all(mgr, texts)
+        if checkpoint is None:
+            ingest_all(mgr, texts)
+        else:
+            load_index(mgr, checkpoint)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t
         log(f"service[{name}]: {type(mgr.embedder).__name__} manager over "
-            f"{mgr.store.n_valid()} chunks built through index_chunks in {build_s:.2f}s")
+            f"{mgr.store.n_valid()} chunks "
+            + ("built through index_chunks" if checkpoint is None else
+               "restored from phase 4's bf16 checkpoint") + f" in {build_s:.2f}s")
         return mgr, build_s
 
     try:
@@ -1531,7 +1705,7 @@ def phase_service(embedder, reranker, texts):
                              rerank_mode="residual", rerank_base="exact",
                              rerank_alpha=0.5, rescore_mix=0.65)
         cfg.semantic_dim = embedder.dim
-        mgr, build_s = manager("fused", cfg, embedder)
+        mgr, build_s = manager("fused", cfg, embedder, work / "index-bfloat16")
         pipe = AdvancedRAGPipeline(cfg, index_manager=mgr, retriever=HybridRetriever(
             mgr, cfg.retrieval, reranker=reranker))
         if not pipe._use_fused_path():
@@ -1546,7 +1720,9 @@ def phase_service(embedder, reranker, texts):
         gc.set_threshold(200_000, 50, 100)
         log(f"service[fused]: {gc.get_freeze_count()} objects frozen")
         db = DatabasePool(sqlite_path=os.path.join(db_dir, "service_fused.db"))
-        rec = run_service(pipe, db, docs, probes, queries, warm_route=False)
+        rec = run_service(pipe, db, docs, probes, queries, warm_route=False,
+                          need=("K1", "K3"),
+                          after=service_restart(pipe, probes, work, encoders=True))
         if mgr.store.size - rows_before != rec["ingest_chunks"]:
             raise AssertionError("the ingested chunks did not all reach the store")
         if rec["ingest_chunks"] < 2 * SERVICE_DOCS:
@@ -1554,8 +1730,6 @@ def phase_service(embedder, reranker, texts):
                                  f"{rec['ingest_chunks']} chunks")
         rec["manager_build_s"] = build_s
         log_service("fused", rec)
-        if rec["launches"]["K1"] == 0 or rec["launches"]["K3"] == 0:
-            raise AssertionError(f"the fused service ran no K1 or K3: {rec['launches']}")
         out["fused"] = rec
         del pipe, mgr
         torch.cuda.empty_cache()
@@ -1567,11 +1741,11 @@ def phase_service(embedder, reranker, texts):
         if dpipe._use_fused_path():
             raise AssertionError("the default service took the fused path")
         db = DatabasePool(sqlite_path=os.path.join(db_dir, "service_default.db"))
-        rec = run_service(dpipe, db, docs, probes, queries, warm_route=True)
+        rec = run_service(dpipe, db, docs, probes, queries, warm_route=True,
+                          need=("K1",),
+                          after=service_restart(dpipe, probes, work, encoders=False))
         rec["manager_build_s"] = build_s
         log_service("default", rec)
-        if rec["launches"]["K1"] == 0:
-            raise AssertionError(f"the default service ran no K1: {rec['launches']}")
         out["default"] = rec
         del dpipe, dmgr
         torch.cuda.empty_cache()
@@ -1645,6 +1819,376 @@ def phase_service_reference():
     return out
 
 
+#: phase 9 (the index lifecycle): the default manager's corpus is phase
+#: 4's 100k chunks plus LIFECYCLE_MORE of the same generator, the first
+#: size at which maintenance_tick builds IVF by itself
+#: (IndexConstants.IVF_AUTO_THRESHOLD); LIFECYCLE_TAIL more then make an
+#: appended tail above 0.2 of the rows, and LIFECYCLE_DEAD of the chunk_index
+#: residues (1 in LIFECYCLE_GROUPS each) are deleted for the compaction
+LIFECYCLE_MORE = 100_000
+LIFECYCLE_TAIL = 60_000
+LIFECYCLE_GROUPS = 20
+LIFECYCLE_DEAD = (0, 1, 2)
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_encoder_checkpoints(embedder, reranker, texts, root):
+    """Phase 9 (a): phase 4's bi-encoder and cross-encoder saved with the
+    port's save_biencoder / save_reranker under ``root``, loaded on the card;
+    the embeddings and CE scores of phase 4's probe texts must be
+    bit-identical.  Returns the record (the files stay for phase 8's boot)."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
+    from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
+    from advanced_rag_tpu_torch.train import (load_biencoder, load_reranker,
+                                              save_biencoder, save_reranker)
+
+    probes = [texts[r] for r in range(0, len(texts), PROBE_EVERY)][:16]
+    docs = [texts[r + 1] for r in range(0, len(texts), PROBE_EVERY)][:16]
+    t = time.perf_counter()
+    save_biencoder(embedder.model, embedder.config, embedder.dim, root / "biencoder")
+    save_reranker(reranker.model, reranker.config, root / "reranker",
+                  q_len=reranker.q_len, d_len=reranker.d_len)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg, out_dim, bi = load_biencoder(root / "biencoder", device="cuda")
+    ce_cfg, ce, layout = load_reranker(root / "reranker", device="cuda")
+    emb = NeuralEmbedder(dim=out_dim, config=cfg, state_dict=bi.state_dict(),
+                         tokenizer=embedder.tokenizer, device="cuda")
+    rr = CrossEncoderReranker(config=ce_cfg, state_dict=ce.state_dict(), device="cuda",
+                              **layout)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    if (cfg, out_dim, ce_cfg, layout) != (embedder.config, embedder.dim, reranker.config,
+                                          {"q_len": reranker.q_len, "d_len": reranker.d_len}):
+        raise AssertionError("the loaded encoders' geometry differs from the saved")
+    same_emb = torch.equal(emb.encode_device(probes), embedder.encode_device(probes))
+    same_ce = np.array_equal(rr.score_pairs(probes, docs), reranker.score_pairs(probes, docs))
+    rec = dict(save_s=save_s, load_s=load_s,
+               bytes={k: dir_bytes(root / k) for k in ("biencoder", "reranker")},
+               bit_identical_embeddings=same_emb, bit_identical_ce_scores=same_ce)
+    log(f"lifecycle[encoders]: saved in {save_s:.2f}s ({rec['bytes']} bytes), loaded on "
+        f"the card in {load_s:.2f}s; {len(probes)} probe embeddings bit-identical "
+        f"{same_emb}, CE scores bit-identical {same_ce}")
+    if not (same_emb and same_ce):
+        raise AssertionError("the reloaded encoders do not reproduce the saved ones")
+    return rec
+
+
+def index_round_trip(name, mgr, fresh, search, root, keep=False):
+    """Phase 9 (b): ``mgr`` saved with save_index under ``root``, loaded
+    into the empty manager ``fresh`` with load_index, both searched by
+    ``search(m)`` (a list of (chunk_id, score, ...) rows per query), which
+    must be equal.  The counters are zeroed before and read after; the
+    directory is removed unless ``keep``.  Returns the record."""
+    import shutil
+
+    import torch
+
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index, save_index
+
+    reset_counters()
+    try:
+        t = time.perf_counter()
+        save_index(mgr, root)
+        save_s = time.perf_counter() - t
+        size = dir_bytes(root)
+        rebuild = {}
+        table = fresh.token_table
+        if table is not None:          # time the re-tokenization apart
+            real = table.rebuild
+
+            def timed(contents):
+                t0 = time.perf_counter()
+                real(contents)
+                torch.cuda.synchronize()
+                rebuild["s"] = time.perf_counter() - t0
+            table.rebuild = timed
+        t = time.perf_counter()
+        load_index(fresh, root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if table is not None:
+            del table.rebuild
+        before, after = search(mgr), search(fresh)
+    finally:
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if before != after:
+        raise AssertionError(f"lifecycle[{name}]: search results differ after the restore")
+    rec = dict(save_s=save_s, load_s=load_s, bytes=size, rows=fresh.store.size,
+               token_rebuild_s=rebuild.get("s"), queries=len(before), launches=launches)
+    log(f"lifecycle[{name}]: {rec['rows']} rows saved in {save_s:.2f}s ({size} bytes), "
+        f"loaded in {load_s:.2f}s"
+        + ("" if table is None else f" (token table re-tokenized in {rebuild['s']:.2f}s)")
+        + f"; {len(before)} queries answer with the same ids and scores; launches "
+          f"{launches}")
+    fresh.close()
+    return rec
+
+
+def fused_answers(reranker, queries):
+    def search(m):
+        out = []
+        for batch in queries:
+            out += [[(h["chunk_id"], h["score"], h["rerank_score"]) for h in hits]
+                    for hits in m.fused_retrieve_batch_sync(batch, reranker=reranker,
+                                                            **SERVE)]
+        return out
+    return search
+
+
+def hybrid_answers(queries, k=10, **knobs):
+    def search(m):
+        out = []
+        for batch in queries:
+            out += [[(h["chunk_id"], h["score"]) for h in hits]
+                    for hits in m.hybrid_search_batch_sync(batch, k, **knobs)]
+        return out
+    return search
+
+
+def lifecycle_queries(rng, texts):
+    """The probes (exact chunk texts) and a 32-query batch."""
+    import numpy as np
+
+    probes = rng.choice(np.arange(0, len(texts), PROBE_EVERY), size=8, replace=False)
+    return [[texts[r] for r in probes], snippet_queries(rng, texts, 32)]
+
+
+def ingest_range(mgr, texts, lo, hi):
+    from advanced_rag_tpu_torch.index.corpus import ChunkRecord
+
+    for s in range(lo, hi, 8192):
+        recs = [ChunkRecord(chunk_id=f"c{i}", doc_id=f"d{i // 4}", content=texts[i],
+                            chunk_index=i % LIFECYCLE_GROUPS,
+                            token_count=texts[i].count(" ") + 1)
+                for i in range(s, min(s + 8192, hi))]
+        rep = mgr.index_chunks(recs)
+        if rep["indexed"] != len(recs) or rep["errors"]:
+            raise AssertionError(f"ingest failed: {rep['errors'][:3]}")
+
+
+def overlap(a, b):
+    return sum(len({r[0] for r in x} & {r[0] for r in y}) for x, y in zip(a, b)) / max(
+        sum(len(y) for y in b), 1)
+
+
+def served_k1_cases(mgr, queries):
+    """K1 against its plain version on the tensors phase 9's manager serves:
+    the 1536-wide semantic rows and the 768-wide domain rows, its row mask
+    and real queries at Q = 1 and 32; the bound as phase 3 counts it."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops import dense_kernels as dk
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize, mask_additive
+
+    cases = []
+    m = mask_additive(mgr._row_mask(None), mgr.semantic.capacity, mgr.device)
+    for fam, idx, embedder in (("semantic", mgr.semantic, mgr.embedder),
+                               ("domain", mgr.domain, mgr.domain_embedder)):
+        rows = idx.emb
+        n, d = rows.shape
+        for nq in (1, 32):
+            q = l2_normalize(embedder.encode_device(queries[:nq]).float()).contiguous()
+            err, rel, swaps = compare(dk.dense_scores(q, rows, m),
+                                      dk.dense_scores_plain(q, rows, m), 1e-5)
+            qb = q.to(torch.bfloat16)
+            b_ms, b_by = bound(n * d * 2 + nq * d * 4 + n * 4 + nq * n * 4,
+                               3 * 2.0 * nq * n * d, BF16_OPS_PER_S)
+            case = dict(shape=f"bf16 rows N={n} D={d} Q={nq} (phase 9, {fam})",
+                        main=False, max_abs_err=err, rel_err=rel, tie_swaps=swaps,
+                        ms=graph_ms(lambda: dk.dense_scores(q, rows, m)),
+                        call_ms=cuda_ms(lambda: dk.dense_scores(q, rows, m)),
+                        plain_ms=cuda_ms(lambda: dk.dense_scores_plain(q, rows, m), reps=3),
+                        library_ms=graph_ms(lambda: torch.matmul(qb, rows.T)),
+                        library_call_ms=cuda_ms(lambda: torch.matmul(qb, rows.T)),
+                        bound_ms=b_ms, bound_by=b_by)
+            log_case("K1", case)
+            cases.append(case)
+    return cases
+
+
+def phase_lifecycle(texts):
+    """Phase 9 (c): a default-configuration manager (HashingEmbedder, bf16,
+    postings BM25) with enable_domain=True over 200,000 chunks; the domain
+    rung of hybrid_search_batch_sync (domain_weight 0.2) at Q = 1 and 32;
+    maintenance_tick's first IVF build behind its recall guardrail;
+    LIFECYCLE_TAIL more chunks and the IVF rebuild; 15% deleted and the
+    postings compaction; last, the manager saved and loaded into a fresh
+    card manager and into a CPU manager (the plain path): the card's domain
+    rung against the CPU's, top-10 overlap >= 0.9; the restored card
+    manager, with the original's partitions and postings compacted as its
+    were, must answer as the original; then the restart's own tick.  Returns the record and the kernel cases
+    it held against their plain versions."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.embedder import HashingEmbedder
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize
+    from advanced_rag_tpu_torch.ops.ivf import probe_lists
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index, save_index
+
+    rng = np.random.default_rng(43)
+    more = synthetic_corpus(LIFECYCLE_MORE + LIFECYCLE_TAIL, seed=12)
+    corpus = list(texts) + more
+    n1 = len(texts) + LIFECYCLE_MORE
+    rec, cases = {}, {"K1": [], "K5": []}
+    mgr = MultiIndexManager(PipelineConfig(), enable_domain=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t = time.perf_counter()
+    ingest_range(mgr, corpus, 0, n1)
+    torch.cuda.synchronize()
+    rec["ingest_s"] = time.perf_counter() - t
+    log(f"lifecycle[domain]: {mgr.store.n_valid()} chunks ingested in "
+        f"{rec['ingest_s']:.2f}s (semantic {mgr.semantic.dim} wide, domain "
+        f"{mgr.domain.dim}, capacity {mgr.semantic.capacity})")
+
+    def hybrid(nq, r):
+        check_hits(mgr.hybrid_search_batch_sync(snippet_queries(rng, corpus[:n1], nq), 10,
+                                                domain_weight=0.2), nq, 10)
+
+    rec["hybrid_exact"] = time_calls(hybrid, (1, 32))
+
+    def tick(what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions = mgr.maintenance_tick()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        log(f"lifecycle[maintenance]: {what}: {s:.2f}s, actions {actions}, nprobe "
+            f"{mgr.semantic.config.nprobe}")
+        return dict(actions=actions, seconds=s, nprobe=mgr.semantic.config.nprobe)
+
+    rec["first_build"] = tick("first build at 200k rows")
+    if not rec["first_build"]["actions"].get("ivf_rebuilt"):
+        raise AssertionError("maintenance_tick built no IVF at 200,000 rows")
+    rec["hybrid_ivf"] = time_calls(hybrid, (1, 32))
+    t = time.perf_counter()
+    ingest_range(mgr, corpus, n1, len(corpus))
+    rec["tail_ingest_s"] = time.perf_counter() - t
+    if not mgr.semantic.ivf_needs_rebuild:
+        raise AssertionError("the appended tail did not pass 0.2 of the rows")
+    rec["rebuild"] = tick(f"rebuild with a tail of {mgr.semantic.ivf_tail_rows} rows")
+    if rec["rebuild"]["actions"].get("ivf_rows") != len(corpus):
+        raise AssertionError("maintenance_tick did not rebuild the IVF over every row")
+    deleted = mgr.delete_by_filter({"chunk_index": {"in": list(LIFECYCLE_DEAD)}})
+    rec["deleted"] = deleted
+    rec["stale_fraction"] = mgr.sparse.postings_stale_fraction
+    rec["compaction"] = tick(f"{deleted} rows deleted (stale postings "
+                             f"{rec['stale_fraction']:.3f})")
+    if not rec["compaction"]["actions"].get("postings_compacted"):
+        raise AssertionError("maintenance_tick did not compact the postings")
+    rec["hybrid_after"] = time_calls(hybrid, (1, 32))
+    torch.cuda.synchronize()
+    rec["launches"] = read_counters()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rec["launches"]["K1"] == 0 or rec["launches"]["K5"] == 0:
+        raise AssertionError(f"phase 9's manager ran no K1 or K5: {rec['launches']}")
+    log(f"lifecycle[domain]: hybrid (domain_weight 0.2) exact scan "
+        + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
+                    for nq, v in rec["hybrid_exact"].items())
+        + "; IVF " + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
+                               for nq, v in rec["hybrid_ivf"].items())
+        + f"; tail ingest {rec['tail_ingest_s']:.2f}s; peak {rec['peak_gb']:.2f} GB; "
+          f"launches {rec['launches']}")
+
+    # kernels on the served tensors (after the counters are read)
+    live = [t for i, t in enumerate(corpus) if i % LIFECYCLE_GROUPS not in LIFECYCLE_DEAD]
+    checks = snippet_queries(rng, live, 32)
+    cases["K1"] = served_k1_cases(mgr, checks)
+    parts = mgr.semantic._ivf
+    q = l2_normalize(mgr.embedder.encode_device(checks).float()).contiguous()
+    npb = min(mgr.semantic.config.nprobe, parts.packed_emb.shape[0])
+    probes = probe_lists(parts, q, npb).contiguous()
+    case = k5_case(probes, q, parts.packed_emb, None, "stream", kind="real")
+    case["shape"] += " (phase 9)"
+    log_case("K5-stream", case)
+    cases["K5"].append(case)
+
+    # save, then a restart on the card (ticked) and the plain path on the CPU
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=BUILD_DIR)
+    queries = [checks[:1], checks]
+    try:
+        t = time.perf_counter()
+        save_index(mgr, root)
+        rec["save_s"] = time.perf_counter() - t
+        rec["bytes"] = dir_bytes(root)
+        proj = mgr.embedder._proj.cpu().numpy()
+        dproj = mgr.domain_embedder._proj.cpu().numpy()
+        restored = {}
+        for dev in ("cuda", "cpu"):
+            emb = HashingEmbedder(dim=proj.shape[1], vocab_size=proj.shape[0], proj=proj,
+                                  device=dev)
+            demb = HashingEmbedder(dim=dproj.shape[1], vocab_size=dproj.shape[0],
+                                   proj=dproj, device=dev)
+            m = MultiIndexManager(PipelineConfig(), embedder=emb, domain_embedder=demb,
+                                  enable_domain=True, device=dev)
+            t = time.perf_counter()
+            load_index(m, root)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            rec[f"load_{dev}_s"] = time.perf_counter() - t
+            # postings are not saved: built without the deleted rows, as
+            # the original's compaction left them (a restored manager's
+            # first hybrid search would build them over every row, as the
+            # JAX package's restore does)
+            m.sparse.build_postings(valid=m.store._host_valid[: m.sparse.size])
+            restored[dev] = m
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    search = hybrid_answers(queries, domain_weight=0.2)
+    exact = {dev: search(m) for dev, m in restored.items()}
+    rec["card_vs_cpu_overlap"] = overlap(exact["cuda"], exact["cpu"])
+    restored["cpu"].close()
+    del restored["cpu"]
+    card = restored["cuda"]
+    # IVF partitions are not saved either: given the original's, the
+    # restored manager must answer as the original
+    sem = card.semantic
+    sem._ivf, sem._ivf_size = mgr.semantic._ivf, mgr.semantic._ivf_size
+    sem.config.nprobe = mgr.semantic.config.nprobe
+    original, again = search(mgr), search(card)
+    rec["restore_overlap"] = overlap(again, original)
+    rec["restore_identical"] = sum(a == b for a, b in zip(again, original))
+    # a restart's maintenance builds its own partitions
+    sem._ivf, sem._ivf_size = None, 0
+    rec["restart_tick"] = card.maintenance_tick()
+    log(f"lifecycle[checkpoint]: {card.store.size} rows ({card.store.n_valid()} live) saved "
+        f"in {rec['save_s']:.2f}s ({rec['bytes']} bytes), loaded on the card in "
+        f"{rec['load_cuda_s']:.2f}s and on the CPU in {rec['load_cpu_s']:.2f}s; domain "
+        f"rung card vs CPU plain path top-10 overlap {rec['card_vs_cpu_overlap']:.3f} "
+        f"(Q = 1 and 32); restored vs original (its partitions) overlap "
+        f"{rec['restore_overlap']:.3f}, {rec['restore_identical']}/{len(original)} "
+        f"queries identical; the restart's tick {rec['restart_tick']}")
+    if rec["card_vs_cpu_overlap"] < 0.9 or rec["restore_identical"] != len(original):
+        raise AssertionError("the restored managers disagree with the original")
+    if not rec["restart_tick"].get("ivf_rebuilt"):
+        raise AssertionError("the restarted manager's tick built no IVF")
+    card.close()
+    mgr.close()
+    del card, mgr
+    torch.cuda.empty_cache()
+    return rec, cases
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -1658,17 +2202,32 @@ def main() -> None:
     def after_bf16(mgr):
         manager_tiers.update(ivf=phase_manager_tier("ivf", mgr, mgr.embedder, texts))
 
-    launches, tiers, embedder, reranker = phase_main_path(texts, after_bf16)
-    manager_tiers["pq"] = phase_manager_tier("pq", None, embedder, texts)
-    service = phase_service(embedder, reranker, texts)
+    BUILD_DIR.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="lifecycle-", dir=BUILD_DIR))
+    try:
+        launches, tiers, embedder, reranker = phase_main_path(texts, after_bf16, work)
+        manager_tiers["pq"] = phase_manager_tier("pq", None, embedder, texts, work)
+        encoders = phase_encoder_checkpoints(embedder, reranker, texts, work)
+        service = phase_service(embedder, reranker, texts, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     phase_reference()
     service["reference"] = phase_service_reference()
     tiers_1m = phase_tiers_1m()
     phase_tier_reference()
+    lifecycle, lifecycle_cases = phase_lifecycle(texts)
+    lifecycle["encoders"] = encoders
+    for key, cases in lifecycle_cases.items():
+        kernel_results[key] += cases
     for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
         kernel_results["K5"] += rec.pop("real_probe_cases")
-    for runs in (tiers_1m, manager_tiers,
-                 {k: service[k] for k in ("fused", "default")}):
+    round_trips = {f"{k}-restore": v["lifecycle"] for k, v in tiers.items()}
+    round_trips["pq-restore"] = manager_tiers["pq"]["lifecycle"]
+    service_runs = {k: service[k] for k in ("fused", "default")}
+    service_runs.update({f"{k}-restart": service[k]["lifecycle"]
+                         for k in ("fused", "default")})
+    for runs in (tiers_1m, manager_tiers, round_trips, {"lifecycle": lifecycle},
+                 service_runs):
         for rec in runs.values():
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
@@ -1708,7 +2267,7 @@ def main() -> None:
             raise AssertionError(f"{key} was never launched on the main paths")
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
                       "manager_tiers": manager_tiers, "service": service,
-                      "nvidia_smi": smi}), flush=True)
+                      "lifecycle": lifecycle, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -10,6 +10,7 @@ atol 2e-2 and cross-encoder logits to atol 5e-2 at these widths.
 """
 
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import jax
@@ -23,36 +24,23 @@ from advanced_rag_tpu_torch.models import encoder as tenc
 from advanced_rag_tpu_torch.models.convert import (
     encoder_config_from_meta, params_from_jax)
 
-ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
+REPO = Path(__file__).resolve().parent.parent
+ARTIFACTS = REPO / "artifacts"
 SMALL = dict(vocab_size=512, hidden_dim=32, num_layers=2, num_heads=4,
              mlp_dim=64, max_len=40)
 
 
-def load_orbax_numpy(path):
-    """Restore an orbax pytree checkpoint to nested dicts of numpy arrays
-    (the port itself never imports orbax)."""
-    from collections.abc import Mapping
+def convert_script():
+    """``scripts/torch_convert_checkpoints.py`` as a module (it holds the
+    orbax reader; the port itself never imports orbax)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_convert_checkpoints", REPO / "scripts" / "torch_convert_checkpoints.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    import orbax.checkpoint as ocp
 
-    ckptr = ocp.PyTreeCheckpointer()
-    p = Path(path).absolute()
-    meta = ckptr.metadata(p).item_metadata
-    tree = meta.tree if hasattr(meta, "tree") else meta
-
-    def to_numpy_args(node):
-        if isinstance(node, Mapping):
-            return {k: to_numpy_args(v) for k, v in node.items()}
-        return ocp.RestoreArgs(restore_type=np.ndarray)
-
-    blob = ckptr.restore(p, restore_args=to_numpy_args(tree))
-
-    def as_numpy(node):
-        if isinstance(node, Mapping):
-            return {k: as_numpy(v) for k, v in node.items()}
-        return np.asarray(node)
-
-    return as_numpy(blob)
+load_orbax_numpy = convert_script().load_orbax_numpy
 
 
 def configs(dtype, **kw):

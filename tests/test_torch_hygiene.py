@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: what it imports, where it runs, how its
 kernels are built.
 
-- The port and chip_smoke.py import no JAX, Flax, orbax or JAX package
+- The port, chip_smoke.py and scripts/torch_quality_service.py (which run
+  where there is no JAX) import no JAX, Flax, orbax or JAX package
   (checked in a fresh interpreter, over every module of the port).
 - Entry points (the models, the manager, the pipeline, the retriever and
   the service) run on the CUDA card unless given ``device="cpu"``; with no
@@ -42,13 +43,21 @@ def port_modules():
         pkg.__path__, pkg.__name__ + ".")]
 
 
+#: scripts that run beside the port on hosts without JAX
+CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py"]
+
+
 def test_port_and_chip_smoke_import_no_jax():
     mods = port_modules()
     assert len(mods) >= 20
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        f"for path in {[str(p) for p in CARD_SCRIPTS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('card_script', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'advanced_rag_tpu'))\n"
         "print('BAD', bad)\n"
@@ -60,12 +69,13 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_no_port_source_names_jax_at_module_level():
-    """No file of the port, nor chip_smoke.py, imports jax, jaxlib, flax,
-    orbax or the JAX package, at any indentation (inside a function too)."""
+    """No file of the port, nor chip_smoke.py or a script that runs on the
+    card, imports jax, jaxlib, flax, orbax or the JAX package, at any
+    indentation (inside a function too)."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|advanced_rag_tpu)\b")
     files = sorted((REPO / "advanced_rag_tpu_torch").rglob("*.py"))
     assert len(files) >= 20
-    for path in files + [REPO / "chip_smoke.py"]:
+    for path in files + [REPO / "chip_smoke.py"] + CARD_SCRIPTS:
         for line in path.read_text().splitlines():
             assert not pat.match(line), f"{path}: {line}"
 

@@ -701,3 +701,92 @@ def test_pipeline_retrieve_on_the_card_matches_the_cpu_plain_path(cuda, fused):
         pipe.close()
     overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
     assert overlap / sum(len(b) for b in ids["cpu"]) >= 0.9, ids
+
+
+def _lifecycle_managers(tier, cuda, n=600, **kw):
+    """A CPU manager over n short seeded chunks and an empty card manager
+    with the same hashing projections (64 wide; domain 32 wide with
+    ``enable_domain``)."""
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.corpus import ChunkRecord
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.embedder import HashingEmbedder
+
+    rng = np.random.default_rng(31)
+    vocab = np.array(["w%d" % i for i in range(400)])
+    p = 1.0 / (np.arange(400) + 5.0)
+    texts = [" ".join(rng.choice(vocab, size=int(rng.integers(6, 20)), p=p / p.sum()))
+             for _ in range(n)]
+    domain = kw.get("enable_domain", False)
+    mgrs = {}
+    for dev in ("cpu", cuda):
+        src = mgrs.get("cpu")
+        emb = HashingEmbedder(dim=64, seed=2, device=dev,
+                              proj=None if src is None else src.embedder._proj.numpy())
+        demb = (HashingEmbedder(dim=32, seed=3, device=dev,
+                                proj=None if src is None
+                                else src.domain_embedder._proj.numpy())
+                if domain else None)
+        mgrs[str(dev)] = MultiIndexManager(PipelineConfig(semantic_dtype=tier), embedder=emb,
+                                           domain_embedder=demb, device=dev, **kw)
+    mgrs["cpu"].index_chunks([ChunkRecord(chunk_id=f"c{i}", doc_id=f"d{i // 3}", content=t)
+                              for i, t in enumerate(texts)])
+    return mgrs["cpu"], mgrs["cuda"], texts
+
+
+def _overlap(a, b):
+    return sum(len({h["chunk_id"] for h in x} & {h["chunk_id"] for h in y})
+               for x, y in zip(a, b)) / max(sum(len(y) for y in b), 1)
+
+
+@pytest.mark.parametrize("tier,counter", [("bfloat16", "dense"), ("int8", "sq8"),
+                                          ("pq", "pq")])
+def test_restored_tier_searches_through_its_kernel(cuda, tmp_path, tier, counter):
+    """A tier saved on the CPU and restored on the card by load_index (flat
+    bf16 in one put, SQ8 re-quantized, PQ re-encoded with the saved
+    codebooks): its first search launches K1, K2 or K6, and it answers as
+    the CPU manager (top-10 overlap >= 0.9)."""
+    from advanced_rag_tpu_torch.config import IndexType
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index, save_index
+
+    cpu, card, texts = _lifecycle_managers(tier, cuda)
+    if tier == "pq":
+        cpu.build_semantic(pq=True)
+    save_index(cpu, tmp_path)
+    load_index(card, tmp_path)
+    assert card.semantic.has_pq == (tier == "pq") and card.store.size == len(texts)
+    fn = {"dense": dk.dense_scores, "sq8": dk.sq8_scores, "pq": pk.pq_scores}[counter]
+    queries = [" ".join(t.split()[1:6]) for t in texts[::60]]
+    before = fn.launches
+    got = [card.search_sync(IndexType.SEMANTIC, q, 10) for q in queries]
+    torch.cuda.synchronize()
+    assert fn.launches >= before + len(queries)
+    want = [cpu.search_sync(IndexType.SEMANTIC, q, 10) for q in queries]
+    assert _overlap(got, want) >= 0.9
+
+
+def test_maintenance_and_the_domain_rung_on_the_card(cuda, tmp_path, monkeypatch):
+    """The domain rung runs K1 once more per batch and answers as the CPU
+    plain path (top-10 overlap >= 0.9); maintenance_tick's first IVF build
+    probes its recall through K5 against K1's exact scan."""
+    import advanced_rag_tpu_torch.utils.constants as tconst
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index, save_index
+
+    monkeypatch.setattr(tconst.IndexConstants, "IVF_AUTO_THRESHOLD", 500)
+    cpu, card, texts = _lifecycle_managers("bfloat16", cuda, enable_domain=True)
+    save_index(cpu, tmp_path)
+    load_index(card, tmp_path)
+    queries = [" ".join(t.split()[2:8]) for t in texts[::40]]
+    before = dk.dense_scores.launches
+    got = card.hybrid_search_batch_sync(queries, 10, domain_weight=0.5)
+    torch.cuda.synchronize()
+    assert dk.dense_scores.launches == before + 2       # semantic and domain scans
+    assert _overlap(got, cpu.hybrid_search_batch_sync(queries, 10,
+                                                      domain_weight=0.5)) >= 0.9
+    before = (dk.dense_scores.launches, ik.ivf_scores.launches)
+    actions = card.maintenance_tick()
+    torch.cuda.synchronize()
+    assert actions["ivf_rebuilt"] is True and card.semantic.has_ivf
+    assert dk.dense_scores.launches > before[0] and ik.ivf_scores.launches > before[1]
+    assert _overlap(card.hybrid_search_batch_sync(queries, 10),
+                    cpu.hybrid_search_batch_sync(queries, 10)) >= 0.8

@@ -281,14 +281,6 @@ def test_retrieve_in_a_worker_thread_builds_no_autograd_graph():
 # -- the manager repairs the orchestrator needs ------------------------------
 
 
-def test_manager_takes_enable_domain_false_and_refuses_true():
-    mgr = MultiIndexManager(PipelineConfig(), enable_sparse=True, enable_domain=False,
-                            device="cpu")
-    assert mgr.enable_domain is False and mgr.domain is None
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        MultiIndexManager(PipelineConfig(), enable_domain=True, device="cpu")
-
-
 def test_hybrid_search_takes_domain_weight_unused_while_domain_is_off():
     mgr = MultiIndexManager(PipelineConfig(), device="cpu")
     mgr.index_chunks([ChunkRecord(chunk_id=f"c{i}", doc_id="d", content=t)

@@ -168,3 +168,23 @@ def test_sparse_device_state_is_bf16_and_counted():
     assert float(tsp.tf_t[:, 4].float().max()) == 260.0    # 259 -> 260
     assert float(tsp.tf_t[:, 1].float().max()) == 256.0
     assert tsp.memory_bytes() == sum(t.nbytes for t in held())
+
+
+@pytest.mark.parametrize("vocab,nnz", [(1 << 15, 256), (16384, 128), (64, 4)])
+def test_encode_documents_matches_jax(vocab, nnz):
+    """The port's Python encoder against the JAX package's (its C++ fast
+    path on ASCII text, Python otherwise): equal arrays and dtypes, with
+    empty and stopword-only texts, non-ASCII text, tf ties and documents
+    with more distinct terms than ``nnz``."""
+    from advanced_rag_tpu.index.text import encode_documents as j_encode_documents
+
+    rng = np.random.default_rng(vocab)
+    words = np.array(["w%d" % i for i in range(500)] + ["café", "naïve", "ÉCOLE"])
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(1, 120))))
+             for _ in range(200)]
+    texts += ["", "the a an of", "alpha " * 300 + "beta " * 300, "x y z x y z"]
+    got = encode_documents(texts, vocab, nnz)
+    want = j_encode_documents(texts, vocab, nnz)
+    for g, w in zip(got, want):
+        assert g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, np.asarray(w))
