@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
             lib.art_ivf_grouped.restype = i
             lib.art_pq_scores.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.art_pq_scores.restype = i
-            lib.art_pq_onehot.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            lib.art_pq_onehot.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
             lib.art_pq_onehot.restype = i
             _lib = lib
         return _lib

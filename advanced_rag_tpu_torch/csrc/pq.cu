@@ -43,7 +43,12 @@
 //     one code-word load fall in different banks); blocks are persistent and
 //     the next tile's codes stream in during this tile's products;
 //   - the epilogue goes through the consumed stage, 16 queries at a time,
-//     so the scores leave in 16-byte stores along N, as K1's do.
+//     so the scores leave in 16-byte stores along N, as K1's do;
+//   - where the table and two code stages of all m subspaces do not fit
+//     (m = 384 at D = 1536 needs 303 KB for 8 queries), the wrapper
+//     launches the kernel once per group of subspaces (pq_kernels.py:
+//     pq_plan): the codes are read ldc bytes a row apart, and each launch
+//     after the first adds its f32 partial scores into the output.
 //   (The first port gave each thread a row and did one 16-bit shared-memory
 //   load per (row, subspace, query): 3.07e9 lane loads at N = 1M, Q = 32,
 //   bound by the shared-memory pipe at about 0.4 ms.)
@@ -153,23 +158,24 @@ __device__ __forceinline__ void onehot_pair(uint32_t shifts, int bb, uint32_t& l
   hi = (uint32_t)(r >> 32);
 }
 
-// Codes of tile `tile` (BM rows x m bytes) into a stage of pitch-byte rows.
+// Codes of tile `tile` (BM rows x m bytes, rows ldc bytes apart in global
+// memory) into a stage of pitch-byte rows.
 template <int BM>
 __device__ __forceinline__ void load_codes(uint8_t* dst, const uint8_t* codes, int n, int m,
-                                           int pitch, size_t tile, int vec) {
+                                           int ldc, int pitch, size_t tile, int vec) {
   const int nch = (m + 15) / 16;
   for (int i = threadIdx.x; i < BM * nch; i += PQ_MMA_THREADS) {
     const int r = i / nch, ch = i % nch;
     const size_t row = tile * BM + r;
     const bool ok = row < (size_t)n;
     uint8_t* d = dst + r * pitch + ch * 16;
-    if (vec) {  // m % 16 == 0 and a 16-byte aligned base
-      cp_async16(smem_addr(d), ok ? codes + row * m + ch * 16 : codes, ok ? 16 : 0);
+    if (vec) {  // m % 16 == 0, ldc % 16 == 0 and a 16-byte aligned base
+      cp_async16(smem_addr(d), ok ? codes + row * ldc + ch * 16 : codes, ok ? 16 : 0);
     } else {
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int b = ch * 16 + e;
-        d[e] = ok && b < m ? codes[row * m + b] : (uint8_t)0;
+        d[e] = ok && b < m ? codes[row * ldc + b] : (uint8_t)0;
       }
     }
   }
@@ -178,7 +184,8 @@ __device__ __forceinline__ void load_codes(uint8_t* dst, const uint8_t* codes, i
 template <int QC, int MT>
 __global__ void __launch_bounds__(PQ_MMA_THREADS, 1)
 pq_onehot_kernel(const uint8_t* __restrict__ codes, const uint16_t* __restrict__ lut,
-                 float* __restrict__ out, int nq, int ldq, int n, int m, int c, int vec) {
+                 float* __restrict__ out, int nq, int ldq, int n, int m, int ldc, int c,
+                 int vec, int accum) {
   constexpr int BM = 256 * MT, NT = QC / 8, EQ = QC < 16 ? QC : 16, OTP = BM + 4;
   extern __shared__ __align__(16) uint8_t smem[];
   const int m8 = pq_m8(m), pitch = pq_code_pitch(m);
@@ -193,7 +200,7 @@ pq_onehot_kernel(const uint8_t* __restrict__ codes, const uint16_t* __restrict__
       (int)blockIdx.x < ntiles ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
 
   // the first tile's codes go out before the table is staged
-  if (mine > 0) load_codes<BM>(stages, codes, n, m, pitch, blockIdx.x, vec);
+  if (mine > 0) load_codes<BM>(stages, codes, n, m, ldc, pitch, blockIdx.x, vec);
   cp_async_commit();
   for (int i = tid; i < m8 * QC * 2; i += PQ_MMA_THREADS) {
     const int h = i & 1, q = (i >> 1) % QC, mm = (i >> 1) / QC;
@@ -210,7 +217,7 @@ pq_onehot_kernel(const uint8_t* __restrict__ codes, const uint16_t* __restrict__
     cp_async_wait_all();
     __syncthreads();  // tile `it` has landed (and the table); the other stage is free
     if (it + 1 < mine) {
-      load_codes<BM>(stages + ((it + 1) & 1) * stage_bytes, codes, n, m, pitch,
+      load_codes<BM>(stages + ((it + 1) & 1) * stage_bytes, codes, n, m, ldc, pitch,
                      (size_t)blockIdx.x + (size_t)(it + 1) * gridDim.x, vec);
     }
     cp_async_commit();
@@ -305,13 +312,19 @@ pq_onehot_kernel(const uint8_t* __restrict__ codes, const uint16_t* __restrict__
         if (q0 + j >= nq) break;  // i grows with j
         const size_t r = base + r4;
         if (r >= (size_t)n) continue;
-        const float4 v = *(const float4*)(ot + j * OTP + r4);
+        float4 v = *(const float4*)(ot + j * OTP + r4);
         float* dst = out + (size_t)(q0 + j) * n + r;
         if (vec_out && r + 4 <= (size_t)n) {
+          if (accum) {  // a later subspace group: add to the earlier groups' sum
+            const float4 o = *(const float4*)dst;
+            v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y), __fadd_rn(o.z, v.z),
+                            __fadd_rn(o.w, v.w));
+          }
           *(float4*)dst = v;
         } else {
           const float e4[4] = {v.x, v.y, v.z, v.w};
-          for (int k = 0; k < 4 && r + k < (size_t)n; ++k) dst[k] = e4[k];
+          for (int k = 0; k < 4 && r + k < (size_t)n; ++k)
+            dst[k] = accum ? __fadd_rn(dst[k], e4[k]) : e4[k];
         }
       }
       __syncthreads();
@@ -325,7 +338,7 @@ inline int pq_onehot_mt(int qc, int m) { return pq_onehot_smem(qc, 2, m) <= PQ_S
 
 template <int QC, int MT>
 int launch_onehot(const uint8_t* codes, const uint16_t* lut, float* out, int nq, int ldq,
-                  int n, int m, int c, int vec, cudaStream_t st) {
+                  int n, int m, int ldc, int c, int vec, int accum, cudaStream_t st) {
   const size_t smem = pq_onehot_smem(QC, MT, m);
   if (smem > PQ_SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kern = pq_onehot_kernel<QC, MT>;
@@ -352,16 +365,17 @@ int launch_onehot(const uint8_t* codes, const uint16_t* lut, float* out, int nq,
   }
   const int ntiles = (n + 256 * MT - 1) / (256 * MT);
   const int grid = ntiles < resident ? ntiles : resident;
-  kern<<<grid, PQ_MMA_THREADS, smem, st>>>(codes, lut, out, nq, ldq, n, m, c, vec);
+  kern<<<grid, PQ_MMA_THREADS, smem, st>>>(codes, lut, out, nq, ldq, n, m, ldc, c, vec,
+                                           accum);
   return (int)cudaGetLastError();
 }
 
 template <int QC>
 int dispatch_onehot(const uint8_t* codes, const uint16_t* lut, float* out, int nq, int ldq,
-                    int n, int m, int c, int vec, cudaStream_t st) {
+                    int n, int m, int ldc, int c, int vec, int accum, cudaStream_t st) {
   return pq_onehot_mt(QC, m) == 2
-             ? launch_onehot<QC, 2>(codes, lut, out, nq, ldq, n, m, c, vec, st)
-             : launch_onehot<QC, 1>(codes, lut, out, nq, ldq, n, m, c, vec, st);
+             ? launch_onehot<QC, 2>(codes, lut, out, nq, ldq, n, m, ldc, c, vec, accum, st)
+             : launch_onehot<QC, 1>(codes, lut, out, nq, ldq, n, m, ldc, c, vec, accum, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -467,19 +481,23 @@ int art_pq_scores(const void* codes, const void* lut, void* out, int nq, int n, 
   }
 }
 
-// The one-hot kernel.  codes [n, m] int8 (values 0..c-1); lut: the chunk's
-// first query in the [m][ldq][16] bf16 table (zero past c); out [nq, n]
-// f32.  vec as for art_pq_scores.
+// The one-hot kernel over m subspaces: codes [n, m] int8 (values 0..c-1),
+// rows ldc bytes apart (a group of subspaces of wider codes); lut: the
+// chunk's first query at the group's first subspace in the [.][ldq][16]
+// bf16 table (zero past c); out [nq, n] f32, overwritten, or added to when
+// accum is set (the wrapper splits m into groups whose table and code
+// stages fit shared memory and sums their partial scores in order).  vec:
+// m % 16 == 0, ldc % 16 == 0 and a 16-byte aligned base.
 int art_pq_onehot(const void* codes, const void* lut, void* out, int nq, int ldq, int n,
-                  int m, int c, int vec, void* stream) {
-  if (!pq_shape_ok(nq, n, m, c) || ldq < nq) return (int)cudaErrorInvalidValue;
+                  int m, int ldc, int c, int vec, int accum, void* stream) {
+  if (!pq_shape_ok(nq, n, m, c) || ldq < nq || ldc < m) return (int)cudaErrorInvalidValue;
   const uint8_t* cd = (const uint8_t*)codes;
   const uint16_t* lt = (const uint16_t*)lut;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nq <= 8) return dispatch_onehot<8>(cd, lt, o, nq, ldq, n, m, c, vec, st);
-  if (nq <= 16) return dispatch_onehot<16>(cd, lt, o, nq, ldq, n, m, c, vec, st);
-  return dispatch_onehot<32>(cd, lt, o, nq, ldq, n, m, c, vec, st);
+  if (nq <= 8) return dispatch_onehot<8>(cd, lt, o, nq, ldq, n, m, ldc, c, vec, accum, st);
+  if (nq <= 16) return dispatch_onehot<16>(cd, lt, o, nq, ldq, n, m, ldc, c, vec, accum, st);
+  return dispatch_onehot<32>(cd, lt, o, nq, ldq, n, m, ldc, c, vec, accum, st);
 }
 
 }  // extern "C"

@@ -7,20 +7,21 @@ bi-encoder embeddings), ``sparse`` (BM25 over hashed terms), optionally
 The ported methods keep the JAX manager's signatures and result dicts:
 the ingest ``index_chunks``; the searches ``search_sync``/``search`` (one
 family), ``hybrid_search_batch_sync``/``hybrid_search_sync`` (dense +
-BM25 + RRF + MMR over any tier: flat, SQ8, IVF or PQ) and
+BM25 + RRF + MMR over any tier: flat, SQ8, IVF, PQ (with or without
+OPQ) or IVF-PQ) and
 ``fused_retrieve_batch_sync`` (embed + hybrid + cross-encoder rerank, flat
 and SQ8 tiers); the tier builds ``build_semantic``; the maintenance pass
-``maintenance_tick`` (first IVF build behind a recall guardrail, IVF
-rebuild once the appended tail outgrows the partitions, postings
-compaction) and its daemon ``start_maintenance``/``stop_maintenance``;
+``maintenance_tick`` (first IVF build behind a recall guardrail, on a PQ
+tier the first PQ + IVF-PQ build behind it, a rebuild or re-pack once the
+appended tail outgrows the partitions, postings compaction) and its daemon
+``start_maintenance``/``stop_maintenance``;
 ``delete_by_filter``, ``get_collection_stats``, ``reset_state`` (the
 rollback of a failed ``utils/checkpoint.py`` restore) and ``close``; and
 ``rescore_candidates_sync``, the exact per-tier rescore the unfused rerank
 stage builds its key from.  Without an embedder the manager embeds with
 ``HashingEmbedder``, or with ``NeuralEmbedder`` under
 ``config.fused_rerank``, as the JAX manager does; the domain family
-defaults to ``HashingEmbedder(dim=config.domain_dim, seed=17)``.  IVF-PQ
-and OPQ come with later slices (ROADMAP.md, queue A items 4 and 5).
+defaults to ``HashingEmbedder(dim=config.domain_dim, seed=17)``.
 
 Every search passes a row mask (validity or compiled filters), because the
 device tensors are padded to capacity.
@@ -506,6 +507,7 @@ class MultiIndexManager:
             weights.append(domain_weight)
 
         pq_refine = 0
+        q_dense = q
         if sem.has_ivf:
             tail = sem.size - sem._ivf_size
             dense_impl = "ivf"
@@ -515,9 +517,14 @@ class MultiIndexManager:
                       ivf_tail_start=sem._ivf_size,
                       ivf_tail_pad=next_pow2(tail) if tail > 0 else 0)
         elif sem.has_pq:
+            # the flat PQ codes (IVF-PQ serves the single-family search only)
             dense_impl = "pq"
             kw.update(pq_codebooks=sem._pq.codebooks, pq_m=sem._pq.m,
                       pq_bits=sem._pq.bits)
+            if sem._pq_rot is not None:
+                # OPQ: the dense rung scores q R; the cached query, the exact
+                # re-scores of _refuse_exact and MMR keep the original space
+                q_dense = q @ sem._pq_rot
             # over-retrieve deep raw-PQ candidates, re-scored exactly from
             # the f32 mirror and re-fused on the host (_refuse_exact)
             pq_refine = int(sem.config.refine_factor) or 32
@@ -534,7 +541,7 @@ class MultiIndexManager:
                           and qb <= 2 and sem.capacity >= 4_000_000)
                       else "sort")
         res = hybrid_retrieve(
-            sem.emb, *sparse_args, q,
+            sem.emb, *sparse_args, q_dense,
             torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_tf).to(dev),
             mask, self._scalar(*weights), self._scalar(mmr_lambda),
             k_cand=k_cand, k_out=k_out, metric=sem.search_metric,
@@ -898,9 +905,10 @@ class MultiIndexManager:
     def build_semantic(self, *, pq: bool = False,
                        ivf: bool = False) -> Dict[str, Any]:
         """Tier builds under the write lock, so they cannot race an ingest:
-        ``pq`` trains and swaps in the PQ codes (``semantic_dtype="pq"``),
-        ``ivf`` builds the IVF partitions (IVF-PQ on a PQ index comes with
-        a later slice and raises)."""
+        ``pq`` trains and swaps in the PQ codes (``semantic_dtype="pq"``;
+        with ``semantic_opq`` an OPQ rotation too), ``ivf`` builds the IVF
+        partitions, IVF-PQ on a PQ index; under an OPQ rotation IVF-PQ is
+        skipped, as in the JAX manager."""
         out: Dict[str, Any] = {}
         with self._write_lock:
             sem = self.semantic
@@ -908,8 +916,11 @@ class MultiIndexManager:
                 sem.build_pq()
                 out["pq_built"] = True
             if ivf and not (sem.has_ivf or sem.has_ivfpq):
-                sem.build_ivf()
-                out["ivf_built"] = True
+                if sem._pq_mode and sem._pq_rot is not None:
+                    out["ivf_skipped"] = "opq rotation active"
+                else:
+                    sem.build_ivf()
+                    out["ivf_built"] = True
         return out
 
     # -- background maintenance ------------------------------------------------
@@ -921,16 +932,19 @@ class MultiIndexManager:
 
         - the first IVF build once ``IndexConstants.IVF_AUTO_THRESHOLD``
           rows are valid, kept only if the recall guardrail passes
-          (``_demotion_recall_ok``), else the exact scan stays;
-        - an IVF rebuild (same nlist) once the appended tail outgrows
-          ``DenseIndex.REBUILD_TAIL_FRACTION`` of the rows;
+          (``_demotion_recall_ok``), else the exact scan stays; on a PQ tier
+          at that size the PQ codebooks and the IVF-PQ partitions, behind
+          the same guardrail, which restores the bf16 staging tier when it
+          fails; with OPQ the rotated flat codes only, unguarded (OPQ and
+          IVF-PQ exclude each other);
+        - an IVF rebuild, or an IVF-PQ re-pack (same nlist), once the
+          appended tail outgrows ``DenseIndex.REBUILD_TAIL_FRACTION`` of the
+          rows;
         - postings compaction once more than 10% of the postings belong to
           deleted rows.
 
         Build-then-swap: the new partitions are built from the host mirror
-        while the old ones stay searchable, then assigned.  On a PQ tier
-        the JAX manager's first PQ + IVF-PQ build raises, naming ROADMAP
-        queue A item 5, before anything is touched."""
+        while the old ones stay searchable, then assigned."""
         with self._write_lock:
             return self._maintenance_tick_locked()
 
@@ -970,13 +984,28 @@ class MultiIndexManager:
         actions: Dict[str, Any] = {"ivf_rebuilt": False}
         sem = self.semantic
         if sem._pq_mode:
-            # the JAX tick trains PQ codebooks and IVF-PQ partitions here;
-            # an IVF-PQ re-pack needs partitions only that build makes
             if (not sem.has_pq
                     and self.store.n_valid() >= IndexConstants.IVF_AUTO_THRESHOLD):
-                raise NotImplementedError(
-                    "maintenance's first PQ + IVF-PQ build is not ported yet "
-                    "(ROADMAP.md, queue A item 5)")
+                # flat codebooks (the hybrid rung, MMR decode) and the IVF-PQ
+                # partitions (the nprobe-bounded dense search); the bf16
+                # staging tensor stays alive in `prev`, so a refusal restores
+                # it with one assignment
+                prev = (sem.emb, sem._pq, sem._pq_rot, sem._ivfpq,
+                        sem._ivfpq_size, sem.config.nprobe)
+                sem.build_pq()
+                guarded = sem._pq_rot is None
+                if guarded:
+                    sem.build_ivfpq()
+                if guarded and not self._demotion_recall_ok(actions, "pq+ivfpq"):
+                    (sem.emb, sem._pq, sem._pq_rot, sem._ivfpq,
+                     sem._ivfpq_size, sem.config.nprobe) = prev
+                else:
+                    actions["pq_built"] = True
+            elif sem.ivf_needs_rebuild:
+                # the tail outgrew the partitions: re-pack at the same nlist
+                sem.build_ivfpq(nlist=int(sem._ivfpq.centroids.shape[0]))
+                actions["ivf_rebuilt"] = True
+                actions["ivf_rows"] = sem._ivfpq_size
         elif (not sem.has_ivf
                 and self.store.n_valid() >= IndexConstants.IVF_AUTO_THRESHOLD):
             prev = (sem._ivf, sem._ivf_size, sem.config.nprobe)

@@ -12,10 +12,11 @@ for ``BiEncoder`` or ``CrossEncoder`` of ``models/encoder.py``:
 
 ``hashing_from_numpy`` builds a ``HashingEmbedder`` around the JAX
 embedder's signed projection, so two default (unfused) managers embed
-alike.  ``ivf_partitions_from_numpy``, ``pq_from_numpy`` and
-``postings_from_numpy`` carry the JAX package's index state (IVF partitions, PQ codebooks and
-codes, inverted postings), given as numpy, over into the port's tensors,
-so that both packages can search identical state.
+alike.  ``ivf_partitions_from_numpy``, ``pq_from_numpy``,
+``ivfpq_from_numpy`` and ``postings_from_numpy`` carry the JAX package's
+index state (IVF partitions, PQ codebooks and codes, IVF-PQ partitions,
+inverted postings), given as numpy, over into the port's tensors, so that
+both packages can search identical state.
 
 The tests read the repo's orbax checkpoints into numpy themselves; the
 port never imports orbax.
@@ -144,6 +145,21 @@ def pq_from_numpy(codebooks: Any, codes: Any, *, m: int, bits: int,
 
     return (PQCodebook(_tensor(codebooks, device).float(), m, bits),
             _tensor(codes, device))
+
+
+def ivfpq_from_numpy(idx: Any, device: DeviceLike = None):
+    """A JAX ``IVFPQIndex`` (or any object with its fields as arrays) -> the
+    port's ``ops.ivfpq.IVFPQIndex`` on ``device``."""
+    from ..ops.ivfpq import IVFPQIndex
+
+    return IVFPQIndex(
+        centroids=_tensor(idx.centroids, device).float(),
+        codebooks=_tensor(idx.codebooks, device).float(),
+        packed_codes=_tensor(idx.packed_codes, device).to(torch.int8).contiguous(),
+        packed_rows=_tensor(idx.packed_rows, device).to(torch.int32),
+        tail_codes=_tensor(idx.tail_codes, device).to(torch.int8).contiguous(),
+        tail_rows=_tensor(idx.tail_rows, device).to(torch.int32),
+        tail_assign=_tensor(idx.tail_assign, device).to(torch.int32))
 
 
 def postings_from_numpy(post_rows: Any, post_tf: Any, post_tfw: Any,

@@ -15,7 +15,10 @@ TPU-only and exact on the CPU), so the [Q, N] matrix never exists whole.
 
 Raw PQ ranking is approximate; the index over-retrieves and re-scores the
 candidates exactly from the f32 host mirror (``IndexConfig.refine_factor``).
-OPQ (``opq_train``) comes with a later slice of the port.
+
+OPQ (``opq_train``) learns an orthogonal rotation R before the codebooks:
+rows are encoded as ``x @ R`` and queries score as ``q @ R``, since
+``q . x == (q R) . (x R)``.
 """
 
 from __future__ import annotations
@@ -121,17 +124,23 @@ def pq_train(
     return PQCodebook(codebooks=cb, m=m, bits=bits)
 
 
-def pq_encode_device(emb: torch.Tensor, codebooks: torch.Tensor, *,
+def pq_encode_device(emb: torch.Tensor, codebooks: torch.Tensor,
+                     rotation: Optional[torch.Tensor] = None, *,
                      block: int = 8192) -> torch.Tensor:
     """[N, D] (any float dtype, on its device) -> codes [N, m] int8
-    (uint8 when c > 128), a block of rows at a time."""
+    (uint8 when c > 128), a block of rows at a time.  ``rotation`` [D, D]
+    (OPQ) rotates each block after its cast to f32, as the JAX package
+    does."""
     n, d = emb.shape
     m, c, dsub = codebooks.shape
     out_dt = torch.uint8 if c > 128 else torch.int8
     out = torch.empty((n, m), dtype=out_dt, device=emb.device)
     for s in range(0, n, block):
-        xb = emb[s: s + block].float().reshape(-1, m, dsub).transpose(0, 1)
-        out[s: s + block] = _assign_codes(xb, codebooks).T.to(out_dt)
+        xb = emb[s: s + block].float()
+        if rotation is not None:
+            xb = xb @ rotation
+        out[s: s + block] = _assign_codes(xb.reshape(-1, m, dsub).transpose(0, 1),
+                                          codebooks).T.to(out_dt)
     return out
 
 
@@ -141,6 +150,50 @@ def pq_encode(emb_host: np.ndarray, pq: PQCodebook) -> np.ndarray:
     x = torch.from_numpy(np.asarray(emb_host, np.float32)).to(
         pq.codebooks.device).to(torch.bfloat16)
     return pq_encode_device(x, pq.codebooks).cpu().numpy()
+
+
+def opq_train(
+    emb_host: np.ndarray,     # [N, D] f32 (pre-normalized for cosine)
+    m: int = 0,
+    bits: int = 4,
+    *,
+    opq_iters: int = 8,
+    pq_iters: int = 4,
+    final_iters: int = 12,
+    train_sample: int = 65536,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, PQCodebook]:
+    """OPQ (Ge et al.): an orthogonal rotation R that lowers the PQ
+    reconstruction error, and codebooks trained in the rotated space.
+
+    The JAX package's alternation: train codebooks on X R (``pq_iters``
+    Lloyd's rounds, seed ``seed + it``), encode and decode to X_hat, then
+    solve the orthogonal Procrustes problem min_R ||X R - X_hat|| by
+    R = U V^T of the SVD of X^T X_hat (U V^T does not depend on the signs
+    the SVD gives its singular vectors).  Returns (R [D, D] f32 on
+    ``device``, the codebooks over the rotated space); ``device`` is the
+    card unless the caller passes ``device="cpu"``."""
+    emb_host = np.asarray(emb_host, np.float32)
+    n, d = emb_host.shape
+    m = m or auto_pq_m(d, bits)
+    x = emb_host
+    if n > train_sample:
+        sel = np.random.default_rng(seed).choice(n, train_sample, replace=False)
+        x = emb_host[sel]
+    dev = resolve_device(device)
+    xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    r = torch.eye(d, dtype=torch.float32, device=dev)
+    for it in range(opq_iters):
+        xr = (xt @ r).cpu().numpy()
+        pq = pq_train(xr, m, bits, iters=pq_iters, train_sample=train_sample,
+                      seed=seed + it, device=dev)
+        xhat = pq_decode(pq, torch.from_numpy(pq_encode(xr, pq)).to(dev))   # [Nt, D]
+        u, _, vt = torch.linalg.svd(xt.T @ xhat, full_matrices=False)
+        r = u @ vt
+    pq = pq_train((xt @ r).cpu().numpy(), m, bits, iters=final_iters,
+                  train_sample=train_sample, seed=seed, device=dev)
+    return r, pq
 
 
 def pq_decode(pq: PQCodebook, codes: torch.Tensor) -> torch.Tensor:
@@ -229,6 +282,7 @@ __all__ = [
     "PQCodebook",
     "auto_pq_m",
     "pq_train",
+    "opq_train",
     "pq_encode",
     "pq_encode_device",
     "pq_decode",

@@ -16,6 +16,13 @@ the lookup kernel (one shared-memory load per row, subspace and query),
 which leaves no n8 tile of the tensor cores mostly empty.  This is a shape
 dispatch between two kernels: each launch runs its kernel or raises.
 
+``pq_plan`` plans a call's launches by the kernel each runs: the lookup
+kernel needs only its table to fit in shared memory; the one-hot kernel
+needs its table and two code stages, so where all m subspaces do not fit
+(m = 384, ``auto_pq_m`` of the 1536-wide default embedder) it splits them
+into groups that do, one launch a group, each adding its f32 partial
+scores into the output.
+
 The wrapper serves a CPU tensor with ``pq_scores_xla`` (the JAX package's
 one-hot matmul, ``ops/pq.py``); for a CUDA tensor it launches a kernel or
 raises.  ``pq_scores.launches`` counts the launches of both kernels and
@@ -24,8 +31,11 @@ raises.  ``pq_scores.launches`` counts the launches of both kernels and
 
 from __future__ import annotations
 
+from typing import List, NamedTuple
+
 import torch
 
+from .dense import cdiv
 from .dense_kernels import QMAX, SCAN_SMEM_MAX, check_cuda, raise_on_error
 from .pq import pq_scores_xla
 
@@ -52,13 +62,73 @@ def onehot_smem_bytes(qc: int, mt: int, m: int) -> int:
 
 
 def onehot_chunk(m: int) -> int:
-    """Queries per one-hot launch: the largest of 32, 16, 8 whose table fits
-    the 227 KB a block may opt in to (with 256-row tiles at the least)."""
+    """Queries per one-hot launch over all m subspaces: the largest of 32,
+    16, 8 whose table fits the 227 KB a block may opt in to (with 256-row
+    tiles at the least)."""
     for qc in (QMAX, 16, 8):
         if onehot_smem_bytes(qc, 1, m) <= SCAN_SMEM_MAX:
             return qc
     raise ValueError(f"K6: m={m} subspaces need {onehot_smem_bytes(8, 1, m)} bytes "
                      f"of shared memory for 8 queries, more than {SCAN_SMEM_MAX}")
+
+
+def onehot_group(nc: int, m: int) -> int:
+    """Subspaces per one-hot launch of ``nc`` queries (the kernel stages a
+    table of 8, 16 or 32): all m where they fit, else the largest even
+    split of m into groups of a multiple of 16 subspaces (so every group
+    starts 16-byte aligned) that fits."""
+    qc = 8 if nc <= 8 else 16 if nc <= 16 else QMAX
+    groups = 1
+    while True:
+        mg = m if groups == 1 else cdiv(cdiv(m, groups), 16) * 16
+        if onehot_smem_bytes(qc, 1, mg) <= SCAN_SMEM_MAX:
+            return mg
+        if mg <= 16:
+            raise ValueError(f"K6: no group of subspaces of m={m} fits shared memory")
+        groups += 1
+
+
+def lookup_chunk(m: int, c: int) -> int:
+    """Queries per lookup launch: the largest of 32, 16, 8, 4, 2, 1 whose
+    table ([qc, m, c] bf16, the kernel's only shared memory) fits."""
+    for qc in (QMAX, 16, 8, 4, 2, 1):
+        if qc * m * c * 2 <= SCAN_SMEM_MAX:
+            return qc
+    raise ValueError(f"K6: the lookup table of one query, m={m} c={c}, exceeds "
+                     f"{SCAN_SMEM_MAX} bytes of shared memory")
+
+
+class Launch(NamedTuple):
+    """One K6 launch: queries [q0, q0 + nc) over subspaces [s0, s1)."""
+    q0: int
+    nc: int
+    kind: str      # "lookup" or "onehot"
+    s0: int
+    s1: int
+
+
+def pq_plan(nq: int, m: int, c: int, kernel=None) -> List[Launch]:
+    """The launches of one K6 call of ``nq`` queries: query chunks of
+    ``onehot_chunk(m)`` (32 when the subspaces must be split), each through
+    ``kernel`` or ``pq_kernel_for`` of its size; a lookup chunk of more
+    queries than ``lookup_chunk`` takes several launches, and a one-hot chunk
+    one launch per group of ``onehot_group`` subspaces, in subspace order."""
+    try:
+        oc = onehot_chunk(m)
+    except ValueError:
+        oc = QMAX
+    lc = lookup_chunk(m, c)
+    plan = []
+    for q0 in range(0, nq, oc):
+        nc = min(oc, nq - q0)
+        kind = kernel or pq_kernel_for(nc)
+        if kind == "onehot":
+            mg = onehot_group(nc, m)
+            plan += [Launch(q0, nc, kind, s0, min(s0 + mg, m)) for s0 in range(0, m, mg)]
+        else:
+            plan += [Launch(q1, min(lc, q0 + nc - q1), kind, 0, m)
+                     for q1 in range(q0, q0 + nc, lc)]
+    return plan
 
 
 def pq_kernel_for(nq: int) -> str:
@@ -113,27 +183,25 @@ def pq_scores_by(codes: torch.Tensor, lut: torch.Tensor, kernel) -> torch.Tensor
     check_cuda("codes", codes, codes.dtype, (sb, m), dev)
     lut_b = lut.to(torch.bfloat16).contiguous()   # rounded where the TPU rounds
     check_cuda("lut", lut_b, torch.bfloat16, (nq, m, c), dev)
-    chunk = onehot_chunk(m)
-    kinds = [kernel or pq_kernel_for(min(chunk, nq - q0)) for q0 in range(0, nq, chunk)]
-    if "lookup" in kinds and min(chunk, nq) * m * c * 2 > SCAN_SMEM_MAX:
-        raise ValueError(f"K6: the lookup table of {min(chunk, nq)} queries exceeds "
-                         f"{SCAN_SMEM_MAX} bytes of shared memory")
-    table = onehot_table(lut) if "onehot" in kinds else None
+    plan = pq_plan(nq, m, c, kernel)
+    table = onehot_table(lut) if any(p.kind == "onehot" for p in plan) else None
     lib = _build.load()
     out = torch.empty((nq, sb), dtype=torch.float32, device=dev)
-    vec = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
+    base = codes.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        for q0, kind in zip(range(0, nq, chunk), kinds):
-            nc = min(chunk, nq - q0)
-            if kind == "onehot":
-                rc = lib.art_pq_onehot(codes.data_ptr(), table[0, q0].data_ptr(),
-                                       out[q0].data_ptr(), nc, nq, sb, m, c, vec, stream)
+        for p in plan:
+            mg = p.s1 - p.s0
+            vec = int(m % 16 == 0 and mg % 16 == 0 and (base + p.s0) % 16 == 0)
+            if p.kind == "onehot":
+                rc = lib.art_pq_onehot(base + p.s0, table[p.s0, p.q0].data_ptr(),
+                                       out[p.q0].data_ptr(), p.nc, nq, sb, mg, m, c, vec,
+                                       int(p.s0 > 0), stream)
                 pq_scores.onehot_launches += 1
             else:
-                rc = lib.art_pq_scores(codes.data_ptr(), lut_b[q0].data_ptr(),
-                                       out[q0].data_ptr(), nc, sb, m, c, vec, stream)
-            raise_on_error(rc, f"pq_scores (K6, {kind})")
+                rc = lib.art_pq_scores(base, lut_b[p.q0].data_ptr(), out[p.q0].data_ptr(),
+                                       p.nc, sb, m, c, vec, stream)
+            raise_on_error(rc, f"pq_scores (K6, {p.kind})")
             pq_scores.launches += 1
     return out
 
@@ -142,5 +210,6 @@ pq_scores.launches = 0          # every launch of either kernel
 pq_scores.onehot_launches = 0   # the launches of the one-hot kernel
 
 
-__all__ = ["LOOKUP_MAX_Q", "ONEHOT_K", "onehot_chunk", "onehot_smem_bytes", "onehot_table",
-           "pq_kernel_for", "pq_scores", "pq_scores_by"]
+__all__ = ["LOOKUP_MAX_Q", "ONEHOT_K", "Launch", "lookup_chunk", "onehot_chunk",
+           "onehot_group", "onehot_smem_bytes", "onehot_table", "pq_kernel_for", "pq_plan",
+           "pq_scores", "pq_scores_by"]

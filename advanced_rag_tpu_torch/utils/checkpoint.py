@@ -8,11 +8,15 @@ by either package loads in the other.  A directory with:
 - ``manifest.json``: ``format_version``, ``saved_at``, ``size``, and per
   dense family its ``dim``, ``size``, ``dtype`` (``str(config.dtype)``:
   "bfloat16", "float32", "int8" or "pq"), ``metric`` and, with trained PQ
-  codebooks, ``pq`` = {m, bits, opq}; ``sparse`` = {vocab_size, doc_nnz,
-  size, n_docs} or null;
+  codebooks, ``pq`` = {m, bits, opq}, with IVF-PQ partitions ``ivfpq`` =
+  {nlist, m, bits}; ``sparse`` = {vocab_size, doc_nnz, size, n_docs} or
+  null;
 - ``columns.npz``: the store's metadata columns and ``valid``;
 - ``dense_<family>.npy``: the family's f32 mirror rows (normalized);
-- ``dense_<family>_pq.npy``: its PQ codebooks [m, c, dsub] f32;
+- ``dense_<family>_pq.npy``: its PQ codebooks [m, c, dsub] f32, and
+  ``dense_<family>_opq.npy`` its OPQ rotation [D, D] f32;
+- ``dense_<family>_ivfpq_cent.npy`` / ``_ivfpq_cb.npy``: the IVF-PQ
+  centroids [nlist, D] and residual codebooks [m, c, dsub], f32;
 - ``sparse.npz``: ``doc_idx`` i32, ``doc_tf`` f32, ``doc_len`` f32 and
   ``df`` int64;
 - ``records.jsonl``: chunk_id, doc_id, content and metadata per row.
@@ -20,10 +24,10 @@ by either package loads in the other.  A directory with:
 IVF partitions and postings are not saved, as in the JAX package: the
 maintenance tick (or ``build_semantic``) and the first large hybrid search
 rebuild them.  Restore re-quantizes an SQ8 tier from the mirror, re-encodes
-a PQ tier with the saved codebooks, uploads a flat tier in one put and
-re-tokenizes the token table.  A manifest with OPQ or IVF-PQ state raises
-before anything is touched: those tiers are ROADMAP.md queue A items 4
-and 5.
+a PQ tier with the saved codebooks (and rotation), re-packs IVF-PQ
+partitions from the mirror with the saved quantizers (after writing the
+manifest's ``m`` and ``bits`` into the restoring config, which the search
+reads), uploads a flat tier in one put and re-tokenizes the token table.
 """
 
 from __future__ import annotations
@@ -84,7 +88,20 @@ def save_index(manager: "MultiIndexManager", path: str | Path) -> Dict[str, Any]
             np.save(root / f"dense_{name}_pq.npy",
                     idx._pq.codebooks.float().cpu().numpy())
             manifest["dense"][name]["pq"] = {
-                "m": idx._pq.m, "bits": idx._pq.bits, "opq": False,
+                "m": idx._pq.m, "bits": idx._pq.bits, "opq": idx._pq_rot is not None,
+            }
+            if idx._pq_rot is not None:
+                np.save(root / f"dense_{name}_opq.npy", idx._pq_rot.float().cpu().numpy())
+        if idx._ivfpq is not None:
+            # both quantizers; the restore re-packs the partitions with them
+            np.save(root / f"dense_{name}_ivfpq_cent.npy",
+                    idx._ivfpq.centroids.float().cpu().numpy())
+            np.save(root / f"dense_{name}_ivfpq_cb.npy",
+                    idx._ivfpq.codebooks.float().cpu().numpy())
+            manifest["dense"][name]["ivfpq"] = {
+                "nlist": int(idx._ivfpq.centroids.shape[0]),
+                "m": int(idx._ivfpq.codebooks.shape[0]),
+                "bits": idx.config.pq_bits,
             }
 
     if manager.sparse is not None:
@@ -126,14 +143,6 @@ def _check_manifest(manifest: Dict[str, Any]) -> None:
         if meta.get("dtype") not in DENSE_DTYPES:
             raise ValueError(f"dense family {name!r}: unknown dtype "
                              f"{meta.get('dtype')!r}")
-        if (meta.get("pq") or {}).get("opq"):
-            raise NotImplementedError(
-                f"dense family {name!r} was saved with an OPQ rotation, which "
-                "is not ported yet (ROADMAP.md, queue A item 4)")
-        if meta.get("ivfpq"):
-            raise NotImplementedError(
-                f"dense family {name!r} was saved with IVF-PQ partitions, "
-                "which are not ported yet (ROADMAP.md, queue A item 5)")
 
 
 def load_index(manager: "MultiIndexManager", path: str | Path) -> Dict[str, Any]:
@@ -188,9 +197,23 @@ def load_index(manager: "MultiIndexManager", path: str | Path) -> Dict[str, Any]
             cb = np.load(root / f"dense_{name}_pq.npy")
             idx._pq = PQCodebook(torch.from_numpy(np.asarray(cb, np.float32)).to(dev),
                                  int(pq_meta["m"]), int(pq_meta["bits"]))
+            if pq_meta.get("opq"):
+                rot = np.load(root / f"dense_{name}_opq.npy")
+                idx._pq_rot = torch.from_numpy(np.asarray(rot, np.float32)).to(dev)
         # flat: one put; SQ8: re-quantized from the mirror on the host; PQ:
-        # one bf16 put and the encode on the device with the saved codebooks
+        # one bf16 put and the encode (and rotation) on the device with the
+        # saved codebooks
         idx._upload()
+        ivfpq_meta = meta.get("ivfpq")
+        if ivfpq_meta and idx._pq_mode:
+            # the search reads m and bits from the restoring config: a
+            # checkpoint of bits 8 under a bits-4 config would otherwise
+            # score 16 of its 256 codes a subspace
+            idx.config.pq_m = int(ivfpq_meta["m"])
+            idx.config.pq_bits = int(ivfpq_meta["bits"])
+            idx.build_ivfpq(nlist=int(ivfpq_meta["nlist"]),
+                            centroids=np.load(root / f"dense_{name}_ivfpq_cent.npy"),
+                            codebooks=np.load(root / f"dense_{name}_ivfpq_cb.npy"))
 
     if manifest["sparse"] and manager.sparse is not None:
         sp = manager.sparse

@@ -38,11 +38,13 @@ Phases, each printing its elapsed seconds:
 5. reference: a small corpus served on the card and by the plain path on
    the CPU, with f32 weights and the f32 tier, must agree;
 6. tiers: N_TIER (1M) clustered unit vectors of width 384 bulk-loaded into
-   three DenseIndexes (bf16 + build_ivf, int8 + build_ivf with refine 2,
-   dtype="pq" + build_pq with m 96, bits 4, refine 32): build seconds,
-   tune_nprobe(0.95), search p50/p99 at Q = 1, 8, 32, recall@10 against
-   the exact K1 scan of the f32 rows, peak device memory, and the K5 / K6
-   launches, which must be > 0;
+   five DenseIndexes (bf16 + build_ivf, int8 + build_ivf with refine 2,
+   dtype="pq" + build_pq with m 96, bits 4, refine 32, the same with
+   pq_opq, and dtype="pq" + build_ivf, which builds IVF-PQ): build seconds,
+   tune_nprobe(0.95) (IVF and IVF-PQ), search p50/p99 at Q = 1, 8, 32,
+   recall@10 against the
+   exact K1 scan of the f32 rows, peak device memory, memory_bytes, and the
+   K5 / K6 launches, which must be > 0;
 7. manager tiers: phase 4's bf16 manager after build_semantic(ivf=True)
    (run as soon as that tier's phase-4 numbers are read, so the SQ8 tier
    then runs alone, as before), and a semantic_dtype="pq" manager restored
@@ -50,9 +52,9 @@ Phases, each printing its elapsed seconds:
    and embeddings) after build_semantic(pq=True) (after phase 4), each serving
    search_sync(SEMANTIC) and hybrid_search_batch_sync at Q = 1, 8, 32
    (BM25 from the inverted postings, built at the first call since the
-   corpus is over 50k rows); last, both tiers on a small corpus, on the
-   card and by the plain path on the CPU with the card's tier state, must
-   agree (top-10 overlap >= 0.9);
+   corpus is over 50k rows); last, the IVF, PQ, PQ-with-OPQ and PQ +
+   IVF-PQ tiers on a small corpus, on the card and by the plain path on
+   the CPU with the card's tier state, must agree (top-10 overlap >= 0.9);
 8. service (after phases 4 and 7, with no other manager alive): the
    port's aiohttp app (create_app over AdvancedRAGPipeline, driven
    in-process through aiohttp's test server and client on a localhost
@@ -97,7 +99,12 @@ Phases, each printing its elapsed seconds:
    against the CPU plain path, top-10 overlap >= 0.9; the restored manager
    (given the original's IVF partitions and compacted postings, which
    checkpoints do not hold) must answer as the original; last the
-   restart's own tick.
+   restart's own tick; (e) the PQ tier's lifecycle at the default width
+   (1536, m = 384; phase_pq_lifecycle): a semantic_dtype="pq" manager and
+   a semantic_opq=True one restored from (c)'s checkpoint, each ticked
+   (PQ + IVF-PQ behind the guardrail; OPQ codes only), searched at Q = 1
+   and 32, appended to and re-packed, saved and restored into a fresh card
+   manager that must answer identically.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -110,10 +117,14 @@ once per batch and once per (query, probe), and the flat superset: one
 torch.matmul / torch._int_mm of the queries by every slab row), K4
 (Q = 1) and K6 (N = 1M and the PQ manager's N, m 96; at N = 1M also both
 of K6's kernels, lookup and one-hot, at Q = 1, 2, 4, 8, 9, 16 and 32 for
-the crossover) against their plain versions: K5-SQ8 bit-identical, the
-others within 1e-5 of the largest score.  Phases 6 and 7 add K5 cases on
-real probes through both routes: each IVF tier's own slabs and the probe
-lists that 32 of its queries get at the tier's nprobe.
+the crossover; at phase 9 (e)'s N = 262144, m = 384, where the one-hot
+kernel runs in groups of subspaces, Q = 1, 8 and 32 through both kernels)
+against their plain versions: K5-SQ8 bit-identical, the others within
+1e-5 of the largest score.  Phases 6 and 7 add K5 cases on real probes
+through both routes: each IVF tier's own slabs and the probe lists that
+32 of its queries get at the tier's nprobe; phases 6 and 9 (e) add K6
+cases on the codes of the partitions that real queries probe on the
+IVF-PQ tiers.
 
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}.  Any failed check raises, so the run exits
@@ -163,6 +174,9 @@ CROSS_1M = ((32, 8), (32, 16), (32, 32), (8, 16), (8, 32), (8, 64))
 N_TIER = 1_000_000             # phase 6: rows of the 1M-row tiers
 N_CENTRES = 2000
 PQ_M = 96
+#: (N, m) of phase 9 (e)'s PQ codes: the capacity of its 260,000 rows and
+#: auto_pq_m(1536), the default embedder's width at bits 4
+PQ_WIDE = (262_144, 384)
 REPEATS = 12                   # first 2 are warm-up, 10 timed
 SERVE = dict(k_final=10, k_rerank=48, dense_weight=0.7, sparse_weight=0.3,
              use_mmr=True, mmr_lambda=0.8, q_max_len=32, rerank_alpha=0.5,
@@ -592,8 +606,9 @@ def ivf_pq_kernel_cases(gen, dev, record):
         del packed, scale, store
         torch.cuda.empty_cache()
 
-    m, c = PQ_M, 16
-    for n, batches in ((N_TIER, BATCHES), (MAIN_N, (32,))):
+    c = 16
+    for n, m, batches in ((N_TIER, PQ_M, BATCHES), (MAIN_N, PQ_M, (32,)),
+                          (*PQ_WIDE, BATCHES)):
         codes = torch.randint(0, c, (n, m), generator=gen, device=dev).to(torch.int8)
         # the library's operand: the bf16 one-hot [m * c, N] of the codes
         onehot = torch.nn.functional.one_hot(codes.long(), c).to(torch.bfloat16)
@@ -607,16 +622,19 @@ def ivf_pq_kernel_cases(gen, dev, record):
             plain_ms = cuda_ms(lambda: pq_scores_xla(codes, lut), reps=3, warmup=1)
             b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
                                F32_OPS_PER_S)
-            # pq_scores (the kernel pq_kernel_for picks), and at N = 1M both
-            # kernels either side of the crossover
-            kernels = [None] + (["lookup", "onehot"] if n == N_TIER else [])
+            # pq_scores (the kernel pq_kernel_for picks), and at N = 1M and
+            # at the default width both kernels (at m = 384 the one-hot
+            # kernel takes its subspaces in groups, one launch a group)
+            kernels = [None] + (["lookup", "onehot"] if n != MAIN_N else [])
             for kernel in kernels:
                 fn = ((lambda: pk.pq_scores(codes, lut)) if kernel is None else
                       (lambda k=kernel: pk.pq_scores_by(codes, lut, k)))
                 err, rel, swaps = compare(fn(), want, 1e-5)
                 run = kernel or pk.pq_kernel_for(nq)
+                n_launch = len(pk.pq_plan(nq, m, c, kernel))
                 record("K6" if kernel is None else "K6-" + kernel, dict(
-                    shape=f"N={n} m={m} c={c} Q={nq} ({run})", kernel=run,
+                    shape=f"N={n} m={m} c={c} Q={nq} ({run}, {n_launch} launches)",
+                    kernel=run, launches_per_call=n_launch,
                     main=kernel is None and (n, nq) == (MAIN_N, 32), max_abs_err=err,
                     rel_err=rel, tie_swaps=swaps, ms=graph_ms(fn), call_ms=cuda_ms(fn),
                     plain_ms=plain_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
@@ -985,9 +1003,11 @@ def time_calls(fn, batches, reps=REPEATS):
 
 
 def phase_tiers_1m():
-    """Phase 6: the IVF (bf16), SQ8-IVF and PQ tiers of DenseIndex over
-    N_TIER clustered rows: build, tune_nprobe, search p50/p99 at Q = 1, 8,
-    32, recall@10 against the exact K1 scan, peak memory, launches."""
+    """Phase 6: the IVF (bf16), SQ8-IVF, PQ, PQ with OPQ and IVF-PQ tiers of
+    DenseIndex over N_TIER clustered rows: build, tune_nprobe (the IVF and
+    IVF-PQ tiers), search p50/p99 at Q = 1, 8, 32, recall@10 against the
+    exact K1 scan, peak memory, memory_bytes, launches; the IVF-PQ tier's
+    search is timed through both of its ADC routes."""
     import numpy as np
     import torch
 
@@ -1008,35 +1028,39 @@ def phase_tiers_1m():
     del xf
     torch.cuda.empty_cache()
     out = {}
-    for name, dtype, refine in (("ivf-bf16", "bfloat16", 0), ("ivf-sq8", "int8", 2),
-                                ("pq", "pq", 32)):
+    for name, dtype, refine, opq in (("ivf-bf16", "bfloat16", 0, False),
+                                     ("ivf-sq8", "int8", 2, False), ("pq", "pq", 32, False),
+                                     ("pq-opq", "pq", 32, True), ("ivfpq", "pq", 32, False)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         cfg = IndexConfig(index_type=IndexType.SEMANTIC, dim=384, metric=Metric.COSINE,
-                          dtype=dtype, refine_factor=refine, pq_m=PQ_M, pq_bits=4)
+                          dtype=dtype, refine_factor=refine, pq_m=PQ_M, pq_bits=4,
+                          pq_opq=opq)
         idx = DenseIndex(cfg, device=dev)
         t = time.perf_counter()
         idx.bulk_load(x, pre_normalized=True)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
+        partitioned = name.startswith("ivf")
         t = time.perf_counter()
-        if dtype == "pq":
+        if name.startswith("pq"):
             idx.build_pq()
         else:
-            idx.build_ivf()
+            idx.build_ivf()          # on the PQ index: IVF-PQ
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t
         rec = dict(load_s=load_s, build_s=build_s)
-        if dtype != "pq":
-            nlist, cap = idx._ivf.packed_rows.shape
+        if partitioned:
+            parts = idx._ivfpq if name == "ivfpq" else idx._ivf
+            nlist, cap = parts.packed_rows.shape
             if (nlist, cap) != IVF_1M[:2]:
                 raise AssertionError(f"IVF geometry {(nlist, cap)} is not {IVF_1M[:2]}: "
                                      "phase 3 missed the tier's shapes")
             t = time.perf_counter()
             npb, got = idx.tune_nprobe(0.95, k=10, queries=q[:64])
             rec.update(nprobe=npb, tune_recall=got, tune_s=time.perf_counter() - t,
-                       overflow_rows=int((idx._ivf.tail_rows >= 0).sum()))
+                       overflow_rows=int((parts.tail_rows >= 0).sum()))
         hits = []
         for s0 in range(0, len(q), 32):
             _, ids = idx.search(q[s0:s0 + 32], 10)
@@ -1044,9 +1068,11 @@ def phase_tiers_1m():
             hits += [len(set(a.tolist()) & set(b.tolist())) / 10.0
                      for a, b in zip(ids, oracle[s0:s0 + 32])]
         rec["recall_at_10"] = float(np.mean(hits))
-        rec["batches"] = time_calls(
-            lambda nq, r: idx.search(q[(r * nq) % 224:(r * nq) % 224 + nq], 10)[1].cpu(),
-            BATCHES)
+
+        def search(nq, r):
+            idx.search(q[(r * nq) % 224:(r * nq) % 224 + nq], 10)[1].cpu()
+
+        rec["batches"] = time_calls(search, BATCHES)
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rec["launches"] = read_counters()
         rec["memory_bytes"] = idx.memory_bytes()
@@ -1058,13 +1084,17 @@ def phase_tiers_1m():
         if dtype != "pq":   # after the counters are read: a check, not the path
             rec["real_probe_cases"] = real_probe_cases(
                 idx._ivf, torch.from_numpy(q[:32]).to(dev), idx.config.nprobe)
+        if name == "ivfpq":
+            rec["k6_cases"] = ivfpq_k6_cases(idx._ivfpq, torch.from_numpy(q[:32]).to(dev),
+                                             idx.config.nprobe, "phase 6")
+        times = lambda b: "; ".join(  # noqa: E731
+            f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms" for nq, v in b.items())
         log(f"tiers[{name}]: load {load_s:.2f}s, build {build_s:.2f}s, "
-            + (f"nprobe {rec['nprobe']} (tune recall {rec['tune_recall']:.3f}), "
-               if dtype != "pq" else "")
-            + f"recall@10 {rec['recall_at_10']:.4f}; "
-            + "; ".join(f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms"
-                        for nq, v in rec["batches"].items())
-            + f"; peak {rec['peak_gb']:.2f} GB; launches {rec['launches']}")
+            + (f"nprobe {rec['nprobe']} (tune recall {rec['tune_recall']:.3f}, "
+               f"{rec['tune_s']:.2f}s), " if partitioned else "")
+            + f"recall@10 {rec['recall_at_10']:.4f}; {times(rec['batches'])}"
+            + f"; peak {rec['peak_gb']:.2f} GB; memory_bytes {rec['memory_bytes']}; "
+              f"launches {rec['launches']}")
         out[name] = rec
         del idx
         torch.cuda.empty_cache()
@@ -1206,11 +1236,70 @@ def real_probe_cases(parts, q, nprobe):
     return cases
 
 
+def ivfpq_k6_cases(parts, q, nprobe, label):
+    """K6 against its plain version on the codes the IVF-PQ tier's grouped
+    ADC hands it: the distinct partitions that real queries ``q`` probe
+    (or all of them), with their residual tables, at Q = 1 and the batch's
+    size.  The plain version runs in blocks of 65,536 rows (its f32 one-hot
+    operand would not fit whole); the library call is one torch.matmul by
+    the bf16 one-hot [m * c, N] of the codes, written a block of rows at a
+    time into its buffer so that one_hot's int64 transient stays small."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops import pq_kernels as pk
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize, topk_first
+    from advanced_rag_tpu_torch.ops.ivfpq import ivfpq_codebook
+    from advanced_rag_tpu_torch.ops.pq import pq_lut, pq_scores_xla
+
+    nlist, cap, m = parts.packed_codes.shape
+    cases = []
+    for nq in (1, len(q)):
+        qq = l2_normalize(q[:nq].float()).contiguous()
+        _, probe = topk_first(qq @ parts.centroids.T, min(nprobe, nlist))
+        uniq = torch.unique(probe.long())
+        codes = (parts.packed_codes.reshape(-1, m) if len(uniq) == nlist
+                 else parts.packed_codes[uniq].reshape(-1, m))
+        lut = pq_lut(ivfpq_codebook(parts, bits=4), qq)
+        n, c = codes.shape[0], lut.shape[2]
+        onehot = torch.empty((m * c, n), dtype=torch.bfloat16, device=q.device)
+        for s0 in range(0, n, 16384):
+            blk = torch.nn.functional.one_hot(codes[s0:s0 + 16384].long() & (c - 1), c)
+            onehot[:, s0:s0 + 16384] = blk.reshape(-1, m * c).T.to(torch.bfloat16)
+            del blk
+        lut_b = lut.to(torch.bfloat16).reshape(nq, m * c)
+        lib = lambda: torch.matmul(lut_b, onehot)  # noqa: E731
+
+        def plain():
+            return torch.cat([pq_scores_xla(codes[s0:s0 + 65536], lut)
+                              for s0 in range(0, n, 65536)], dim=1)
+
+        fn = lambda: pk.pq_scores(codes, lut)  # noqa: E731
+        err, rel, swaps = compare(fn(), plain(), 1e-5)
+        b_ms, b_by = bound(n * m + nq * n * 4 + nq * m * c * 2, 1.0 * nq * n * m,
+                           F32_OPS_PER_S)
+        case = dict(shape=f"{label}: IVF-PQ codes of {len(uniq)} of {nlist} probed "
+                          f"partitions x cap {cap} (N={n}), m={m} Q={nq}, real probes at "
+                          f"nprobe {nprobe} ({pk.pq_kernel_for(nq)}, "
+                          f"{len(pk.pq_plan(nq, m, c))} launches)",
+                    main=False, max_abs_err=err, rel_err=rel, tie_swaps=swaps,
+                    ms=graph_ms(fn), call_ms=cuda_ms(fn),
+                    plain_ms=cuda_ms(plain, reps=2, warmup=1), library_ms=graph_ms(lib),
+                    library_call_ms=cuda_ms(lib),
+                    library="torch.matmul bf16 [Q, m*c] x one-hot [m*c, N] -> bf16",
+                    bound_ms=b_ms, bound_by=b_by)
+        log_case("K6", case)
+        cases.append(case)
+        del onehot
+        torch.cuda.empty_cache()
+    return cases
+
+
 def phase_tier_reference():
     """Phase 7's check: a small corpus served on the card and by the plain
-    path on the CPU, IVF (bf16 rows) and PQ tiers, postings above a lowered
-    threshold, f32 weights; the tier state the card built is carried to the
-    CPU manager, so the comparison is of the search path."""
+    path on the CPU, IVF (bf16 rows), PQ, PQ with OPQ and PQ + IVF-PQ tiers,
+    postings above a lowered threshold, f32 weights; the tier state the card
+    built is carried to the CPU manager, so the comparison is of the search
+    path."""
     import dataclasses
 
     import torch
@@ -1221,6 +1310,7 @@ def phase_tier_reference():
     from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
     from advanced_rag_tpu_torch.models.encoder import SHIPPED_BIENCODER
     from advanced_rag_tpu_torch.ops.ivf import IVFPartitions
+    from advanced_rag_tpu_torch.ops.ivfpq import IVFPQIndex
     from advanced_rag_tpu_torch.ops.pq import PQCodebook
 
     bi = dataclasses.replace(SHIPPED_BIENCODER, num_layers=2, dtype=torch.float32)
@@ -1229,38 +1319,50 @@ def phase_tier_reference():
     saved = SparseIndex.POSTINGS_AUTO_THRESHOLD
     SparseIndex.POSTINGS_AUTO_THRESHOLD = 512
     try:
-        for tier in ("bfloat16", "pq"):
-            ids = {}
+        # (tier, OPQ, the tiers built on its managers in turn: IVF-PQ goes
+        # on top of the PQ managers' codes)
+        for tier, opq, labels in (("bfloat16", False, ("ivf",)), ("pq", False, ("pq", "ivfpq")),
+                                  ("pq", True, ("pq-opq",))):
             mgrs = {}
             for dev in ("cuda", "cpu"):
-                cfg = PipelineConfig(semantic_dtype=tier)
+                cfg = PipelineConfig(semantic_dtype=tier, semantic_opq=opq)
                 cfg.semantic_dim = 384
                 emb = NeuralEmbedder(dim=384, config=bi, seed=3, device=dev)
                 mgr = MultiIndexManager(cfg, embedder=emb, device=dev)
                 ingest_all(mgr, texts)
                 mgrs[dev] = mgr
             card, cpu = mgrs["cuda"].semantic, mgrs["cpu"].semantic
-            if tier == "pq":
-                mgrs["cuda"].build_semantic(pq=True)
-                cpu._pq = PQCodebook(card._pq.codebooks.cpu(), card._pq.m, card._pq.bits)
-                cpu.emb = card.emb.cpu()
-            else:
-                mgrs["cuda"].build_semantic(ivf=True)
-                cpu._ivf = IVFPartitions(*[None if t is None else t.cpu()
-                                           for t in card._ivf])
-                cpu._ivf_size = card._ivf_size
-            for dev, mgr in mgrs.items():
-                hyb = mgr.hybrid_search_batch_sync(queries, 10)
-                sem = [mgr.search_sync(IndexType.SEMANTIC, qt, 10) for qt in queries]
-                ids[dev] = [[h["chunk_id"] for h in hits] for hits in hyb + sem]
-                if not mgr.sparse.has_postings:
-                    raise AssertionError("reference: postings were not built")
-            overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
-            frac = overlap / max(sum(len(b) for b in ids["cpu"]), 1)
-            log(f"reference[{'ivf' if tier != 'pq' else 'pq'}]: card vs CPU plain path, "
-                f"hybrid + search_sync top-10 overlap {frac:.3f} over {len(queries)} queries")
-            if frac < 0.9:
-                raise AssertionError(f"card and CPU disagree on the {tier} tier ({frac:.3f})")
+            for label in labels:
+                if tier == "pq":
+                    built = mgrs["cuda"].build_semantic(pq=True, ivf=label == "ivfpq")
+                    if card.has_ivfpq != (label == "ivfpq") or (card._pq_rot is None) == opq:
+                        raise AssertionError(f"reference[{label}]: built {built}")
+                    cpu._pq = PQCodebook(card._pq.codebooks.cpu(), card._pq.m, card._pq.bits)
+                    cpu.emb = card.emb.cpu()
+                    cpu._pq_rot = None if card._pq_rot is None else card._pq_rot.cpu()
+                    if card.has_ivfpq:
+                        cpu._ivfpq = IVFPQIndex(*[t.cpu() for t in card._ivfpq])
+                        cpu._ivfpq_size, cpu._ivfpq_fill = card._ivfpq_size, card._ivfpq_fill
+                        cpu.config.nprobe = card.config.nprobe
+                else:
+                    mgrs["cuda"].build_semantic(ivf=True)
+                    cpu._ivf = IVFPartitions(*[None if t is None else t.cpu()
+                                               for t in card._ivf])
+                    cpu._ivf_size = card._ivf_size
+                ids = {}
+                for dev, mgr in mgrs.items():
+                    hyb = mgr.hybrid_search_batch_sync(queries, 10)
+                    sem = [mgr.search_sync(IndexType.SEMANTIC, qt, 10) for qt in queries]
+                    ids[dev] = [[h["chunk_id"] for h in hits] for hits in hyb + sem]
+                    if not mgr.sparse.has_postings:
+                        raise AssertionError("reference: postings were not built")
+                overlap = sum(len(set(a) & set(b)) for a, b in zip(ids["cuda"], ids["cpu"]))
+                frac = overlap / max(sum(len(b) for b in ids["cpu"]), 1)
+                log(f"reference[{label}]: card vs CPU plain path, hybrid + search_sync "
+                    f"top-10 overlap {frac:.3f} over {len(queries)} queries")
+                if frac < 0.9:
+                    raise AssertionError(f"card and CPU disagree on the {label} tier "
+                                         f"({frac:.3f})")
     finally:
         SparseIndex.POSTINGS_AUTO_THRESHOLD = saved
 
@@ -2019,21 +2121,20 @@ def served_k1_cases(mgr, queries):
     return cases
 
 
-def phase_lifecycle(texts):
+def phase_lifecycle(texts, root):
     """Phase 9 (c): a default-configuration manager (HashingEmbedder, bf16,
     postings BM25) with enable_domain=True over 200,000 chunks; the domain
     rung of hybrid_search_batch_sync (domain_weight 0.2) at Q = 1 and 32;
     maintenance_tick's first IVF build behind its recall guardrail;
     LIFECYCLE_TAIL more chunks and the IVF rebuild; 15% deleted and the
-    postings compaction; last, the manager saved and loaded into a fresh
+    postings compaction; last, the manager saved under ``root`` (which
+    phase 9 (e) restores; the caller removes it) and loaded into a fresh
     card manager and into a CPU manager (the plain path): the card's domain
     rung against the CPU's, top-10 overlap >= 0.9; the restored card
     manager, with the original's partitions and postings compacted as its
-    were, must answer as the original; then the restart's own tick.  Returns the record and the kernel cases
-    it held against their plain versions."""
-    import shutil
-    import tempfile
-
+    were, must answer as the original; then the restart's own tick.
+    Returns the record, the kernel cases it held against their plain
+    versions and the semantic embedder's projection."""
     import numpy as np
     import torch
 
@@ -2124,36 +2225,32 @@ def phase_lifecycle(texts):
     cases["K5"].append(case)
 
     # save, then a restart on the card (ticked) and the plain path on the CPU
-    root = tempfile.mkdtemp(prefix="ckpt-", dir=BUILD_DIR)
     queries = [checks[:1], checks]
-    try:
+    t = time.perf_counter()
+    save_index(mgr, root)
+    rec["save_s"] = time.perf_counter() - t
+    rec["bytes"] = dir_bytes(root)
+    proj = mgr.embedder._proj.cpu().numpy()
+    dproj = mgr.domain_embedder._proj.cpu().numpy()
+    restored = {}
+    for dev in ("cuda", "cpu"):
+        emb = HashingEmbedder(dim=proj.shape[1], vocab_size=proj.shape[0], proj=proj,
+                              device=dev)
+        demb = HashingEmbedder(dim=dproj.shape[1], vocab_size=dproj.shape[0],
+                               proj=dproj, device=dev)
+        m = MultiIndexManager(PipelineConfig(), embedder=emb, domain_embedder=demb,
+                              enable_domain=True, device=dev)
         t = time.perf_counter()
-        save_index(mgr, root)
-        rec["save_s"] = time.perf_counter() - t
-        rec["bytes"] = dir_bytes(root)
-        proj = mgr.embedder._proj.cpu().numpy()
-        dproj = mgr.domain_embedder._proj.cpu().numpy()
-        restored = {}
-        for dev in ("cuda", "cpu"):
-            emb = HashingEmbedder(dim=proj.shape[1], vocab_size=proj.shape[0], proj=proj,
-                                  device=dev)
-            demb = HashingEmbedder(dim=dproj.shape[1], vocab_size=dproj.shape[0],
-                                   proj=dproj, device=dev)
-            m = MultiIndexManager(PipelineConfig(), embedder=emb, domain_embedder=demb,
-                                  enable_domain=True, device=dev)
-            t = time.perf_counter()
-            load_index(m, root)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            rec[f"load_{dev}_s"] = time.perf_counter() - t
-            # postings are not saved: built without the deleted rows, as
-            # the original's compaction left them (a restored manager's
-            # first hybrid search would build them over every row, as the
-            # JAX package's restore does)
-            m.sparse.build_postings(valid=m.store._host_valid[: m.sparse.size])
-            restored[dev] = m
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        load_index(m, root)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        rec[f"load_{dev}_s"] = time.perf_counter() - t
+        # postings are not saved: built without the deleted rows, as the
+        # original's compaction left them (a restored manager's first
+        # hybrid search would build them over every row, as the JAX
+        # package's restore does)
+        m.sparse.build_postings(valid=m.store._host_valid[: m.sparse.size])
+        restored[dev] = m
     search = hybrid_answers(queries, domain_weight=0.2)
     exact = {dev: search(m) for dev, m in restored.items()}
     rec["card_vs_cpu_overlap"] = overlap(exact["cuda"], exact["cpu"])
@@ -2186,7 +2283,161 @@ def phase_lifecycle(texts):
     mgr.close()
     del card, mgr
     torch.cuda.empty_cache()
-    return rec, cases
+    return rec, cases, proj
+
+
+#: phase 9 (e): chunks appended to the restored PQ managers (the 260,000
+#: rows stay within the 262,144 capacity, so the codes keep phase 3's shape)
+#: and the rebuild fraction that makes their tick re-pack the IVF-PQ tier
+PQ_LIFECYCLE_TAIL = 2048
+PQ_LIFECYCLE_REPACK = 0.005
+
+
+def phase_pq_lifecycle(root, proj):
+    """Phase 9 (e): the PQ tier's lifecycle at the default width (1536, m =
+    384).  For a semantic_dtype="pq" manager and a semantic_opq=True one,
+    each restored from phase 9 (c)'s checkpoint under ``root`` (its 260,000
+    rows, 39,000 of them deleted; without the sparse family, whose postings
+    build over 260k rows takes seconds of host time a manager and whose
+    lifecycle is 9 (c)'s): maintenance_tick's first build (PQ + IVF-PQ
+    behind the recall guardrail; with OPQ the rotated flat codes only,
+    unguarded), and the guardrail's sweep run on to nprobe = nlist, the
+    recall a refusal would need to miss; search_sync and hybrid_search_batch_sync at Q = 1 and 32;
+    PQ_LIFECYCLE_TAIL appended chunks (the IVF-PQ tail) and the tick's
+    re-pack at the same nlist (the rebuild fraction lowered to
+    PQ_LIFECYCLE_REPACK on the instance); last the manager saved and loaded
+    into a fresh card manager (given the original's nprobe, which
+    checkpoints do not hold), whose answers must be identical.  K6 must run
+    on the 262,144 x 384 codes.  Returns the records."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import IndexType, PipelineConfig
+    from advanced_rag_tpu_torch.index.corpus import ChunkRecord
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.embedder import HashingEmbedder
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index
+
+    out = {}
+    extra = synthetic_corpus(PQ_LIFECYCLE_TAIL, seed=14)
+
+    def manager(opq):
+        emb = HashingEmbedder(dim=proj.shape[1], vocab_size=proj.shape[0], proj=proj,
+                              device="cuda")
+        return MultiIndexManager(PipelineConfig(semantic_dtype="pq", semantic_opq=opq),
+                                 embedder=emb, enable_sparse=False, device="cuda")
+
+    for name, opq in (("pq", False), ("pq-opq", True)):
+        rng = np.random.default_rng(61)
+        rec = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        mgr = manager(opq)
+        t = time.perf_counter()
+        load_index(mgr, root)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t
+        sem = mgr.semantic
+        live = np.flatnonzero(mgr.store._host_valid[: mgr.store.size])
+        texts = [mgr.store.contents[i] for i in rng.choice(live, min(4096, len(live)),
+                                                            replace=False)]
+        t = time.perf_counter()
+        rec["first_tick"] = mgr.maintenance_tick()
+        torch.cuda.synchronize()
+        rec["first_tick_s"] = time.perf_counter() - t
+        acts = rec["first_tick"]
+        if not acts.get("pq_built") or sem.has_ivfpq == opq or (sem._pq_rot is None) != (
+                not opq) or ("demotion_recall" in acts) == opq:
+            raise AssertionError(f"pq lifecycle[{name}]: first tick {acts}")
+        if (tuple(sem.emb.shape), sem._pq.m) != (PQ_WIDE, PQ_WIDE[1]):
+            raise AssertionError(f"pq lifecycle[{name}]: codes {tuple(sem.emb.shape)} are not "
+                                 f"{PQ_WIDE}: phase 3 missed their shape")
+        rec["nprobe"] = sem.config.nprobe
+        if sem.has_ivfpq:
+            rec["nlist"], rec["cap"] = map(int, sem._ivfpq.packed_rows.shape)
+            # the guardrail's margin: its sweep stops at the first nprobe that
+            # reaches the target, so the recall it reports sits just above
+            # it, and it refuses only when the deepest probe misses too.  The
+            # same sweep on the same 64 sampled rows, to the end (nlist).
+            deepest = sem.tune_nprobe(recall_target=2.0, k=10,
+                                      sample=min(64, sem.size))[1]
+            rec["guardrail_deepest_recall"] = round(float(deepest), 4)
+            sem.config.nprobe = rec["nprobe"]
+
+        def hybrid(nq, r):
+            check_hits(mgr.hybrid_search_batch_sync(snippet_queries(rng, texts, nq), 10),
+                       nq, 10)
+
+        def semantic(nq, r):
+            for qtext in snippet_queries(rng, texts, nq):
+                if len(mgr.search_sync(IndexType.SEMANTIC, qtext, 10)) != 10:
+                    raise AssertionError("search_sync returned too few hits")
+
+        rec["hybrid"] = time_calls(hybrid, (1, 32))
+        rec["search_sync"] = time_calls(semantic, (1, 32))
+        # a tail, then the re-pack
+        start = mgr.store.size
+        t = time.perf_counter()
+        rep = mgr.index_chunks([ChunkRecord(chunk_id=f"e{i}", doc_id=f"e{i // 4}",
+                                            content=extra[i]) for i in range(len(extra))])
+        torch.cuda.synchronize()
+        rec["tail_ingest_s"] = time.perf_counter() - t
+        if rep["indexed"] != len(extra) or sem.capacity != PQ_WIDE[0]:
+            raise AssertionError(f"pq lifecycle[{name}]: tail ingest {rep['indexed']}, "
+                                 f"capacity {sem.capacity}")
+        probe = [extra[0]]
+        top = mgr.search_sync(IndexType.SEMANTIC, probe[0], 1)
+        rec["tail_probe_found"] = bool(top) and top[0]["chunk_id"] == "e0"
+        rec["tail_fill"] = sem._ivfpq_fill if sem.has_ivfpq else None
+        sem.REBUILD_TAIL_FRACTION = PQ_LIFECYCLE_REPACK
+        t = time.perf_counter()
+        rec["repack_tick"] = mgr.maintenance_tick()
+        torch.cuda.synchronize()
+        rec["repack_tick_s"] = time.perf_counter() - t
+        want = ({"ivf_rebuilt": False} if opq else
+                {"ivf_rebuilt": True, "ivf_rows": start + len(extra)})
+        if rec["repack_tick"] != want or not rec["tail_probe_found"]:
+            raise AssertionError(f"pq lifecycle[{name}]: the tail probe found "
+                                 f"{rec['tail_probe_found']}, re-pack tick "
+                                 f"{rec['repack_tick']}")
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["memory_bytes"] = sem.memory_bytes()
+        rec["launches"] = read_counters()
+        if rec["launches"]["K6"] == 0:
+            raise AssertionError(f"pq lifecycle[{name}] ran no K6: {rec['launches']}")
+        queries = [probe + texts[:7], snippet_queries(rng, texts, 32)]
+        if sem.has_ivfpq:   # after the counters are read: a check, not the path
+            rec["k6_cases"] = ivfpq_k6_cases(sem._ivfpq,
+                                             mgr.embedder.encode_device(queries[1]),
+                                             sem.config.nprobe, "phase 9 (e)")
+        nprobe = sem.config.nprobe
+
+        def answers(m):
+            m.semantic.config.nprobe = nprobe
+            return hybrid_answers(queries)(m) + [
+                [(h["chunk_id"], h["score"]) for h in m.search_sync(IndexType.SEMANTIC, qt, 10)]
+                for qt in queries[1]]
+
+        rec["round_trip"] = index_round_trip(f"pq lifecycle {name}", mgr, manager(opq),
+                                             answers, BUILD_DIR / f"pq-lifecycle-{name}")
+        times = lambda b: "; ".join(  # noqa: E731
+            f"Q={nq} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms" for nq, v in b.items())
+        log(f"pq lifecycle[{name}]: restored {mgr.store.size - len(extra)} rows in "
+            f"{rec['restore_s']:.2f}s; first tick {rec['first_tick_s']:.2f}s {acts}"
+            + (f" (nlist {rec['nlist']}, cap {rec['cap']}; the guardrail's sweep reaches "
+               f"recall {rec['guardrail_deepest_recall']:.4f} at nprobe {rec['nlist']})"
+               if "nlist" in rec else "")
+            + f"; hybrid {times(rec['hybrid'])}; search_sync {times(rec['search_sync'])}; "
+              f"{len(extra)} more chunks in {rec['tail_ingest_s']:.2f}s (tail probe found); "
+              f"re-pack tick {rec['repack_tick_s']:.2f}s {rec['repack_tick']}; peak "
+              f"{rec['peak_gb']:.2f} GB; memory_bytes {rec['memory_bytes']}; launches "
+              f"{rec['launches']}")
+        out[name] = rec
+        mgr.close()
+        del mgr, sem
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -2215,19 +2466,28 @@ def main() -> None:
     service["reference"] = phase_service_reference()
     tiers_1m = phase_tiers_1m()
     phase_tier_reference()
-    lifecycle, lifecycle_cases = phase_lifecycle(texts)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=BUILD_DIR))
+    try:
+        lifecycle, lifecycle_cases, proj = phase_lifecycle(texts, root)
+        lifecycle["pq"] = phase_pq_lifecycle(root, proj)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     lifecycle["encoders"] = encoders
     for key, cases in lifecycle_cases.items():
         kernel_results[key] += cases
     for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
         kernel_results["K5"] += rec.pop("real_probe_cases")
+    for rec in (tiers_1m["ivfpq"], lifecycle["pq"]["pq"]):
+        kernel_results["K6"] += rec.pop("k6_cases")
     round_trips = {f"{k}-restore": v["lifecycle"] for k, v in tiers.items()}
     round_trips["pq-restore"] = manager_tiers["pq"]["lifecycle"]
     service_runs = {k: service[k] for k in ("fused", "default")}
     service_runs.update({f"{k}-restart": service[k]["lifecycle"]
                          for k in ("fused", "default")})
+    pq_runs = lifecycle["pq"]
+    round_trips.update({f"{k}-lifecycle-restore": v["round_trip"] for k, v in pq_runs.items()})
     for runs in (tiers_1m, manager_tiers, round_trips, {"lifecycle": lifecycle},
-                 service_runs):
+                 service_runs, pq_runs):
         for rec in runs.values():
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]

@@ -229,24 +229,6 @@ def test_torn_load_rolls_back_and_a_retry_succeeds(tmp_path):
         np.testing.assert_array_equal(hits(a)[1], hits(b)[1])
 
 
-@pytest.mark.parametrize("edit,item", [
-    (lambda m: m["dense"]["semantic"].update(pq={"m": 8, "bits": 4, "opq": True}), 4),
-    (lambda m: m["dense"]["semantic"].update(ivfpq={"nlist": 4, "m": 8, "bits": 4}), 5),
-])
-def test_opq_and_ivfpq_manifests_raise_before_the_store_is_touched(tmp_path, edit,
-                                                                   item):
-    _, saver = empty_managers("pq")
-    fill(saver, ChunkRecord, "pq")
-    tckpt.save_index(saver, tmp_path)
-    manifest = json.loads((tmp_path / "manifest.json").read_text())
-    edit(manifest)
-    (tmp_path / "manifest.json").write_text(json.dumps(manifest))
-    _, tmgr = empty_managers("pq")
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        tckpt.load_index(tmgr, tmp_path)
-    assert tmgr.store.size == 0 and not tmgr.store.chunk_ids
-
-
 def test_unknown_format_and_dtype_raise(tmp_path):
     _, saver = empty_managers("float32")
     fill(saver, ChunkRecord, "float32")

@@ -574,6 +574,24 @@ def test_k6_kernels_match_plain(cuda, c, m, nq, n):
     assert_rel_close(got, pq_scores_xla(codes, lut))
 
 
+@pytest.mark.parametrize("kernel", [None, "lookup", "onehot"])
+@pytest.mark.parametrize("nq", [1, 8, 32])
+def test_k6_at_the_default_width(cuda, kernel, nq):
+    """m = 384 (auto_pq_m of the 1536-wide default embedder), N = 262144:
+    the one-hot kernel runs over groups of subspaces that fit its shared
+    memory, each launch after the first adding into the output; every
+    launch of pq_plan runs and the sum matches the plain ADC."""
+    rng = np.random.default_rng(nq + 384)
+    n, m = 262144, 384
+    codes = torch.from_numpy(rng.integers(0, 16, size=(n, m)).astype(np.int8)).to(cuda)
+    lut = torch.from_numpy(rng.standard_normal((nq, m, 16), np.float32) * 0.05).to(cuda)
+    before = pk.pq_scores.launches
+    got = pk.pq_scores(codes, lut) if kernel is None else pk.pq_scores_by(codes, lut, kernel)
+    torch.cuda.synchronize()
+    assert pk.pq_scores.launches - before == len(pk.pq_plan(nq, m, 16, kernel))
+    assert_rel_close(got, pq_scores_xla(codes, lut))
+
+
 @pytest.mark.parametrize("kernel", ["lookup", "onehot"])
 @pytest.mark.parametrize("nq", [1, 9, 32])
 def test_k6_on_unaligned_codes(cuda, kernel, nq):

@@ -5,8 +5,9 @@ Both managers embed with the JAX hashing projection carried over and
 ingest the same chunks (tests/test_torch_checkpoint.py's corpus), so the
 tick takes the same decisions: the first IVF build behind the recall
 guardrail, a blocked build that restores the exact scan, the rebuild once
-the appended tail passes 0.2 of the rows, postings compaction past 10%
-dead postings, and the PQ tier's refusal.  k-means centroids agree across
+the appended tail passes 0.2 of the rows, and postings compaction past 10%
+dead postings (the PQ tier's first PQ + IVF-PQ build is held against JAX's
+in tests/test_torch_ivfpq.py).  k-means centroids agree across
 the frameworks only to about rtol 1e-5, so after a build the JAX
 partitions are carried over (``ivf_partitions_from_numpy``) before the
 searches are compared; the guardrail recall is compared within 0.05.
@@ -147,19 +148,6 @@ def test_postings_compaction_matches_jax():
                     for g, w in zip(got, want)]) >= 0.9
     # compacted once: the next tick leaves the postings alone
     assert "postings_compacted" not in tmgr.maintenance_tick()
-
-
-def test_pq_tier_refuses_the_first_pq_ivfpq_build_only():
-    _, tmgr = managers("pq", n=THRESHOLD - 1)
-    assert tmgr.maintenance_tick() == {"ivf_rebuilt": False}
-    tmgr.index_chunks(records(ChunkRecord)[THRESHOLD - 1:THRESHOLD])
-    emb = tmgr.semantic.emb
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tmgr.maintenance_tick()
-    assert tmgr.semantic.emb is emb and not tmgr.semantic.has_pq
-    # trained PQ codes without IVF-PQ partitions: nothing to re-pack
-    tmgr.build_semantic(pq=True)
-    assert tmgr.maintenance_tick() == {"ivf_rebuilt": False}
 
 
 @pytest.mark.parametrize("exc,propagates", [(ValueError, False), (IndexingError, False),

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from advanced_rag_tpu.ops import pq as jpq
+from advanced_rag_tpu_torch.ops import pq as pq
 from advanced_rag_tpu_torch.ops import pq_kernels as pk
 from advanced_rag_tpu_torch.ops.dense_kernels import SCAN_SMEM_MAX
 from advanced_rag_tpu_torch.ops.pq import pq_scores_xla
@@ -165,18 +166,22 @@ def emulate_launch(codes, table, nc, c, qc, mt_n, rng):
 
 
 def emulate_onehot(codes, lut, seed=0):
-    """The wrapper's chunks through ``emulate_launch`` -> [Q, n] f32."""
+    """The wrapper's one-hot launches (``pq_plan``) through
+    ``emulate_launch`` -> [Q, n] f32: a launch over a group of subspaces
+    reads its columns of the codes and its rows of the table, and a launch
+    after a query chunk's first adds its partial scores to the output."""
     rng = np.random.default_rng(seed)
     nq, m, c = lut.shape
     table = to_np(pk.onehot_table(torch.from_numpy(lut)).view(torch.int16)).view(np.uint16)
-    chunk = pk.onehot_chunk(m)
     out = np.empty((nq, codes.shape[0]), np.float32)
-    for q0 in range(0, nq, chunk):
-        nc = min(chunk, nq - q0)
-        qc = 8 if nc <= 8 else 16 if nc <= 16 else 32
-        mt_n = 2 if pk.onehot_smem_bytes(qc, 2, m) <= SCAN_SMEM_MAX else 1
-        out[q0:q0 + nc] = emulate_launch(codes.view(np.uint8), table[:, q0:], nc, c,
-                                         qc, mt_n, rng)
+    for p in pk.pq_plan(nq, m, c, "onehot"):
+        qc = 8 if p.nc <= 8 else 16 if p.nc <= 16 else 32
+        mg = p.s1 - p.s0
+        mt_n = 2 if pk.onehot_smem_bytes(qc, 2, mg) <= SCAN_SMEM_MAX else 1
+        part = emulate_launch(np.ascontiguousarray(codes.view(np.uint8)[:, p.s0:p.s1]),
+                              table[p.s0:p.s1, p.q0:], p.nc, c, qc, mt_n, rng)
+        rows = slice(p.q0, p.q0 + p.nc)
+        out[rows] = part if p.s0 == 0 else (out[rows] + part).astype(np.float32)
     return out
 
 
@@ -212,6 +217,46 @@ def test_emulated_tiles_of_256_rows_for_wide_m():
     got = emulate_onehot(codes, lut)
     want = to_np(pq_scores_xla(torch.from_numpy(codes), torch.from_numpy(lut)))
     assert_close_to_largest(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("nq", [9, 32])
+def test_emulated_subspace_groups_at_the_default_width(nq):
+    """m = 384 (auto_pq_m of the 1536-wide default embedder): no query chunk
+    fits with all subspaces, so the launches split them, two groups of 192
+    for 9 queries and three of 128 for 32, each adding into the output."""
+    codes, lut = inputs(40, 384, 16, nq, nq)
+    plan = pk.pq_plan(nq, 384, 16)
+    assert [(p.s0, p.s1) for p in plan] == ([(0, 192), (192, 384)] if nq == 9 else
+                                            [(0, 128), (128, 256), (256, 384)])
+    got = emulate_onehot(codes, lut)
+    want = to_np(pq_scores_xla(torch.from_numpy(codes), torch.from_numpy(lut)))
+    assert_close_to_largest(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("m", [96, 192, 384])
+@pytest.mark.parametrize("nq", [1, 8, 32])
+@pytest.mark.parametrize("kernel", [None, "lookup", "onehot"])
+def test_plan_takes_every_width_auto_pq_m_gives(m, nq, kernel):
+    """D = 384, 768, 1536 at bits 4 give m = 96, 192, 384: every launch the
+    planner makes fits the shared memory of the kernel it runs, and the
+    launches cover each (query, subspace) pair once."""
+    assert m in [pq.auto_pq_m(d, 4) for d in (384, 768, 1536)]
+    plan = pk.pq_plan(nq, m, 16, kernel)
+    cover = np.zeros((nq, m), int)
+    for p in plan:
+        assert p.kind == (kernel or pk.pq_kernel_for(min(pk.QMAX, nq)))
+        if p.kind == "lookup":
+            qc = 1 << (p.nc - 1).bit_length()
+            assert (p.s0, p.s1) == (0, m) and qc * m * 16 * 2 <= SCAN_SMEM_MAX
+        else:
+            qc = 8 if p.nc <= 8 else 16 if p.nc <= 16 else 32
+            assert pk.onehot_smem_bytes(qc, 1, p.s1 - p.s0) <= SCAN_SMEM_MAX
+            assert p.s0 % 16 == 0
+        cover[p.q0:p.q0 + p.nc, p.s0:p.s1] += 1
+    assert (cover == 1).all()
+    # one-hot launches of a chunk come in subspace order, the first at 0
+    firsts = [p.s0 for p in plan if p.kind == "onehot"]
+    assert not firsts or firsts[0] == 0
 
 
 @pytest.mark.parametrize("c,nq", [(16, 9), (4, 32)])

@@ -130,8 +130,12 @@ def test_dense_index_pq_search_matches_jax(vectors):
         q, axis=1, keepdims=True)), 320, tidx._bound())
     assert (to_np(d_i) < 1800).all()
     assert tidx.memory_bytes() == jidx.memory_bytes()
-    with pytest.raises(NotImplementedError, match="IVF-PQ"):
-        tidx.build_ivf()
+    # build_ivf on a PQ index builds IVF-PQ in both packages
+    for idx in (jidx, tidx):
+        idx.build_ivf(nlist=16)
+        assert idx.has_ivfpq and idx.has_pq
+    assert tuple(tidx._ivfpq.packed_codes.shape) == jidx._ivfpq.packed_codes.shape
+    assert tidx.memory_bytes() == jidx.memory_bytes()
 
 
 def test_dense_index_tier_builds_run_on_the_port(vectors):
