@@ -16,18 +16,32 @@ converted weights (``models/convert.py``) give the same function:
   logits set to ``finfo(dtype).min`` so a fully padded row comes out
   uniform instead of NaN;
 - GELU is the tanh approximation (``flax.linen.gelu``'s default);
-- ``pos_embed[:L]`` is sliced to the sequence length.
+- ``pos_embed[:L]`` is sliced to the sequence length;
+- in ``train()`` mode with ``config.dropout > 0`` and a ``torch.Generator``
+  passed to the forward, the attention weights take Flax's broadcast
+  dropout (``MultiHeadDotProductAttention`` with ``broadcast_dropout=True``):
+  one keep mask [1, 1, L, L] per block and forward, shared across batch
+  and heads, drawn from that generator.  Without a generator the forward
+  is deterministic, as a Flax ``apply`` with ``deterministic=True`` (the
+  JAX bi-encoder and distillation steps train so); ``eval()`` always is.
+
+``init_bi_encoder`` / ``init_cross_encoder`` draw fresh weights from
+Flax's initializers (the distributions, not the numbers: each framework
+has its own generator); ``init_weights`` is the simpler seeded draw the
+serving models use when no weights are given.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
@@ -39,7 +53,7 @@ class EncoderConfig:
     mlp_dim: int = 1536
     max_len: int = 128
     num_segments: int = 2
-    dropout: float = 0.0            # kept for config parity; inference only
+    dropout: float = 0.0            # attention dropout rate in train() mode
     dtype: torch.dtype = torch.bfloat16   # activation dtype (params stay f32)
     # cross-segment exact-match channel (CrossEncoder only)
     lexical_match: bool = False
@@ -87,20 +101,34 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-class MultiHeadAttention(nn.Module):
-    """Flax ``MultiHeadDotProductAttention`` (self-attention, no dropout)."""
+def dropout_multiplier(seq: int, rate: float, dtype: torch.dtype,
+                       generator: torch.Generator) -> torch.Tensor:
+    """Flax's broadcast attention dropout: [1, 1, seq, seq] of
+    ``keep / (1 - rate)`` in ``dtype`` (the divisor rounded to ``dtype``
+    first, as Flax does: 1.109375 in bf16 at rate 0.1), ``keep`` drawn
+    with probability ``1 - rate`` from ``generator`` on its device."""
+    keep = torch.rand((1, 1, seq, seq), generator=generator,
+                      device=generator.device) < 1.0 - rate
+    # a host scalar tensor: no copy to the device, and its dtype still rounds
+    return keep.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype)
 
-    def __init__(self, hidden: int, heads: int):
+
+class MultiHeadAttention(nn.Module):
+    """Flax ``MultiHeadDotProductAttention`` (self-attention); attention
+    dropout at ``dropout`` in train() mode when given a generator."""
+
+    def __init__(self, hidden: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.head_dim = hidden // heads
+        self.dropout = dropout
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
         self.out = nn.Linear(hidden, hidden)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bsz, seq, hid = x.shape
         shape = (bsz, seq, self.heads, self.head_dim)
         q = dense(x, self.query, dtype).view(shape)
@@ -112,6 +140,8 @@ class MultiHeadAttention(nn.Module):
         logits = torch.where(keep, logits,
                              torch.tensor(torch.finfo(dtype).min, dtype=dtype))
         weights = torch.softmax(logits, dim=-1).to(dtype)
+        if self.training and self.dropout > 0.0 and generator is not None:
+            weights = weights * dropout_multiplier(seq, self.dropout, dtype, generator)
         o = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(bsz, seq, hid)
         return dense(o, self.out, dtype)
 
@@ -122,15 +152,16 @@ class TransformerBlock(nn.Module):
         self.config = config
         h = config.hidden_dim
         self.ln_attn = LayerNorm(h)
-        self.attn = MultiHeadAttention(h, config.num_heads)
+        self.attn = MultiHeadAttention(h, config.num_heads, config.dropout)
         self.ln_mlp = LayerNorm(h)
         self.mlp_in = nn.Linear(h, config.mlp_dim)
         self.mlp_out = nn.Linear(config.mlp_dim, h)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.config.dtype
         h = self.ln_attn(x).to(dt)
-        x = x + self.attn(h, mask, dt)
+        x = x + self.attn(h, mask, dt, generator)
         h = self.ln_mlp(x).to(dt)
         h = F.gelu(dense(h, self.mlp_in, dt), approximate="tanh")
         return x + dense(h, self.mlp_out, dt)
@@ -166,7 +197,8 @@ class TransformerTrunk(nn.Module):
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 segments: Optional[torch.Tensor] = None,
-                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+                extra: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.config.dtype
         x = self.tok_embed(ids).to(dt)
         x = x + self.pos_embed[: ids.shape[1]].to(dt)[None]
@@ -176,7 +208,7 @@ class TransformerTrunk(nn.Module):
             x = x + extra.to(dt)
         x = x * mask[:, :, None].to(dt)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x, mask, generator)
         return self.final_ln(x)                                 # f32 out
 
 
@@ -194,10 +226,11 @@ class BiEncoder(nn.Module):
             self.lex_scale = nn.Parameter(torch.ones(config.vocab_size))
             self.lex_proj = nn.Linear(config.vocab_size, out_dim, bias=False)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         ids = ids.long()
         mask = mask.float()
-        h = self.trunk(ids, mask)                               # [B, L, H] f32
+        h = self.trunk(ids, mask, generator=generator)          # [B, L, H] f32
         m = mask[:, :, None]
         pooled = torch.sum(h * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
         out = F.linear(pooled, self.proj.weight, self.proj.bias)
@@ -229,8 +262,8 @@ class CrossEncoder(nn.Module):
         self.pool = nn.Linear(h + 2 if config.lexical_match else h, h)
         self.score = nn.Linear(h, 1)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                segments: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor, segments: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         ids = ids.long()
         mask = mask.float()
@@ -239,7 +272,7 @@ class CrossEncoder(nn.Module):
         if cfg.lexical_match:
             match = cross_segment_match(ids, mask, segments, cfg.num_reserved_ids)
             extra = self.match_embed(match.long()).to(cfg.dtype)
-        h = self.trunk(ids, mask, segments=segments, extra=extra)
+        h = self.trunk(ids, mask, segments=segments, extra=extra, generator=generator)
         cls = h[:, 0, :]                                        # [B, H]
         if cfg.lexical_match:
             # matched-token fractions per side go straight to the head
@@ -274,6 +307,61 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+#: Flax's truncated normal: ``truncated_normal(-2, 2)`` scaled so that the
+#: result has unit variance (the std of a unit normal cut at +-2)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fresh weights from the Flax modules' initializers, drawn in
+    ``named_parameters`` order from ``generator`` (a CPU generator):
+
+    - Dense kernels (attention q/k/v/out, MLP, ``proj``, ``pool``,
+      ``score``, ``lex_proj``): lecun normal, truncated at two standard
+      deviations, std 1/sqrt(fan_in) (``nn.initializers.lecun_normal``);
+    - ``tok_embed``, ``seg_embed``: normal with std 1/sqrt(H) (``nn.Embed``'s
+      default);
+    - ``pos_embed``, ``match_embed``: normal(0.02);
+    - biases 0, LayerNorm scale 1, ``lex_scale`` 1.
+    """
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("lex_scale") or (leaf == "scale" and p.dim() == 1):
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()
+        elif name.endswith(("tok_embed.weight", "seg_embed.weight")):
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+        elif leaf == "weight" and "embed" not in name:
+            nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.mul_(1.0 / TRUNC_NORMAL_STD / math.sqrt(p.shape[1]))
+        else:                                               # pos_embed, match_embed
+            p.normal_(0.0, 0.02, generator=generator)
+    return module
+
+
+def _init(module: nn.Module, seed: int,
+          device: DeviceLike) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    model = init_flax(module, torch.Generator().manual_seed(seed))
+    model = model.to(resolve_device(device))
+    return model, model.state_dict()
+
+
+def init_bi_encoder(config: EncoderConfig, out_dim: int, seed: int = 0,
+                    device: DeviceLike = None) -> Tuple[BiEncoder, Dict[str, torch.Tensor]]:
+    """-> (BiEncoder on ``device`` (the card unless ``"cpu"``), its state
+    dict), weights from Flax's initializers (``init_flax``)."""
+    return _init(BiEncoder(config, out_dim=out_dim), seed, device)
+
+
+def init_cross_encoder(config: EncoderConfig, seed: int = 0,
+                       device: DeviceLike = None) -> Tuple[CrossEncoder, Dict[str, torch.Tensor]]:
+    """-> (CrossEncoder on ``device``, its state dict), weights from
+    Flax's initializers (``init_flax``)."""
+    return _init(CrossEncoder(config), seed, device)
+
+
 __all__ = [
     "EncoderConfig",
     "SHIPPED_BIENCODER",
@@ -287,4 +375,8 @@ __all__ = [
     "CrossEncoder",
     "cross_segment_match",
     "init_weights",
+    "init_flax",
+    "init_bi_encoder",
+    "init_cross_encoder",
+    "dropout_multiplier",
 ]

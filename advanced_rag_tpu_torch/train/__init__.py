@@ -1,16 +1,52 @@
 """Training of the port's encoders: the port of ``advanced_rag_tpu/train``.
 
-So far only the persistence functions are ported: ``loop.py``'s
-``save_params``/``load_params``/``save_biencoder``/``load_biencoder`` and
-``rerank.py``'s ``save_reranker``/``load_reranker``.  A checkpoint is a
-directory with ``config.json`` (the ``EncoderConfig`` fields and the
-model's own geometry) and ``weights.pt`` (one f32 state dict, read with
-``torch.load(..., weights_only=True)``); no orbax.  The training loops
-themselves come with a later slice of the port (ROADMAP.md, queue A item 8).
+- ``contrastive.py``: the bi-encoder's InfoNCE step (in-batch and mined
+  hard negatives) and optax's optimizer chain on ``torch.optim``;
+- ``loop.py``: ``train_biencoder`` and the encoder checkpoints;
+- ``rerank.py``: the listwise hard-negative reranker (warm start from the
+  bi-encoder, residual objective, label smoothing, attention dropout,
+  early stopping) and its checkpoints;
+- ``distill.py``: label-free distillation of a cross-encoder from the
+  bi-encoder.
+
+Every entry point trains on the CUDA card unless given ``device="cpu"``.
+The JAX functions return Flax params; the port returns the trained
+module's f32 state dict, which ``NeuralEmbedder(state_dict=...)`` and
+``CrossEncoderReranker(state_dict=...)`` take.  Training runs on one
+device: ``mesh`` must be None, and ``build_train_mesh`` /
+``param_partition_spec`` come with ``torch.distributed`` (ROADMAP.md,
+queue A item 9).  A checkpoint is a directory with ``config.json`` (the
+``EncoderConfig`` fields and the model's own geometry) and ``weights.pt``
+(one f32 state dict, read with ``torch.load(..., weights_only=True)``);
+no orbax.
 """
 
-from .loop import load_biencoder, load_params, save_biencoder, save_params
-from .rerank import load_reranker, save_reranker
+from .contrastive import TrainConfig, make_optimizer, make_train_step, synthetic_pair_batch
+from .distill import DistillConfig, distill_cross_encoder
+from .loop import (TrainLoopConfig, load_biencoder, load_params, save_biencoder,
+                   save_params, train_biencoder)
+from .rerank import (RerankTrainConfig, filter_false_negatives, load_reranker,
+                     save_reranker, token_jaccard, train_reranker,
+                     warm_start_cross_encoder)
 
-__all__ = ["save_params", "load_params", "save_biencoder", "load_biencoder",
-           "save_reranker", "load_reranker"]
+__all__ = [
+    "DistillConfig",
+    "RerankTrainConfig",
+    "filter_false_negatives",
+    "load_reranker",
+    "save_reranker",
+    "token_jaccard",
+    "train_reranker",
+    "warm_start_cross_encoder",
+    "TrainConfig",
+    "TrainLoopConfig",
+    "distill_cross_encoder",
+    "load_biencoder",
+    "load_params",
+    "save_biencoder",
+    "make_optimizer",
+    "make_train_step",
+    "save_params",
+    "synthetic_pair_batch",
+    "train_biencoder",
+]

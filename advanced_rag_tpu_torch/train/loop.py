@@ -1,5 +1,10 @@
-"""Bi-encoder checkpoints: the persistence half of
+"""Training loop of the bi-encoder, and its checkpoints: the port of
 ``advanced_rag_tpu/train/loop.py``.
+
+``train_biencoder`` drives ``train/contrastive.py``'s step over
+inverse-cloze synthetic pairs (or the caller's ``pair_fn``), evaluates
+recall@1 on a held-out pool at ``eval_every`` and checkpoints the
+weights there with ``save_biencoder``.
 
 The JAX package writes orbax pytrees, which a host without orbax (the
 port needs none) cannot read.  The port writes a directory of its own:
@@ -18,16 +23,21 @@ checkpoints in this format.
 from __future__ import annotations
 
 import json
-from dataclasses import asdict
+import time
+from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..models.convert import encoder_config_from_meta
-from ..models.encoder import BiEncoder, EncoderConfig
+from ..models.encoder import BiEncoder, EncoderConfig, init_bi_encoder
+from ..models.tokenizer import HashingTokenizer, TokenizerConfig
+from .contrastive import (TrainConfig, check_mesh, cloze_query, make_optimizer,
+                          make_train_step, synthetic_pair_batch)
 
 CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "weights.pt"
@@ -88,5 +98,92 @@ def load_biencoder(path: str | Path, device: DeviceLike = None
     return cfg, out_dim, model.to(resolve_device(device)).eval()
 
 
-__all__ = ["save_params", "load_params", "save_biencoder", "load_biencoder",
-           "encoder_meta", "CONFIG_FILE", "WEIGHTS_FILE"]
+@dataclass
+class TrainLoopConfig:
+    steps: int = 500
+    batch_size: int = 64
+    eval_every: int = 100
+    eval_pairs: int = 64
+    log_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    seed: int = 0
+
+
+@torch.no_grad()
+def _eval_recall_at_1(model: nn.Module, params: Mapping[str, torch.Tensor],
+                      tok: HashingTokenizer, pairs: List[Tuple[str, str]],
+                      max_len: int) -> float:
+    """Query->its-own-doc retrieval accuracy over the eval pool, with
+    ``params`` (deterministic forward)."""
+    dev = next(iter(params.values())).device
+    enc = lambda texts: [torch.from_numpy(a).to(dev)  # noqa: E731
+                         for a in tok.encode_batch(texts, max_len)]
+    q = torch.func.functional_call(model, dict(params), tuple(enc([q for q, _ in pairs])))
+    d = torch.func.functional_call(model, dict(params), tuple(enc([d for _, d in pairs])))
+    pred = torch.argmax(q @ d.T, dim=1).cpu().numpy()
+    return float((pred == np.arange(len(pairs))).mean())
+
+
+def train_biencoder(
+    texts: Sequence[str],
+    *,
+    encoder_config: Optional[EncoderConfig] = None,
+    out_dim: int = 384,
+    train_config: Optional[TrainConfig] = None,
+    loop_config: Optional[TrainLoopConfig] = None,
+    mesh: Any = None,
+    pair_fn: Optional[Callable[[np.random.Generator], Dict[str, torch.Tensor]]] = None,
+    device: DeviceLike = None,
+) -> Tuple[BiEncoder, Dict[str, torch.Tensor], List[Dict[str, float]]]:
+    """-> (model, its state dict, history of {step, loss, accuracy,
+    grad_norm, elapsed_s[, eval_recall_at_1]}), trained on ``device`` (the
+    card unless ``"cpu"``).  ``pair_fn(rng)`` gives a batch on the device
+    in place of the synthetic inverse-cloze pairs."""
+    cfg = encoder_config or EncoderConfig()
+    tcfg = train_config or TrainConfig()
+    lcfg = loop_config or TrainLoopConfig()
+    if not texts:
+        raise ValueError("train_biencoder needs a non-empty corpus")
+    check_mesh(mesh)
+    dev = resolve_device(device)
+
+    model, params = init_bi_encoder(cfg, out_dim=out_dim, seed=lcfg.seed, device=dev)
+    step_fn, params, opt_state = make_train_step(
+        model, make_optimizer(tcfg), tcfg, None, params, device=dev)
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=cfg.vocab_size,
+                                           max_len=cfg.max_len))
+    rng = np.random.default_rng(lcfg.seed)
+
+    # held-out eval pool: inverse-cloze pairs from the tail of the corpus
+    eval_rng = np.random.default_rng(lcfg.seed + 1)
+    pool = list(texts)[-max(lcfg.eval_pairs, 8):]
+    eval_pairs = [(cloze_query(doc, eval_rng), doc) for doc in pool[: lcfg.eval_pairs]]
+
+    history: List[Dict[str, float]] = []
+    t0 = time.perf_counter()
+    for step_i in range(1, lcfg.steps + 1):
+        batch = (pair_fn(rng) if pair_fn is not None else
+                 synthetic_pair_batch(tok, list(texts), lcfg.batch_size, rng,
+                                      max_len=cfg.max_len, device=dev))
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if step_i % lcfg.log_every == 0 or step_i == lcfg.steps:
+            entry = {
+                "step": step_i,
+                "loss": float(metrics["loss"]),
+                "accuracy": float(metrics["accuracy"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "elapsed_s": time.perf_counter() - t0,
+            }
+            if step_i % lcfg.eval_every == 0 or step_i == lcfg.steps:
+                entry["eval_recall_at_1"] = _eval_recall_at_1(
+                    model, params, tok, eval_pairs, cfg.max_len)
+            history.append(entry)
+        if lcfg.checkpoint_dir and step_i % lcfg.eval_every == 0:
+            save_biencoder(params, cfg, out_dim,
+                           Path(lcfg.checkpoint_dir) / f"step_{step_i}")
+    return model.eval(), params, history
+
+
+__all__ = ["TrainLoopConfig", "train_biencoder", "save_params", "load_params",
+           "save_biencoder", "load_biencoder", "encoder_meta", "CONFIG_FILE",
+           "WEIGHTS_FILE"]

@@ -104,7 +104,22 @@ Phases, each printing its elapsed seconds:
    a semantic_opq=True one restored from (c)'s checkpoint, each ticked
    (PQ + IVF-PQ behind the guardrail; OPQ codes only), searched at Q = 1
    and 32, appended to and re-packed, saved and restored into a fresh card
-   manager that must answer identically.
+   manager that must answer identically;
+10. training, at the shipped geometry (phase_training): (a) the contrastive
+   bi-encoder (train_biencoder, batch 128 of pre-tokenized pairs over
+   20,000 of phase 4's chunks, 40 steps; ms per step, pairs/s, peak
+   memory, loss), and two updates of one batch on the card against the
+   same on the CPU in f32 and bf16; (b) hard negatives mined for 1,024 of
+   the pairs through a bf16 manager over those chunks
+   (hybrid_search_batch_sync: K1 and K3, whose launches must be > 0 and
+   which are held against their plain versions on its tensors),
+   filter_false_negatives, base scores from rescore_candidates_sync; (c)
+   20 steps with the mined negatives; (d) the reranker (train_reranker,
+   warm-started from (a), residual, label smoothing, early stopping), its
+   dropout shown live and seeded; (e) distill_cross_encoder from (a)'s
+   model; (f) the trained encoders saved, reloaded and served by a fused
+   manager that must answer as one serving the in-memory models, and
+   (a)'s model unchanged by (d) and (e).
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -149,6 +164,7 @@ T0 = time.perf_counter()
 BUILD_DIR = Path(os.path.dirname(os.path.abspath(__file__))) / "build"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+L2_BYTES = 50 * 2**20          # H100 SXM L2
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # int8 tensor-core peak
@@ -2440,6 +2456,625 @@ def phase_pq_lifecycle(root, proj):
     return out
 
 
+#: phase 10 (training), at the shipped geometry: the chunks of phase 4's
+#: corpus the trainers read (pairs: each chunk and an inverse-cloze window of
+#: it, tokenized once at max_len 256), the steps of each trainer, and the
+#: mining of hard negatives for MINE_QUERIES of those pairs
+TRAIN_CHUNKS = 20_000
+TRAIN_BATCH = 128
+TRAIN_STEPS = 40
+TRAIN_CONFIG = dict(learning_rate=5e-4, warmup_steps=50, total_steps=3000)
+PARITY_BATCH = 16
+MINE_QUERIES = 1024
+MINE_BATCH = 64
+MINE_K = 8
+HARD_NEGS = 3
+HARD_NEG_STEPS = 20
+RERANK_STEPS = 30
+DISTILL_STEPS = 10
+#: chunks of the fused managers that serve the trained encoders before the
+#: save and after the reload
+SERVE_CHUNKS = 8192
+#: card vs CPU over two updates of one batch (phase 10 (a)): the loss and
+#: the pre-clip gradient norm of each step within rtol; each tensor's
+#: gradient in the first step (lr 0, so both from one init) within
+#: grad_rtol of its own norm plus grad_atol of the whole gradient's (the
+#: attention key biases' true gradient is zero: the atol holds their
+#: rounding noise); after the second update, where Adam steps about
+#: lr * sign(g) per element, at most a fraction ``far`` of the elements more
+#: than lr / 2 from the CPU's, and the two total updates' cosine at least
+#: the given value.  bf16's: its own distance from f32 at this geometry and
+#: batch on the CPU is 3.0e-2 of a tensor's norm (1.7e-5 of the whole for a
+#: key bias) and 1.1e-3 of the elements past lr / 2
+PARITY_TOL = {"float32": dict(loss=1e-5, grad_norm=1e-4, grad_rtol=1e-4, grad_atol=1e-6,
+                              far=1e-5, cosine=0.999),
+              "bfloat16": dict(loss=2e-3, grad_norm=5e-3, grad_rtol=5e-2, grad_atol=1e-4,
+                               far=3e-3, cosine=0.98)}
+
+
+def memory_mark():
+    """Zero the peak counter; returns the bytes allocated now (what the
+    earlier phases still hold), which ``peak_gb_since`` takes off."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gb_since(base):
+    """GB of device memory at the peak since ``memory_mark``, beyond its
+    baseline: the trainer's own."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def step_times(history, batch):
+    """p50 ms per step (synchronized: each step's loss is read), first step
+    ms and pairs per second, from a history logged at every step."""
+    import numpy as np
+
+    ends = np.asarray([h["elapsed_s"] for h in history]) * 1e3
+    per = np.diff(np.concatenate([[0.0], ends]))
+    p50 = float(np.percentile(per[1:], 50))
+    return dict(steps=len(history), step_ms_p50=p50, first_step_ms=float(per[0]),
+                pairs_per_s=batch / p50 * 1e3, first_loss=history[0]["loss"],
+                last_loss=history[-1]["loss"])
+
+
+def contrastive_parity(cfg, batch, init, card):
+    """Two updates of one batch on the card and on the CPU from ``init``:
+    (loss, grad_norm) per step, each tensor's gradient in the first step
+    (after the clip) and the parameters after, per device."""
+    from advanced_rag_tpu_torch.models.encoder import SHIPPED_BIENCODER_OUT_DIM, BiEncoder
+    from advanced_rag_tpu_torch.train import TrainConfig, make_optimizer, make_train_step
+
+    out = {}
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    for name, dev in (("cuda", card), ("cpu", "cpu")):
+        model = BiEncoder(cfg, out_dim=SHIPPED_BIENCODER_OUT_DIM)
+        step, params, opt = make_train_step(model, make_optimizer(tcfg), tcfg, None, init,
+                                            device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t = time.perf_counter()
+        metrics = []
+        for i in range(2):
+            params, opt, m = step(params, opt, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+        out[name] = dict(metrics=metrics, lr=opt.schedule(1), seconds=time.perf_counter() - t,
+                         grads=grads,
+                         params={k: v.detach().cpu() for k, v in params.items()})
+    return out
+
+
+def parity_record(name, got, init):
+    import torch
+
+    tol = PARITY_TOL[name]
+    card, cpu = got["cuda"], got["cpu"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card["metrics"], cpu["metrics"]))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card["metrics"], cpu["metrics"]))
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cpu["grads"].values())))
+    grad_err, grad_fails = {}, []
+    for k, want in cpu["grads"].items():
+        err = float((card["grads"][k] - want).double().norm())
+        norm = float(want.double().norm())
+        grad_err[k] = err / max(norm, 1e-30)
+        if err > tol["grad_rtol"] * norm + tol["grad_atol"] * total:
+            grad_fails.append(k)
+    worst = max((k for k in grad_err if "key.bias" not in k), key=grad_err.get)
+    lr = card["lr"]
+    diff = torch.cat([(card["params"][k] - cpu["params"][k]).flatten() for k in init])
+    far = float((diff.abs() > lr / 2).sum()) / diff.numel()
+    upd_card = torch.cat([(card["params"][k] - init[k]).flatten() for k in init]).double()
+    upd_cpu = torch.cat([(cpu["params"][k] - init[k]).flatten() for k in init]).double()
+    cos = float(torch.nn.functional.cosine_similarity(upd_card, upd_cpu, dim=0))
+    rec = dict(loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel, lr_second_update=lr,
+               grad_rel_err_max=grad_err[worst], grad_rel_err_worst_tensor=worst,
+               grad_tensors=len(grad_err), grad_tensors_failed=grad_fails,
+               param_max_abs_diff=float(diff.abs().max()),
+               param_max_abs_diff_in_lr=float(diff.abs().max()) / lr,
+               param_far_fraction=far, update_cosine=cos, card_metrics=card["metrics"],
+               cpu_metrics=cpu["metrics"], card_s=card["seconds"], cpu_s=cpu["seconds"],
+               tolerances=tol)
+    log(f"training[parity {name}]: card vs CPU over 2 updates of batch {PARITY_BATCH}: "
+        f"loss rel err {loss_rel:.3g} (tol {tol['loss']}), grad_norm rel err {gn_rel:.3g} "
+        f"(tol {tol['grad_norm']}); first-step gradients of {len(grad_err)} tensors: worst "
+        f"rel err {grad_err[worst]:.3g} ({worst}; tol {tol['grad_rtol']} + "
+        f"{tol['grad_atol']} of the whole), {len(grad_fails)} outside; params max |diff| "
+        f"{rec['param_max_abs_diff_in_lr']:.3g} lr, {far:.3g} of the elements past lr/2 (tol "
+        f"{tol['far']}), update cosine {cos:.6f} (tol >= {tol['cosine']}); card "
+        f"{card['seconds']:.2f}s, CPU {cpu['seconds']:.2f}s")
+    if not (loss_rel <= tol["loss"] and gn_rel <= tol["grad_norm"] and not grad_fails
+            and far <= tol["far"] and cos >= tol["cosine"]):
+        raise AssertionError(f"training on the card disagrees with the CPU ({name}): "
+                             f"{ {k: v for k, v in rec.items() if 'metrics' not in k} }")
+    return rec
+
+
+def timed_steps(step, params, opt, batch, *extra, n=12):
+    """p50 ms of the last n - 2 of n steps of ``step`` on one batch, each
+    synchronized (the loss is read), and one more step under torch.profiler:
+    its wall ms, device busy ms (the sum of its kernels' times; one stream)
+    and the idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch, *extra)
+        float(m["loss"])
+        times.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch, *extra)
+        float(m["loss"])
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if busy == 0.0:
+        raise AssertionError("the profiler recorded no device kernels")
+    return dict(step_ms_p50=float(np.percentile(times[2:], 50)), profiled_wall_ms=wall,
+                device_ms=busy, idle_share=max(0.0, 1.0 - busy / wall))
+
+
+def rotating(call, operands):
+    """``call(operands)`` over enough copies of ``operands`` (a tensor or a
+    tuple of tensors), one copy after another, that the bytes read between
+    two reads of one copy are at least twice the card's L2: every timed call
+    then reads its operands from device memory, as the bound assumes."""
+    import itertools
+
+    import torch
+
+    group = operands if isinstance(operands, tuple) else (operands,)
+    size = sum(o.values().nbytes + o.col_indices().nbytes + o.crow_indices().nbytes
+               if o.layout == torch.sparse_csr else o.nbytes for o in group)
+    copies = 1 + -(-2 * L2_BYTES // size)
+    sets = [operands] + [tuple(o.clone() for o in group) if isinstance(operands, tuple)
+                         else operands.clone() for _ in range(copies - 1)]
+    it = itertools.cycle(sets)
+    return lambda: call(next(it))
+
+
+def mining_kernel_cases(mgr, queries):
+    """K1 and K3 against their plain versions on the tensors that phase
+    10's mining searches: its bf16 rows, its BM25 slots and row mask, and
+    a batch of MINE_BATCH real training queries; the bounds as phase 3
+    counts them.  These operands would fit in the L2 (K1's rows take 25
+    MB), so every timing here rotates through copies of them (``rotating``)."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops import dense_kernels as dk
+    from advanced_rag_tpu_torch.ops import sparse_kernels as sk
+    from advanced_rag_tpu_torch.ops.dense import mask_additive
+    from advanced_rag_tpu_torch.ops.sparse import live_avg_len, query_weights
+
+    dev = mgr.device
+    sem, sp = mgr.semantic, mgr.sparse
+    valid = mgr._row_mask(None)
+    m = mask_additive(valid, sem.capacity, dev)
+    rows = sem.emb
+    n, d = rows.shape
+    nq = len(queries)
+    q = mgr.embedder.encode_device(queries).float().contiguous()
+    err, rel, swaps = compare(dk.dense_scores(q, rows, m), dk.dense_scores_plain(q, rows, m),
+                              1e-5)
+    qb = q.to(torch.bfloat16)
+    b_ms, b_by = bound(n * d * 2 + nq * d * 4 + n * 4 + nq * n * 4, 3 * 2.0 * nq * n * d,
+                       BF16_OPS_PER_S)
+    kernel = rotating(lambda r: dk.dense_scores(q, r, m), rows)
+    plain = rotating(lambda r: dk.dense_scores_plain(q, r, m), rows)
+    lib = rotating(lambda r: torch.matmul(qb, r.T), rows)
+    k1 = dict(shape=f"bf16 rows N={n} D={d} Q={nq} (phase 10, mining)", main=False,
+              max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=graph_ms(kernel),
+              call_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=3),
+              library_ms=graph_ms(lib), library_call_ms=cuda_ms(lib),
+              library="torch.matmul bf16 [Q, D] x [D, N]", bound_ms=b_ms, bound_by=b_by)
+    log_case("K1", k1)
+    del kernel, plain, lib
+    q_idx, q_tf = sp.encode_query(queries)
+    q_idx = torch.from_numpy(q_idx).to(dev).to(torch.int32).contiguous()
+    n_docs = torch.tensor(float(max(sp.n_docs, 1)), device=dev)
+    q_w = query_weights(q_idx, torch.from_numpy(q_tf).to(dev), sp.df, n_docs, "bm25")
+    q_w = q_w.contiguous()
+    avg_len = float(live_avg_len(sp.doc_len, valid))
+    args = (q_idx, q_w, sp.idx_t, sp.tf_t, sp.doc_len, m, 1.2, 0.75, avg_len, "bm25")
+    err, rel, swaps = compare(sk.bm25_scores(*args), sk.bm25_scores_plain(*args), 1e-5)
+    p, t = sp.idx_t.shape[0], q_idx.shape[1]
+    live = int((sp.idx_t >= 0).sum())
+    b_ms, b_by = bound(p * n * 6 + n * 8 + nq * t * 8 + nq * n * 4, 2.0 * live * nq,
+                       F32_OPS_PER_S)
+    # the library's operands as phase 3 builds them: the [N, V] CSR matrix of
+    # each row's tfw and the dense [V, Q] table of the queries' weights
+    vocab = sp.vocab_size
+    tfw = sk.slot_weights(sp.idx_t, sp.tf_t, sp.doc_len, 1.2, 0.75, avg_len, "bm25").T
+    cols = sp.idx_t.T.long()
+    live_rc = cols >= 0
+    rows_rc = torch.arange(n, device=dev)[:, None].expand(n, p)[live_rc]
+    csr = torch.sparse_coo_tensor(torch.stack([rows_rc, cols[live_rc]]), tfw[live_rc],
+                                  (n, vocab), check_invariants=False).coalesce().to_sparse_csr()
+    ids, w = sk.bm25_query_table(q_idx, q_w)
+    wd = torch.zeros((vocab, nq), dtype=torch.float32, device=dev)
+    wd[ids.long()] = w
+    del tfw, cols, live_rc, rows_rc
+    kernel = rotating(lambda s: sk.bm25_scores(q_idx, q_w, s[0], s[1], *args[4:]),
+                      (sp.idx_t, sp.tf_t))
+    plain = rotating(lambda s: sk.bm25_scores_plain(q_idx, q_w, s[0], s[1], *args[4:]),
+                     (sp.idx_t, sp.tf_t))
+    lib = rotating(lambda c: torch.sparse.mm(c, wd), csr)
+    k3 = dict(shape=f"N={n} P={p} T={t} Q={nq} (phase 10, mining)", main=False,
+              max_abs_err=err, rel_err=rel, tie_swaps=swaps, ms=graph_ms(kernel),
+              call_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=2, warmup=1),
+              library_ms=graph_ms(lib), library_call_ms=cuda_ms(lib),
+              library="torch.sparse.mm [N, V] CSR x [V, Q]", bound_ms=b_ms, bound_by=b_by)
+    log_case("K3", k3)
+    del kernel, plain, lib, csr
+    torch.cuda.empty_cache()
+    return {"K1": [k1], "K3": [k3]}
+
+
+def zscore(v):
+    import numpy as np
+
+    v = np.asarray(v, np.float64)
+    sd = v.std()
+    return (v - v.mean()) / (sd if sd > 1e-9 else 1.0)
+
+
+def phase_training(texts, root, dev="cuda"):
+    """Phase 10: the port's trainers at the shipped geometry, on the card.
+
+    (a) train_biencoder (SHIPPED_BIENCODER, out_dim 384, TRAIN_CONFIG,
+    batch TRAIN_BATCH of pre-tokenized pairs over TRAIN_CHUNKS chunks,
+    TRAIN_STEPS steps) and, from one init and one batch, two updates on
+    the card against the same on the CPU in f32 and bf16 (PARITY_TOL);
+    (b) hard negatives mined for MINE_QUERIES of the pairs through a bf16
+    manager over the chunks with (a)'s model (hybrid_search_batch_sync,
+    K1 and K3), filtered by filter_false_negatives, HARD_NEGS each, and
+    their base scores from rescore_candidates_sync; (c) HARD_NEG_STEPS
+    contrastive steps with the mined negatives, from (a)'s weights;
+    (d) train_reranker (SHIPPED_RERANKER, warm-started from (a), residual,
+    label smoothing 0.05, early stopping), after a check that its dropout
+    is live and seeded; (e) distill_cross_encoder with (a)'s model as the
+    teacher; (f) (c)'s bi-encoder and (d)'s reranker saved, reloaded and
+    served by a fused manager, which must answer as one serving the
+    in-memory models; (a)'s model must be unchanged by (d) and (e).
+    Returns the record and the kernel cases held against their plain
+    versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
+    from advanced_rag_tpu_torch.models.embedder import NeuralEmbedder
+    from advanced_rag_tpu_torch.models.encoder import (
+        SHIPPED_BIENCODER, SHIPPED_BIENCODER_OUT_DIM, SHIPPED_RERANKER, BiEncoder,
+        CrossEncoder, init_bi_encoder, init_cross_encoder)
+    from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+    from advanced_rag_tpu_torch.train import (
+        DistillConfig, RerankTrainConfig, TrainConfig, TrainLoopConfig,
+        distill_cross_encoder, filter_false_negatives, load_biencoder, load_reranker,
+        make_optimizer, make_train_step, save_biencoder, save_reranker, train_biencoder,
+        train_reranker, warm_start_cross_encoder)
+    from advanced_rag_tpu_torch.train.contrastive import cloze_query
+    from advanced_rag_tpu_torch.train.rerank import make_rerank_batch, make_rerank_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    out_dim = SHIPPED_BIENCODER_OUT_DIM
+    bi_cfg, ce_cfg = SHIPPED_BIENCODER, SHIPPED_RERANKER
+    rec = {}
+    chunks = list(texts[:TRAIN_CHUNKS])
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=bi_cfg.vocab_size,
+                                           max_len=bi_cfg.max_len))
+    rng = np.random.default_rng(13)
+    t = time.perf_counter()
+    queries = [cloze_query(c, rng) for c in chunks]
+    arrays = dict(zip(("q_ids", "q_mask"), tok.encode_batch(queries, bi_cfg.max_len)))
+    arrays.update(zip(("d_ids", "d_mask"), tok.encode_batch(chunks, bi_cfg.max_len)))
+    pairs_dev = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    rec["tokenize_s"] = time.perf_counter() - t
+    log(f"training: {len(chunks)} pairs tokenized at max_len {bi_cfg.max_len} in "
+        f"{rec['tokenize_s']:.2f}s")
+
+    def pair_fn(r):
+        sel = torch.from_numpy(r.integers(0, len(chunks), TRAIN_BATCH)).to(dev)
+        return {k: v[sel] for k, v in pairs_dev.items()}
+
+    # (a) contrastive training
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    base = memory_mark()
+    bi_model, bi_params, hist = train_biencoder(
+        chunks, encoder_config=bi_cfg, out_dim=out_dim, train_config=tcfg,
+        loop_config=TrainLoopConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                                    eval_every=TRAIN_STEPS, eval_pairs=64, log_every=1),
+        pair_fn=pair_fn, device=dev)
+    a = step_times(hist, TRAIN_BATCH)
+    a.update(peak_gb=peak_gb_since(base),
+             eval_recall_at_1=hist[-1]["eval_recall_at_1"])
+    rec["contrastive"] = a
+    log(f"training[contrastive]: {TRAIN_STEPS} steps of {TRAIN_BATCH} pairs: p50 "
+        f"{a['step_ms_p50']:.2f} ms per step (first {a['first_step_ms']:.1f}), "
+        f"{a['pairs_per_s']:.0f} pairs/s, peak device memory {a['peak_gb']:.2f} GB (above "
+        f"what the earlier phases hold; so each trainer's peak below); loss "
+        f"{a['first_loss']:.4f} -> {a['last_loss']:.4f}, eval recall@1 "
+        f"{a['eval_recall_at_1']:.3f}")
+    if not (np.isfinite([h["loss"] for h in hist]).all() and a["last_loss"] < a["first_loss"]):
+        raise AssertionError(f"contrastive training did not lower the loss: {a}")
+
+    cmodel = BiEncoder(bi_cfg, out_dim=out_dim)
+    step, p, o = make_train_step(cmodel, make_optimizer(tcfg), tcfg, None, bi_params,
+                                 device=dev)
+    a.update({f"single_{k}": v for k, v in timed_steps(
+        step, p, o, pair_fn(np.random.default_rng(1))).items()})
+    log(f"training[contrastive]: one step of {TRAIN_BATCH} pairs p50 "
+        f"{a['single_step_ms_p50']:.2f} ms; profiled: wall {a['single_profiled_wall_ms']:.2f} "
+        f"ms, device busy {a['single_device_ms']:.2f} ms, idle share "
+        f"{a['single_idle_share']:.3f}")
+    del cmodel, step, p, o
+    sel = np.arange(PARITY_BATCH)
+    batch = {k: torch.from_numpy(v[sel]) for k, v in arrays.items()}
+    batch["n_ids"], batch["n_mask"] = batch["d_ids"].roll(1, 0), batch["d_mask"].roll(1, 0)
+    init = {k: v.cpu() for k, v in init_bi_encoder(bi_cfg, out_dim, seed=3,
+                                                   device="cpu")[1].items()}
+    rec["parity"] = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        got = contrastive_parity(dataclasses.replace(bi_cfg, dtype=dtype), batch, init, dev)
+        rec["parity"][name] = parity_record(name, got, init)
+
+    # (b) hard negatives mined through the port's manager (K1 and K3)
+    a_snapshot = {k: v.detach().cpu().clone() for k, v in bi_params.items()}
+    embedder = NeuralEmbedder(dim=out_dim, config=bi_cfg, state_dict=bi_params,
+                              tokenizer=tok, device=dev)
+    pcfg = PipelineConfig(semantic_dtype="bfloat16")
+    pcfg.semantic_dim = out_dim
+    mgr = MultiIndexManager(pcfg, embedder=embedder, device=dev)
+    t = time.perf_counter()
+    ingest_all(mgr, chunks)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t
+    mine_rows = np.sort(rng.choice(len(chunks), MINE_QUERIES, replace=False))
+    neg_rows = np.zeros((MINE_QUERIES, HARD_NEGS), np.int64)
+    based, filtered, topped = [], 0, 0
+    reset_counters()
+    t = time.perf_counter()
+    for lo in range(0, MINE_QUERIES, MINE_BATCH):
+        rows = mine_rows[lo:lo + MINE_BATCH]
+        batch_q = [queries[r] for r in rows]
+        out = mgr.hybrid_search_batch_sync(batch_q, MINE_K, use_mmr=False,
+                                           dense_weight=0.5, sparse_weight=0.5)
+        cand = np.full((len(rows), 1 + HARD_NEGS), -1, np.int32)
+        for b, (gold, hits) in enumerate(zip(rows, out)):
+            negs = []
+            for h in hits:
+                r = int(h["row"])
+                if h["chunk_id"] != f"c{r}":
+                    raise AssertionError("mining: a hit's row is not its chunk's")
+                if r == gold or r in negs:
+                    continue
+                if not filter_false_negatives(chunks[gold], [chunks[r]], 0.8):
+                    filtered += 1
+                    continue
+                negs.append(r)
+                if len(negs) == HARD_NEGS:
+                    break
+            while len(negs) < HARD_NEGS:
+                j = int(rng.integers(0, len(chunks)))
+                if j != gold and j not in negs:
+                    negs.append(j)
+                    topped += 1
+            cand[b] = [gold] + negs
+            neg_rows[lo + b] = negs
+        dense, bm25 = mgr.rescore_candidates_sync(batch_q, cand)
+        for b in range(len(rows)):
+            base = zscore(0.5 * zscore(dense[b]) + 0.5 * zscore(bm25[b]))
+            based.append((float(base[0]), [float(x) for x in base[1:]]))
+    torch.cuda.synchronize()
+    mine_s = time.perf_counter() - t
+    mining_launches = read_counters()
+    rec["mining"] = dict(ingest_s=ingest_s, mine_s=mine_s,
+                         queries_per_s=MINE_QUERIES / mine_s, filtered=filtered,
+                         topped_up=topped, launches=mining_launches)
+    log(f"training[mining]: {len(chunks)} chunks ingested in {ingest_s:.2f}s; "
+        f"{MINE_QUERIES} queries mined in {mine_s:.2f}s ({MINE_QUERIES / mine_s:.0f}/s), "
+        f"{filtered} near-duplicates filtered, {topped} negatives topped up at random; "
+        f"launches {mining_launches}")
+    if mining_launches["K1"] == 0 or mining_launches["K3"] == 0:
+        raise AssertionError(f"mining ran no K1 or K3: {mining_launches}")
+    cases = mining_kernel_cases(mgr, [queries[r] for r in mine_rows[:MINE_BATCH]])
+    mgr.close()
+    del mgr, embedder
+    torch.cuda.empty_cache()
+
+    # (c) contrastive steps with the mined hard negatives, from (a)'s weights
+    hard = BiEncoder(bi_cfg, out_dim=out_dim)
+    hcfg = TrainConfig(learning_rate=TRAIN_CONFIG["learning_rate"], warmup_steps=5,
+                       total_steps=TRAIN_CONFIG["total_steps"])
+    step, hard_params, opt = make_train_step(hard, make_optimizer(hcfg), hcfg, None,
+                                             bi_params, device=dev)
+    mine_t = torch.from_numpy(mine_rows).to(dev)
+    neg_t = torch.from_numpy(neg_rows).to(dev)
+    base = memory_mark()
+    hist, t0 = [], time.perf_counter()
+    for _ in range(HARD_NEG_STEPS):
+        sel = torch.from_numpy(rng.integers(0, MINE_QUERIES, TRAIN_BATCH)).to(dev)
+        rows, negs = mine_t[sel], neg_t[sel].reshape(-1)
+        b = {k: v[rows] for k, v in pairs_dev.items()}
+        b["n_ids"], b["n_mask"] = pairs_dev["d_ids"][negs], pairs_dev["d_mask"][negs]
+        hard_params, opt, m = step(hard_params, opt, b)
+        hist.append(dict(loss=float(m["loss"]), accuracy=float(m["accuracy"]),
+                         elapsed_s=time.perf_counter() - t0))
+    c = step_times(hist, TRAIN_BATCH)
+    c.update(peak_gb=peak_gb_since(base), negatives_per_pair=HARD_NEGS)
+    rec["hard_negatives"] = c
+    log(f"training[hard negatives]: {HARD_NEG_STEPS} steps of {TRAIN_BATCH} pairs + "
+        f"{TRAIN_BATCH * HARD_NEGS} mined negatives: p50 {c['step_ms_p50']:.2f} ms per step, "
+        f"{c['pairs_per_s']:.0f} pairs/s, peak {c['peak_gb']:.2f} GB; loss "
+        f"{c['first_loss']:.4f} -> {c['last_loss']:.4f}")
+    if not np.isfinite([h["loss"] for h in hist]).all():
+        raise AssertionError("non-finite loss in the hard-negative steps")
+
+    # (d) the reranker: dropout live and seeded, then train_reranker
+    pairs = [(queries[r], chunks[r]) for r in mine_rows]
+    negatives = [[chunks[j] for j in negs] for negs in neg_rows]
+    rcfg = RerankTrainConfig(steps=RERANK_STEPS, queries_per_batch=8,
+                             candidates_per_query=1 + HARD_NEGS, log_every=10, q_len=32,
+                             d_len=216, residual=True, label_smoothing=0.05,
+                             early_stop_patience=4)
+    rtcfg = TrainConfig(learning_rate=3e-4, warmup_steps=100, total_steps=RERANK_STEPS)
+    ce_init = warm_start_cross_encoder(init_cross_encoder(ce_cfg, seed=0, device=dev)[1],
+                                       bi_params)
+    drop_batch = make_rerank_batch(tok, pairs, negatives, rcfg, np.random.default_rng(5),
+                                   base_scores=based, device=dev)
+
+    def dropout_loss(seed):
+        step, eval_fn, p, o = make_rerank_step(CrossEncoder(ce_cfg), make_optimizer(rtcfg),
+                                               rtcfg, None, ce_init, rcfg, device=dev)
+        if seed is None:
+            return float(eval_fn(p, drop_batch)[0])
+        _, _, m = step(p, o, drop_batch, torch.Generator(device=dev).manual_seed(seed))
+        return float(m["loss"])
+
+    drop = dict(seed_7=dropout_loss(7), seed_7_again=dropout_loss(7),
+                seed_8=dropout_loss(8), eval=dropout_loss(None))
+    log(f"training[reranker]: dropout {ce_cfg.dropout}: train-step loss with generator "
+        f"seed 7 {drop['seed_7']:.6f}, again {drop['seed_7_again']:.6f}, seed 8 "
+        f"{drop['seed_8']:.6f}; eval (no dropout) {drop['eval']:.6f}")
+    if not (drop["seed_7"] == drop["seed_7_again"] and drop["seed_7"] != drop["seed_8"]
+            and drop["seed_7"] != drop["eval"]):
+        raise AssertionError(f"the reranker's dropout is not live and seeded: {drop}")
+    step, _, p, o = make_rerank_step(CrossEncoder(ce_cfg), make_optimizer(rtcfg), rtcfg,
+                                     None, ce_init, rcfg, device=dev)
+    rerank_step = timed_steps(step, p, o, drop_batch,
+                              torch.Generator(device=dev).manual_seed(9))
+    rerank_step_ms = rerank_step["step_ms_p50"]
+    del step, p, o
+    base = memory_mark()
+    t = time.perf_counter()
+    ce_model, ce_params, rhist = train_reranker(
+        pairs, negatives, encoder_config=ce_cfg, train_config=rtcfg, rerank_config=rcfg,
+        tokenizer=tok, warm_start_params=bi_params, base_scores=based, device=dev)
+    torch.cuda.synchronize()
+    pairs_per_step = rcfg.queries_per_batch * rcfg.candidates_per_query
+    d = dict(seconds=time.perf_counter() - t, history=rhist, dropout_losses=drop,
+             peak_gb=peak_gb_since(base),
+             ms_per_step=rhist[-1]["elapsed_s"] / rhist[-1]["step"] * 1e3,
+             pairs_per_s=pairs_per_step / rerank_step_ms * 1e3, **rerank_step)
+    rec["reranker"] = d
+    last = rhist[-1]
+    log(f"training[reranker]: one step of {pairs_per_step} pairs of 249 tokens p50 "
+        f"{rerank_step_ms:.2f} ms ({d['pairs_per_s']:.0f} pairs/s; profiled: wall "
+        f"{d['profiled_wall_ms']:.2f} ms, device busy {d['device_ms']:.2f} ms, idle share "
+        f"{d['idle_share']:.3f}); train_reranker: "
+        f"{last['step']} steps in {d['seconds']:.2f}s ({d['ms_per_step']:.1f} ms per step "
+        f"with the host's batches and the evals), peak "
+        f"{d['peak_gb']:.2f} GB; loss {rhist[0]['loss']:.4f} -> {last['loss']:.4f}, held-out "
+        f"eval loss {rhist[0]['eval_loss']:.4f} -> {last['eval_loss']:.4f}, accuracy "
+        f"{last['eval_accuracy']:.3f} (base-score floor {last['eval_base_accuracy']:.3f})"
+        + (f", early stop at the best step {last['best_step']}" if "best_step" in last
+           else ""))
+    if not np.isfinite([h["eval_loss"] for h in rhist]).all():
+        raise AssertionError("non-finite eval loss in the reranker's training")
+
+    # (e) distillation from (a)'s model
+    base = memory_mark()
+    dcfg = DistillConfig(steps=DISTILL_STEPS, log_every=5)
+    t = time.perf_counter()
+    _, distilled, dhist = distill_cross_encoder(
+        chunks, bi_model, None, encoder_config=ce_cfg,
+        train_config=TrainConfig(learning_rate=1e-4, warmup_steps=2,
+                                 total_steps=DISTILL_STEPS),
+        distill_config=dcfg, device=dev)
+    torch.cuda.synchronize()
+    e = dict(seconds=time.perf_counter() - t, history=dhist,
+             peak_gb=peak_gb_since(base),
+             ms_per_step=dhist[-1]["elapsed_s"] / DISTILL_STEPS * 1e3)
+    rec["distill"] = e
+    log(f"training[distill]: {DISTILL_STEPS} steps of {dcfg.queries_per_batch} x "
+        f"{dcfg.candidates_per_query} pairs in {e['seconds']:.2f}s ({e['ms_per_step']:.1f} ms "
+        f"per step with the host's batches and the teacher), peak {e['peak_gb']:.2f} GB; KL "
+        f"{dhist[0]['loss']:.4f} -> {dhist[-1]['loss']:.4f}, eval KL "
+        f"{dhist[0]['eval_loss']:.4f} -> {dhist[-1]['eval_loss']:.4f}")
+    if not np.isfinite([h["eval_loss"] for h in dhist]).all():
+        raise AssertionError("non-finite eval loss in the distillation")
+    from advanced_rag_tpu_torch.train.distill import (make_distill_batch, make_distill_step,
+                                                      make_teacher_fn)
+
+    dbatch, dq, dd = make_distill_batch(tok, chunks, dcfg, np.random.default_rng(3),
+                                        ce_cfg.max_len, device=dev)
+    teacher = make_teacher_fn(bi_model, None, tok, bi_cfg.max_len, dcfg.teacher_temperature)
+    dbatch["teacher"] = torch.from_numpy(teacher(dq, dd)).to(dev)
+    dtcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=DISTILL_STEPS)
+    step, _, p, o = make_distill_step(CrossEncoder(ce_cfg), make_optimizer(dtcfg), dtcfg,
+                                      None, distilled, dcfg, device=dev)
+    e.update(timed_steps(step, p, o, dbatch))
+    e["pairs_per_s"] = dcfg.queries_per_batch * dcfg.candidates_per_query \
+        / e["step_ms_p50"] * 1e3
+    log(f"training[distill]: one step of {dcfg.queries_per_batch * dcfg.candidates_per_query} "
+        f"pairs of {ce_cfg.max_len} tokens p50 {e['step_ms_p50']:.2f} ms "
+        f"({e['pairs_per_s']:.0f} pairs/s; profiled: wall {e['profiled_wall_ms']:.2f} ms, "
+        f"device busy {e['device_ms']:.2f} ms, idle share {e['idle_share']:.3f})")
+    del step, p, o
+    unchanged = all(torch.equal(v.detach().cpu(), a_snapshot[k]) for k, v in bi_params.items())
+    rec["warm_start_source_unchanged"] = unchanged
+    if not unchanged:
+        raise AssertionError("training the reranker or the student changed the bi-encoder")
+    del distilled
+
+    # (f) save, reload, serve
+    t = time.perf_counter()
+    save_biencoder(hard_params, bi_cfg, out_dim, root / "biencoder")
+    save_reranker(ce_params, ce_cfg, root / "reranker", q_len=rcfg.q_len, d_len=rcfg.d_len)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    l_cfg, l_dim, l_bi = load_biencoder(root / "biencoder", device=dev)
+    l_ce_cfg, l_ce, layout = load_reranker(root / "reranker", device=dev)
+    load_s = time.perf_counter() - t
+    if (l_cfg, l_dim, l_ce_cfg, layout) != (bi_cfg, out_dim, ce_cfg,
+                                            {"q_len": rcfg.q_len, "d_len": rcfg.d_len}):
+        raise AssertionError("the reloaded encoders' geometry differs from the saved")
+    serve_q = lifecycle_queries(np.random.default_rng(17), chunks[:SERVE_CHUNKS])
+    answers = []
+    reset_counters()
+    for state_bi, state_ce in ((hard_params, ce_params),
+                               (l_bi.state_dict(), l_ce.state_dict())):
+        cfg = PipelineConfig(fused_rerank=True, semantic_dtype="bfloat16")
+        cfg.semantic_dim = out_dim
+        emb = NeuralEmbedder(dim=out_dim, config=bi_cfg, state_dict=state_bi, tokenizer=tok,
+                             device=dev)
+        rr = CrossEncoderReranker(config=ce_cfg, state_dict=state_ce, tokenizer=tok,
+                                  device=dev, **layout)
+        serving = MultiIndexManager(cfg, embedder=emb, device=dev)
+        ingest_all(serving, chunks[:SERVE_CHUNKS])
+        answers.append(fused_answers(rr, serve_q)(serving))
+        serving.close()
+    torch.cuda.synchronize()
+    serve_launches = read_counters()
+    same = answers[0] == answers[1]
+    rec["reload"] = dict(save_s=save_s, load_s=load_s, queries=len(answers[0]),
+                         identical=same, launches=serve_launches,
+                         bytes={k: dir_bytes(root / k) for k in ("biencoder", "reranker")})
+    log(f"training[reload]: saved in {save_s:.2f}s ({rec['reload']['bytes']} bytes), "
+        f"loaded in {load_s:.2f}s; a fused manager over {SERVE_CHUNKS} chunks serving the "
+        f"reloaded encoders answers {len(answers[0])} queries with the same ids and scores "
+        f"as the in-memory ones: {same}; launches {serve_launches}")
+    if not same or any(len(h) != SERVE["k_final"] for h in answers[0]):
+        raise AssertionError("the reloaded encoders do not serve as the trained ones")
+    rec["launches"] = {k: mining_launches[k] + serve_launches[k] for k in KERNEL_KEYS}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"training: phase 10 took {rec['seconds']:.2f}s")
+    return rec, cases
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -2473,7 +3108,12 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     lifecycle["encoders"] = encoders
-    for key, cases in lifecycle_cases.items():
+    root = Path(tempfile.mkdtemp(prefix="train-", dir=BUILD_DIR))
+    try:
+        training, training_cases = phase_training(texts, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for key, cases in list(lifecycle_cases.items()) + list(training_cases.items()):
         kernel_results[key] += cases
     for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
         kernel_results["K5"] += rec.pop("real_probe_cases")
@@ -2487,7 +3127,7 @@ def main() -> None:
     pq_runs = lifecycle["pq"]
     round_trips.update({f"{k}-lifecycle-restore": v["round_trip"] for k, v in pq_runs.items()})
     for runs in (tiers_1m, manager_tiers, round_trips, {"lifecycle": lifecycle},
-                 service_runs, pq_runs):
+                 service_runs, pq_runs, {"training": training}):
         for rec in runs.values():
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
@@ -2527,7 +3167,8 @@ def main() -> None:
             raise AssertionError(f"{key} was never launched on the main paths")
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
                       "manager_tiers": manager_tiers, "service": service,
-                      "lifecycle": lifecycle, "nvidia_smi": smi}), flush=True)
+                      "lifecycle": lifecycle, "training": training,
+                      "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -4,9 +4,9 @@ kernels are built.
 - The port, chip_smoke.py and scripts/torch_quality_service.py (which run
   where there is no JAX) import no JAX, Flax, orbax or JAX package
   (checked in a fresh interpreter, over every module of the port).
-- Entry points (the models, the manager, the pipeline, the retriever and
-  the service) run on the CUDA card unless given ``device="cpu"``; with no
-  card they raise instead of moving to the CPU.
+- Entry points (the models, the manager, the pipeline, the retriever, the
+  service and the trainers) run on the CUDA card unless given
+  ``device="cpu"``; with no card they raise instead of moving to the CPU.
 - The kernels build with one nvcc call for sm_90a from sources that
   include no PyTorch header.
 """
@@ -28,9 +28,13 @@ from advanced_rag_tpu_torch.config import PipelineConfig
 from advanced_rag_tpu_torch.index.manager import MultiIndexManager
 from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
 from advanced_rag_tpu_torch.models.embedder import HashingEmbedder, NeuralEmbedder
-from advanced_rag_tpu_torch.models.encoder import EncoderConfig
+from advanced_rag_tpu_torch.models.encoder import BiEncoder, EncoderConfig
 from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline, HybridRetriever
 from advanced_rag_tpu_torch.service import create_app
+from advanced_rag_tpu_torch.train import (DistillConfig, RerankTrainConfig, TrainConfig,
+                                          TrainLoopConfig, distill_cross_encoder,
+                                          make_optimizer, make_train_step, train_biencoder,
+                                          train_reranker)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = EncoderConfig(vocab_size=256, hidden_dim=16, num_layers=1, num_heads=2,
@@ -107,6 +111,37 @@ def test_entry_points_raise_without_a_card(no_card):
         HybridRetriever(cpu_mgr, device="cuda")
     with pytest.raises(RuntimeError):
         create_app()
+    texts = ["a b c d e f", "g h i j k l"]
+    with pytest.raises(RuntimeError):
+        make_train_step(BiEncoder(SMALL, out_dim=8), make_optimizer(TrainConfig()),
+                        TrainConfig())
+    with pytest.raises(RuntimeError):
+        train_biencoder(texts, encoder_config=SMALL, out_dim=8)
+    with pytest.raises(RuntimeError):
+        train_reranker([("a", "b"), ("c", "d")], [[], []], encoder_config=SMALL,
+                       rerank_config=RerankTrainConfig(q_len=8, d_len=16))
+    with pytest.raises(RuntimeError):
+        distill_cross_encoder(texts, BiEncoder(SMALL, out_dim=8), None,
+                              encoder_config=SMALL)
+
+
+def test_trainers_run_on_cpu_when_asked(no_card):
+    texts = [f"text {i} about topic {i % 3} and more words" for i in range(8)]
+    bi, params, hist = train_biencoder(
+        texts, encoder_config=SMALL, out_dim=8, device="cpu",
+        loop_config=TrainLoopConfig(steps=2, batch_size=4, eval_pairs=4, log_every=1))
+    assert len(hist) == 2 and next(bi.parameters()).device.type == "cpu"
+    pairs = [(f"q {i}", t) for i, t in enumerate(texts)]
+    ce, _, hist = train_reranker(
+        pairs, [[t] for t in texts[::-1]], encoder_config=SMALL, device="cpu",
+        warm_start_params=params,
+        rerank_config=RerankTrainConfig(steps=1, queries_per_batch=2,
+                                        candidates_per_query=2, q_len=8, d_len=16))
+    assert len(hist) == 1 and next(ce.parameters()).device.type == "cpu"
+    _, _, hist = distill_cross_encoder(
+        texts, bi, params, encoder_config=SMALL, device="cpu",
+        distill_config=DistillConfig(steps=1, queries_per_batch=2, candidates_per_query=2))
+    assert len(hist) == 1
 
 
 def test_entry_points_run_on_cpu_when_asked(no_card, tmp_path, monkeypatch):

@@ -20,6 +20,8 @@ K5's grouped route sums bf16 slabs on the tensor cores over three bf16
 parts of the query (as K1), within the same 1e-5.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -808,3 +810,95 @@ def test_maintenance_and_the_domain_rung_on_the_card(cuda, tmp_path, monkeypatch
     assert dk.dense_scores.launches > before[0] and ik.ivf_scores.launches > before[1]
     assert _overlap(card.hybrid_search_batch_sync(queries, 10),
                     cpu.hybrid_search_batch_sync(queries, 10)) >= 0.8
+
+
+def _train_small(dev, dtype, steps=2):
+    """``steps`` contrastive steps (the first has lr 0) and as many rerank
+    steps (dropout off) at a small geometry on ``dev``, from one seeded
+    init and one batch -> (metrics of each step, each tensor's gradient in
+    the first step (after the clip), parameters after)."""
+    from advanced_rag_tpu_torch.models.encoder import (EncoderConfig, init_bi_encoder,
+                                                       init_cross_encoder)
+    from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+    from advanced_rag_tpu_torch.train import contrastive as tc
+    from advanced_rag_tpu_torch.train import rerank as tr
+
+    def grads(prefix, module):
+        return {f"{prefix}{k}": p.grad.detach().cpu().clone()
+                for k, p in module.named_parameters()}
+
+    cfg = EncoderConfig(vocab_size=2048, hidden_dim=64, num_layers=2, num_heads=4,
+                        mlp_dim=128, max_len=32, dtype=dtype, lexical_pool=True)
+    texts = [f"passage {i} on topic {i % 7} with words w{i} w{i + 3} and more text"
+             for i in range(40)]
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=2048, max_len=32))
+    train = tc.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    model, params = init_bi_encoder(cfg, out_dim=32, seed=0, device=dev)
+    step, params, opt = tc.make_train_step(model, tc.make_optimizer(train), train, None,
+                                           params, device=dev)
+    batch = tc.synthetic_pair_batch(tok, texts, 16, np.random.default_rng(0), device=dev)
+    batch["n_ids"], batch["n_mask"] = batch["d_ids"].flip(0), batch["d_mask"].flip(0)
+    metrics, first = [], {}
+    for i in range(steps):
+        params, opt, m = step(params, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first.update(grads("bi.", model))
+    out = {f"bi.{k}": v.cpu() for k, v in params.items()}
+    ce_cfg = dataclasses.replace(cfg, lexical_pool=False, lexical_match=True)
+    student, ce = init_cross_encoder(ce_cfg, seed=1, device=dev)
+    rcfg = tr.RerankTrainConfig(queries_per_batch=4, candidates_per_query=4, q_len=8,
+                                d_len=20, residual=True, label_smoothing=0.05)
+    rstep, reval, ce, ropt = tr.make_rerank_step(student, tc.make_optimizer(train), train,
+                                                 None, ce, rcfg, device=dev)
+    pairs = [(" ".join(t.split()[2:6]), t) for t in texts]
+    rbatch = tr.make_rerank_batch(tok, pairs, [texts[i + 1: i + 5] for i in range(40)],
+                                  rcfg, np.random.default_rng(1),
+                                  base_scores=[(1.0, [0.5, 0.2, 0.1, 0.0])] * 40, device=dev)
+    for i in range(steps):
+        ce, ropt, m = rstep(ce, ropt, rbatch, torch.Generator(device=dev).manual_seed(0))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first.update(grads("ce.", student))
+    out.update({f"ce.{k}": v.cpu() for k, v in ce.items()})
+    return metrics, first, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_steps_on_the_card_match_the_cpu(cuda, dtype):
+    """The card and the CPU from one init and one batch: losses, accuracies
+    and gradient norms to rtol 1e-4 in f32 (2e-2 in bf16, whose activations
+    round at other places on each device).  Each tensor's gradient in the
+    first step: |card - CPU| <= rtol |CPU| + atol |the tower's gradient|
+    (norms), rtol 1e-4 and atol 1e-6 in f32; in bf16 1e-1 and 5e-4, as
+    bf16's own distance from f32 at this geometry on the CPU is up to
+    7.6e-2 and 1.6e-4 (the atol holds the attention key biases and the
+    score bias, whose true gradient is zero).  Parameters after the
+    second update (the first with lr > 0), where Adam's step is about
+    lr * sign(g): at most a fraction 1e-5 of the elements more than lr / 2
+    from the CPU's in f32, 1e-2 in bf16 (bf16 against f32: 5.6e-3), and
+    the total updates' cosine >= 0.999 in f32 (0.99 in bf16)."""
+    got_m, got_g, got = _train_small(cuda, dtype)
+    want_m, want_g, want = _train_small(torch.device("cpu"), dtype)
+    f32 = dtype == torch.float32
+    for g, w in zip(got_m, want_m):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4 if f32 else 2e-2, atol=1e-6,
+                                       err_msg=k)
+    rtol, atol = (1e-4, 1e-6) if f32 else (1e-1, 5e-4)
+    lr = 1e-3
+    _, _, init = _train_small(torch.device("cpu"), dtype, steps=0)
+    for tower in ("bi.", "ce."):
+        keys = [k for k in want if k.startswith(tower)]
+        gkeys = [k for k in want_g if k.startswith(tower)]
+        total = float(torch.sqrt(sum((want_g[k].double() ** 2).sum() for k in gkeys)))
+        for k in gkeys:
+            err = float((got_g[k] - want_g[k]).double().norm())
+            assert err <= rtol * float(want_g[k].double().norm()) + atol * total, (k, err)
+        diff = torch.cat([(got[k] - want[k]).flatten() for k in keys])
+        far = int((diff.abs() > lr / 2).sum())
+        assert far <= (1e-5 if f32 else 1e-2) * diff.numel(), (tower, far, diff.numel())
+        upd = [torch.cat([(d[k] - init[k]).flatten() for k in keys]).double()
+               for d in (got, want)]
+        cos = float(torch.nn.functional.cosine_similarity(*upd, dim=0))
+        assert cos >= (0.999 if f32 else 0.99), (tower, cos)
