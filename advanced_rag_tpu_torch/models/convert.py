@@ -24,7 +24,7 @@ port never imports orbax.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +85,24 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(out, "pool", p["pool"])
         _dense(out, "score", p["score"])
     return out
+
+
+def flax_layout(name: str, shape: Tuple[int, ...], num_heads: Optional[int] = None
+                ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The Flax layout of the port's parameter ``name`` of torch ``shape``
+    -> (the Flax kernel's shape, the torch dim that holds each Flax axis):
+    the inverse of ``params_from_jax``'s mapping.  The attention
+    projections need ``num_heads``."""
+    if name.endswith((".attn.query.weight", ".attn.key.weight", ".attn.value.weight",
+                      ".attn.out.weight")):
+        if not num_heads:
+            raise ValueError(f"{name}: the attention layout needs num_heads")
+        if name.endswith(".attn.out.weight"):                # [heads, hd, H]
+            return (num_heads, shape[1] // num_heads, shape[0]), (1, 1, 0)
+        return (shape[1], num_heads, shape[0] // num_heads), (1, 0, 0)  # [H, heads, hd]
+    if name.endswith(".weight") and not name.endswith("embed.weight") and len(shape) == 2:
+        return (shape[1], shape[0]), (1, 0)                  # Dense [in, out]
+    return tuple(shape), tuple(range(len(shape)))            # embeddings, vectors
 
 
 def encoder_config_from_meta(meta: Mapping[str, Any], **overrides: Any):
@@ -171,5 +189,5 @@ def postings_from_numpy(post_rows: Any, post_tf: Any, post_tfw: Any,
             _tensor(post_tfw, device).to(torch.bfloat16))
 
 
-__all__ = ["params_from_jax", "encoder_config_from_meta", "hashing_from_numpy",
+__all__ = ["params_from_jax", "flax_layout", "encoder_config_from_meta", "hashing_from_numpy",
            "ivf_partitions_from_numpy", "pq_from_numpy", "postings_from_numpy"]

@@ -181,11 +181,12 @@ def build_ivfpq(
         codebooks = (codebooks if torch.is_tensor(codebooks)
                      else torch.from_numpy(np.array(codebooks, np.float32))).float().to(dev)
 
-    # assign and encode every row on the device, a block at a time; the
+    # assign and encode every row on the device, a block at a time (the
+    # sub-centroid scores of a block, [m, block, c] f32, held to 1 GiB); the
     # partitions and codes come back to the host for the packing
     assign = np.zeros((n,), np.int32)
     codes = np.zeros((n, m), np.int8)
-    block = 262144
+    block = max(1024, min(262144, (1 << 28) // (m * c)))
     for start in range(0, n, block):
         xb = torch.from_numpy(emb_host[start: start + block]).to(dev)
         a_b, c_b = _assign_encode_block(xb, cent_pad, codebooks, nlist, c_chunk=c_chunk)

@@ -12,16 +12,19 @@
 Every entry point trains on the CUDA card unless given ``device="cpu"``.
 The JAX functions return Flax params; the port returns the trained
 module's f32 state dict, which ``NeuralEmbedder(state_dict=...)`` and
-``CrossEncoderReranker(state_dict=...)`` take.  Training runs on one
-device: ``mesh`` must be None, and ``build_train_mesh`` /
-``param_partition_spec`` come with ``torch.distributed`` (ROADMAP.md,
-queue A item 9).  A checkpoint is a directory with ``config.json`` (the
+``CrossEncoderReranker(state_dict=...)`` take.  The steps run over a
+(data, model) mesh of ``torch.distributed`` ranks (``build_train_mesh``,
+``param_partition_spec``): the batch split over ``data``, the weights and
+their optimizer state held as slices over ``model`` between steps and
+gathered whole for each step; without a process group the mesh is one
+rank.  A checkpoint is a directory with ``config.json`` (the
 ``EncoderConfig`` fields and the model's own geometry) and ``weights.pt``
 (one f32 state dict, read with ``torch.load(..., weights_only=True)``);
 no orbax.
 """
 
-from .contrastive import TrainConfig, make_optimizer, make_train_step, synthetic_pair_batch
+from .contrastive import (TrainConfig, build_train_mesh, make_optimizer, make_train_step,
+                          param_partition_spec, synthetic_pair_batch)
 from .distill import DistillConfig, distill_cross_encoder
 from .loop import (TrainLoopConfig, load_biencoder, load_params, save_biencoder,
                    save_params, train_biencoder)
@@ -40,6 +43,8 @@ __all__ = [
     "warm_start_cross_encoder",
     "TrainConfig",
     "TrainLoopConfig",
+    "build_train_mesh",
+    "param_partition_spec",
     "distill_cross_encoder",
     "load_biencoder",
     "load_params",

@@ -23,8 +23,8 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..models.encoder import CrossEncoder, EncoderConfig, init_cross_encoder
 from ..models.tokenizer import HashingTokenizer, TokenizerConfig
-from .contrastive import (Optimizer, OptState, TrainConfig, assign_params, check_mesh,
-                          cloze_query, make_optimizer, to_device)
+from .contrastive import (Optimizer, OptState, TrainConfig, cloze_query, data_rows,
+                          make_optimizer, prepare, to_device)
 
 
 @dataclass
@@ -60,6 +60,10 @@ def make_distill_batch(
     d_rep = [d for row in docs for d in row]
     ids, mask, segs = tok.encode_pairs(q_rep, d_rep)
     return to_device({"ids": ids, "mask": mask, "segs": segs}, device), queries, docs
+
+
+#: the entries of a pair batch that are split over ``data``
+SPLIT_KEYS = ("ids", "mask", "segs")
 
 
 def make_teacher_fn(
@@ -98,19 +102,20 @@ def make_distill_step(
     cfg: DistillConfig,
     device: DeviceLike = None,
 ):
-    """The distillation step on ``device``.
+    """The distillation step on ``device`` over ``mesh`` (None:
+    ``build_train_mesh(config=tcfg)``).
 
     -> ``(step_fn, eval_fn, params, opt_state)``:
     ``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
-    and ``eval_fn(params, batch) -> (kl, agreement)``; ``batch``:
-    ids/mask/segs [B*M, L] + teacher [B, M] (already / teacher temperature).
+    and ``eval_fn(params, batch) -> (kl, agreement)`` on whole weights
+    (``opt_state.full_params()``); ``batch`` (global,
+    the same on every rank): ids/mask/segs [B*M, L] + teacher [B, M]
+    (already / teacher temperature).  The pairs are split over ``data``
+    and their scores gathered, so every rank computes the global loss.
     Both forwards are deterministic, as JAX's.
     """
-    check_mesh(mesh)
-    dev = resolve_device(device)
-    student.to(dev).train()
-    assign_params(student, params)
-    opt_state = optimizer.init(student.parameters())
+    mesh, opt_state, gather = prepare(student, optimizer, tcfg, mesh, params, device)
+    student.train()
     b, m = cfg.queries_per_batch, cfg.candidates_per_query
 
     def loss_fn(s, batch):
@@ -124,7 +129,10 @@ def make_distill_step(
 
     def step(p, opt: OptState, batch):
         opt.zero_grad()
-        loss, agree = loss_fn(student(batch["ids"], batch["mask"], batch["segs"]), batch)
+        opt.gather()
+        part = data_rows(batch, SPLIT_KEYS, mesh, tcfg.data_axis)
+        loss, agree = loss_fn(gather(student(part["ids"], part["mask"], part["segs"])),
+                              batch)
         loss.backward()
         opt.update()
         return p, opt, {"loss": loss.detach(), "teacher_agreement": agree}
@@ -157,12 +165,11 @@ def distill_cross_encoder(
     cfg = encoder_config or EncoderConfig()
     tcfg = train_config or TrainConfig(learning_rate=1e-4)
     dcfg = distill_config or DistillConfig()
-    check_mesh(mesh)
     dev = resolve_device(device)
 
     student, params = init_cross_encoder(cfg, seed=dcfg.seed, device=dev)
     step_fn, eval_fn, params, opt_state = make_distill_step(
-        student, make_optimizer(tcfg), tcfg, None, params, dcfg, device=dev)
+        student, make_optimizer(tcfg), tcfg, mesh, params, dcfg, device=dev)
     tok = HashingTokenizer(TokenizerConfig(vocab_size=cfg.vocab_size,
                                            max_len=cfg.max_len))
     teacher = make_teacher_fn(teacher_model, teacher_params, tok,
@@ -183,6 +190,7 @@ def distill_cross_encoder(
         batch["teacher"] = torch.from_numpy(teacher(queries, docs)).to(dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step_i % dcfg.log_every == 0 or step_i == dcfg.steps:
+            params = opt_state.full_params()
             ev_loss, ev_agree = eval_fn(params, ev_batch)
             history.append({
                 "step": step_i,
@@ -192,7 +200,7 @@ def distill_cross_encoder(
                 "eval_agreement": float(ev_agree),
                 "elapsed_s": time.perf_counter() - t0,
             })
-    return student.eval(), params, history
+    return student.eval(), opt_state.full_params(), history
 
 
 __all__ = [

@@ -36,8 +36,8 @@ from .. import DeviceLike, resolve_device
 from ..models.convert import encoder_config_from_meta
 from ..models.encoder import BiEncoder, EncoderConfig, init_bi_encoder
 from ..models.tokenizer import HashingTokenizer, TokenizerConfig
-from .contrastive import (TrainConfig, check_mesh, cloze_query, make_optimizer,
-                          make_train_step, synthetic_pair_batch)
+from .contrastive import (TrainConfig, cloze_query, make_optimizer, make_train_step,
+                          synthetic_pair_batch, train_mesh)
 
 CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "weights.pt"
@@ -137,19 +137,22 @@ def train_biencoder(
 ) -> Tuple[BiEncoder, Dict[str, torch.Tensor], List[Dict[str, float]]]:
     """-> (model, its state dict, history of {step, loss, accuracy,
     grad_norm, elapsed_s[, eval_recall_at_1]}), trained on ``device`` (the
-    card unless ``"cpu"``).  ``pair_fn(rng)`` gives a batch on the device
-    in place of the synthetic inverse-cloze pairs."""
+    card unless ``"cpu"``), over ``mesh`` (None: ``build_train_mesh``).
+    ``pair_fn(rng)`` gives a batch on the device in place of the synthetic
+    inverse-cloze pairs.  On a mesh of several ranks every rank runs the
+    loop from the same seeds, so it draws the same global batches, and
+    rank 0 writes the checkpoints."""
     cfg = encoder_config or EncoderConfig()
     tcfg = train_config or TrainConfig()
     lcfg = loop_config or TrainLoopConfig()
     if not texts:
         raise ValueError("train_biencoder needs a non-empty corpus")
-    check_mesh(mesh)
     dev = resolve_device(device)
+    mesh = train_mesh(mesh, tcfg)
 
     model, params = init_bi_encoder(cfg, out_dim=out_dim, seed=lcfg.seed, device=dev)
     step_fn, params, opt_state = make_train_step(
-        model, make_optimizer(tcfg), tcfg, None, params, device=dev)
+        model, make_optimizer(tcfg), tcfg, mesh, params, device=dev)
     tok = HashingTokenizer(TokenizerConfig(vocab_size=cfg.vocab_size,
                                            max_len=cfg.max_len))
     rng = np.random.default_rng(lcfg.seed)
@@ -176,12 +179,14 @@ def train_biencoder(
             }
             if step_i % lcfg.eval_every == 0 or step_i == lcfg.steps:
                 entry["eval_recall_at_1"] = _eval_recall_at_1(
-                    model, params, tok, eval_pairs, cfg.max_len)
+                    model, opt_state.full_params(), tok, eval_pairs, cfg.max_len)
             history.append(entry)
         if lcfg.checkpoint_dir and step_i % lcfg.eval_every == 0:
-            save_biencoder(params, cfg, out_dim,
-                           Path(lcfg.checkpoint_dir) / f"step_{step_i}")
-    return model.eval(), params, history
+            full = opt_state.full_params()
+            if mesh.rank == 0:
+                save_biencoder(full, cfg, out_dim,
+                               Path(lcfg.checkpoint_dir) / f"step_{step_i}")
+    return model.eval(), opt_state.full_params(), history
 
 
 __all__ = ["TrainLoopConfig", "train_biencoder", "save_params", "load_params",

@@ -30,8 +30,9 @@ from .. import DeviceLike, resolve_device
 from ..models.convert import encoder_config_from_meta
 from ..models.encoder import CrossEncoder, EncoderConfig, init_cross_encoder
 from ..models.tokenizer import HashingTokenizer, TokenizerConfig
-from .contrastive import (OptState, Optimizer, TrainConfig, assign_params, check_mesh,
-                          make_optimizer, to_device)
+from .contrastive import (OptState, Optimizer, TrainConfig, data_rows, make_optimizer,
+                          prepare, to_device)
+from .distill import SPLIT_KEYS
 from .loop import Params, encoder_meta, load_params, save_params
 
 
@@ -177,20 +178,22 @@ def make_rerank_step(
     cfg: RerankTrainConfig,
     device: DeviceLike = None,
 ):
-    """The listwise-CE step on ``device``.
+    """The listwise-CE step on ``device`` over ``mesh`` (None:
+    ``build_train_mesh(config=tcfg)``).
 
     -> ``(step_fn, eval_fn, params, opt_state)``:
     ``step_fn(params, opt_state, batch, generator) -> (params, opt_state,
     metrics)`` trains in train() mode, with attention dropout drawn from
     ``generator`` when ``student.config.dropout > 0``;
-    ``eval_fn(params, batch) -> (loss, accuracy)`` is deterministic.
-    ``batch``: ids/mask/segs [B*M, L], label [B], base [B, M].
+    ``eval_fn(params, batch) -> (loss, accuracy)`` is deterministic and
+    takes whole weights (``opt_state.full_params()``).
+    ``batch`` (global, the same on every rank): ids/mask/segs [B*M, L],
+    label [B], base [B, M]; the pairs are split over ``data`` and their
+    scores gathered, so every rank computes the global loss.  The dropout
+    masks are [1, 1, L, L], global as JAX's: every rank draws them from a
+    generator seeded alike, so they are the same on every rank.
     """
-    check_mesh(mesh)
-    dev = resolve_device(device)
-    student.to(dev)
-    assign_params(student, params)
-    opt_state = optimizer.init(student.parameters())
+    mesh, opt_state, gather = prepare(student, optimizer, tcfg, mesh, params, device)
     b, m = cfg.queries_per_batch, cfg.candidates_per_query
 
     def loss_fn(s, batch):
@@ -205,8 +208,10 @@ def make_rerank_step(
     def step(p, opt: OptState, batch, generator=None):
         student.train()
         opt.zero_grad()
-        loss, acc = loss_fn(student(batch["ids"], batch["mask"], batch["segs"],
-                                    generator=generator), batch)
+        opt.gather()
+        part = data_rows(batch, SPLIT_KEYS, mesh, tcfg.data_axis)
+        loss, acc = loss_fn(gather(student(part["ids"], part["mask"], part["segs"],
+                                           generator=generator)), batch)
         loss.backward()
         opt.update()
         return p, opt, {"loss": loss.detach(), "accuracy": acc}
@@ -256,14 +261,13 @@ def train_reranker(
         raise ValueError(
             f"pair length {rcfg.q_len}+{rcfg.d_len}+1 exceeds encoder "
             f"max_len {cfg.max_len}")
-    check_mesh(mesh)
     dev = resolve_device(device)
 
     student, params = init_cross_encoder(cfg, seed=rcfg.seed, device=dev)
     if warm_start_params is not None:
         params = warm_start_cross_encoder(params, warm_start_params)
     step_fn, eval_fn, params, opt_state = make_rerank_step(
-        student, make_optimizer(tcfg), tcfg, None, params, rcfg, device=dev)
+        student, make_optimizer(tcfg), tcfg, mesh, params, rcfg, device=dev)
     tok = tokenizer or HashingTokenizer(
         TokenizerConfig(vocab_size=cfg.vocab_size, max_len=cfg.max_len))
     rng = np.random.default_rng(rcfg.seed)
@@ -306,6 +310,7 @@ def train_reranker(
                                   base_scores=tr_base, device=dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch, drop_gen)
         if step_i % rcfg.log_every == 0 or step_i == rcfg.steps:
+            params = opt_state.full_params()
             evs = [eval_fn(params, eb) for eb in ev_batches]
             row = {
                 "step": step_i,
@@ -330,6 +335,7 @@ def train_reranker(
                     if stale >= rcfg.early_stop_patience:
                         history[-1]["early_stopped"] = 1.0
                         break
+    params = opt_state.full_params()
     if early and best_params is not None:
         history[-1]["best_step"] = best_step
         history[-1]["best_eval_loss"] = best_loss

@@ -120,6 +120,28 @@ Phases, each printing its elapsed seconds:
    model; (f) the trained encoders saved, reloaded and served by a fused
    manager that must answer as one serving the in-memory models, and
    (a)'s model unchanged by (d) and (e).
+11. the sharded paths (phase_sharded; run in the work block after phase 8,
+   on phase 9 (b)'s bf16 checkpoint of phase 4's manager and (a)'s saved
+   encoders in f32): (a) world size 1 under NCCL in this process: the
+   mesh, pod mesh and train mesh; the sharded dense top-k (bf16 K1, SQ8
+   K2), BM25 (K3), the fused hybrid on the scan, sq8 and pq (m 96, K6)
+   rungs and the retrieve + rerank program at Q = 1, 8, 32, each against
+   the port's unsharded function with the same knobs (ids exact where
+   scores are distinct, sets within ties; scores within 1e-5 of the
+   largest), their p50 ms, the merges' share, the projection's anchors,
+   and one contrastive step pair on the (1, 1) train mesh against
+   mesh=None; (b) SHARD_RANKS ranks on the card over Gloo (spawned), each
+   reading its quarter of the checkpoint's rows: the same calls, the pod
+   mesh (dcn 2) and tree_merge_topk, rank 0's answers against (a)'s; then
+   each rank's quarter of phase 6's 1M rows through build_sharded_ivf
+   (bf16, SQ8) and build_sharded_ivfpq (m 96 and SHARD_IVFPQ_M), searched
+   at full probe against the exact sharded K1 scan (recall@10 >= 0.95,
+   0.9; IVF-PQ's top 10 in depth 40 >= 0.9 at SHARD_IVFPQ_M), K5 and K6
+   launched on every rank; (c) two ranks training at the shipped geometry
+   in f32 on a (data 2, model 1) mesh and build_train_mesh(2)'s (data 1,
+   model 2): two contrastive updates of one batch of TRAIN_BATCH pairs,
+   one reranker and one distillation step, against one process on the
+   card (PARITY_TOL's f32 bounds).  A rank that fails makes the run fail.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -2550,7 +2572,9 @@ def contrastive_parity(cfg, batch, init, card):
     return out
 
 
-def parity_record(name, got, init):
+def parity_record(name, got, init, what="card vs CPU", names=("card", "cpu")):
+    """``got["cuda"]`` against ``got["cpu"]`` (the card against the CPU, or
+    ``what`` else) within PARITY_TOL[name]; the record names them ``names``."""
     import torch
 
     tol = PARITY_TOL[name]
@@ -2577,20 +2601,20 @@ def parity_record(name, got, init):
                grad_tensors=len(grad_err), grad_tensors_failed=grad_fails,
                param_max_abs_diff=float(diff.abs().max()),
                param_max_abs_diff_in_lr=float(diff.abs().max()) / lr,
-               param_far_fraction=far, update_cosine=cos, card_metrics=card["metrics"],
-               cpu_metrics=cpu["metrics"], card_s=card["seconds"], cpu_s=cpu["seconds"],
-               tolerances=tol)
-    log(f"training[parity {name}]: card vs CPU over 2 updates of batch {PARITY_BATCH}: "
+               param_far_fraction=far, update_cosine=cos, tolerances=tol,
+               **{f"{names[0]}_metrics": card["metrics"], f"{names[1]}_metrics": cpu["metrics"],
+                  f"{names[0]}_s": card["seconds"], f"{names[1]}_s": cpu["seconds"]})
+    log(f"training[parity {name}]: {what} over 2 updates of one batch: "
         f"loss rel err {loss_rel:.3g} (tol {tol['loss']}), grad_norm rel err {gn_rel:.3g} "
         f"(tol {tol['grad_norm']}); first-step gradients of {len(grad_err)} tensors: worst "
         f"rel err {grad_err[worst]:.3g} ({worst}; tol {tol['grad_rtol']} + "
         f"{tol['grad_atol']} of the whole), {len(grad_fails)} outside; params max |diff| "
         f"{rec['param_max_abs_diff_in_lr']:.3g} lr, {far:.3g} of the elements past lr/2 (tol "
-        f"{tol['far']}), update cosine {cos:.6f} (tol >= {tol['cosine']}); card "
-        f"{card['seconds']:.2f}s, CPU {cpu['seconds']:.2f}s")
+        f"{tol['far']}), update cosine {cos:.6f} (tol >= {tol['cosine']}); {names[0]} "
+        f"{card['seconds']:.2f}s, {names[1]} {cpu['seconds']:.2f}s")
     if not (loss_rel <= tol["loss"] and gn_rel <= tol["grad_norm"] and not grad_fails
             and far <= tol["far"] and cos >= tol["cosine"]):
-        raise AssertionError(f"training on the card disagrees with the CPU ({name}): "
+        raise AssertionError(f"training disagrees ({what}, {name}): "
                              f"{ {k: v for k, v in rec.items() if 'metrics' not in k} }")
     return rec
 
@@ -3075,6 +3099,888 @@ def phase_training(texts, root, dev="cuda"):
     return rec, cases
 
 
+#: phase 11 (the sharded paths, parallel/ and the training mesh): the ranks
+#: that share the card over Gloo in (b); the dense / sparse top-k; the
+#: hybrid's and the retrieve + rerank program's knobs; the queries of the
+#: 1M-row IVF checks; the parent's limit for a group of ranks to finish
+SHARD_RANKS = 4
+SHARD_K = 10
+SHARD_HYBRID = dict(k_cand=96, k_out=48)
+SHARD_E2E = dict(k_cand=96, k_out=48, k_rerank=48, k_final=10, use_mmr=True)
+SHARD_TIER_Q = 32
+#: the IVF-PQ subspaces held to the JAX test's bound (the exact top 10 in
+#: depth 40 at full probe, 0.9): one dim a subspace.  At the auto m (PQ_M =
+#: 96, 4-dim subspaces of 16 centroids) rank 0's own index, searched alone,
+#: must not fall more than SHARD_IVFPQ_WITNESS below the recall of the
+#: unsharded build_ivfpq (its default knobs) over the same rows, each
+#: against the rank's exact top 10: the sharded build adds no loss of its
+#: own
+SHARD_IVFPQ_M = 384
+SHARD_IVFPQ_WITNESS = 0.05
+SHARD_JOIN_S = 420
+#: phase 11 (c): the reranker's and the distillation's batch geometry
+SHARD_RERANK = dict(queries_per_batch=16, candidates_per_query=8, q_len=32, d_len=216)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_group(backend, rank, world, port):
+    """The default process group on 127.0.0.1 with a 60 s timeout, so that a
+    collective that waits forever fails instead."""
+    import torch
+
+    from advanced_rag_tpu_torch.parallel.mesh import init_world
+
+    torch.cuda.set_device(0)
+    init_world(backend, f"tcp://127.0.0.1:{port}", rank, world, 60)
+
+
+def shard_rows(ckpt, tokens_path, lo, hi, pq_cb):
+    """Rows [lo, hi) of phase 9 (b)'s bf16 checkpoint on the card, read from
+    its files alone: the bf16 rows, their SQ8 codes and scales (quantized
+    from the f32 mirror, as a restore does), their PQ codes by ``pq_cb``,
+    the [P, rows] slot mirror (bf16 tf), lengths, the valid column and the
+    token table's rows."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.ops.pq import pq_encode_device
+    from advanced_rag_tpu_torch.ops.quant import sq8_quantize
+
+    dev = torch.device("cuda")
+    put = lambda a: torch.from_numpy(np.array(a, order="C")).to(dev)  # noqa: E731
+    mirror = put(np.load(ckpt / "dense_semantic.npy", mmap_mode="r")[lo:hi])
+    sp = np.load(ckpt / "sparse.npz")
+    c = dict(emb=mirror.to(torch.bfloat16),
+             valid=put(np.load(ckpt / "columns.npz")["valid"][lo:hi].astype(bool)),
+             idx_t=put(sp["doc_idx"][lo:hi].T).to(torch.int32),
+             tf_t=put(sp["doc_tf"][lo:hi].T).to(torch.bfloat16),
+             doc_len=put(sp["doc_len"][lo:hi]).float(),
+             tokens=put(np.load(tokens_path, mmap_mode="r")[lo:hi]))
+    c["codes"], c["scale"] = sq8_quantize(mirror)
+    c["pq"] = pq_encode_device(c["emb"], pq_cb.to(dev))
+    return c
+
+
+def f32_encoders(work):
+    """Phase 9 (a)'s saved bi-encoder and cross-encoder, in f32 activations."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+    from advanced_rag_tpu_torch.train import load_biencoder, load_reranker
+
+    cfg, out_dim, bi = load_biencoder(work / "biencoder", device="cuda")
+    ce_cfg, ce, _ = load_reranker(work / "reranker", device="cuda")
+    bi32 = BiEncoder(dataclasses.replace(cfg, dtype=torch.float32), out_dim=out_dim)
+    ce32 = CrossEncoder(dataclasses.replace(ce_cfg, dtype=torch.float32))
+    bi32.load_state_dict(bi.state_dict())
+    ce32.load_state_dict(ce.state_dict())
+    return bi32.to("cuda").eval(), ce32.to("cuda").eval()
+
+
+def sharded_programs(mesh, c, inp, bi, ce):
+    """name -> fn(nq) for phase 11's calls on this rank's shard ``c``: the
+    sharded dense top-k (bf16 K1, SQ8 K2), BM25 (K3), the fused hybrid on
+    the scan, sq8 and pq (K6) rungs and the retrieve + rerank program, on
+    the queries of ``inp`` at Q = nq (whole on every rank)."""
+    import torch
+
+    from advanced_rag_tpu_torch.parallel import (make_sharded_retrieve_rerank,
+                                                 sharded_dense_topk, sharded_hybrid_retrieve,
+                                                 sharded_sparse_topk)
+
+    dev = torch.device("cuda")
+    df, n_docs = inp["df"].to(dev), torch.tensor(inp["n_docs"], device=dev)
+    w, lam = torch.tensor([0.7, 0.3], device=dev), torch.tensor(0.8, device=dev)
+    qs = {}
+    for nq, (q_ids, q_mask, q_idx, q_tf) in inp["queries"].items():
+        q = dict(ids=q_ids.to(dev), mask=q_mask.to(dev), idx=q_idx.to(dev), tf=q_tf.to(dev))
+        with torch.inference_mode():
+            q["dense"] = bi(q["ids"], q["mask"])
+        qs[nq] = q
+    sparse = (c["idx_t"], c["tf_t"], c["doc_len"], df, n_docs)
+    e2e = make_sharded_retrieve_rerank(bi, ce, mesh=mesh, pad_id=inp["pad_id"],
+                                       sep_id=inp["sep_id"], **SHARD_E2E)
+
+    def hybrid(rows, nq, **kw):
+        q = qs[nq]
+        return sharded_hybrid_retrieve(rows, *sparse, q["dense"], q["idx"], q["tf"],
+                                       c["valid"], w, lam, mesh=mesh, **SHARD_HYBRID, **kw)
+
+    return {
+        "dense-bf16": lambda nq: sharded_dense_topk(c["emb"], qs[nq]["dense"], SHARD_K,
+                                                    c["valid"], mesh=mesh),
+        "dense-sq8": lambda nq: sharded_dense_topk(c["codes"], qs[nq]["dense"], SHARD_K,
+                                                   c["valid"], c["scale"], mesh=mesh),
+        "sparse": lambda nq: sharded_sparse_topk(*sparse, qs[nq]["idx"], qs[nq]["tf"],
+                                                 SHARD_K, c["valid"], mesh=mesh),
+        "hybrid-scan": lambda nq: hybrid(c["emb"], nq),
+        "hybrid-sq8": lambda nq: hybrid(c["codes"], nq, emb_scale=c["scale"],
+                                        dense_impl="sq8"),
+        "hybrid-pq": lambda nq: hybrid(c["pq"], nq, pq_codebooks=inp["pq_cb"].to(dev),
+                                       dense_impl="pq", pq_m=PQ_M, pq_bits=4),
+        "e2e": lambda nq: e2e(qs[nq]["ids"], qs[nq]["mask"], qs[nq]["idx"], qs[nq]["tf"],
+                              c["tokens"], c["emb"], *sparse, c["valid"], w, lam),
+    }, qs
+
+
+def as_topk(name, out):
+    """(scores, ids) of a program's answer, the lists its checks compare."""
+    if name == "e2e":
+        return [(out.ce_scores, out.ids), (out.cand_scores, out.cand_ids)]
+    if name.startswith("hybrid"):
+        return [(out[1], out[0])]
+    return [(out[0], out[1])]
+
+
+def same_topk(name, got, want, tol=1e-5):
+    """Scores within ``tol`` of the largest live score; ids equal where the
+    scores are distinct, the same sets where they tie (the last tie group,
+    cut by k, only in size).  Returns (max |err|, ids differing at ties)."""
+    import numpy as np
+
+    from advanced_rag_tpu_torch.ops.dense import NEG_INF
+
+    max_err, swaps = 0.0, 0
+    for (gs, gi), (ws, wi) in zip(got, want):
+        gs, gi, ws, wi = (np.asarray(x.float().cpu() if x.is_floating_point() else x.cpu())
+                          for x in (gs, gi, ws, wi))
+        live = np.isfinite(ws) & (ws > NEG_INF / 2)
+        scale = max(float(np.abs(ws[live]).max()), 1e-30) if live.any() else 1.0
+        if not np.array_equal(live, np.isfinite(gs) & (gs > NEG_INF / 2)):
+            raise AssertionError(f"{name}: live entries differ")
+        err = float(np.abs(gs[live] - ws[live]).max()) if live.any() else 0.0
+        max_err = max(max_err, err)
+        if err > tol * scale:
+            raise AssertionError(f"{name}: scores differ by {err} (> {tol} of {scale})")
+        for r in range(ws.shape[0]):
+            lo = 0
+            while lo < ws.shape[1]:
+                hi = lo + 1
+                while hi < ws.shape[1] and abs(ws[r, hi] - ws[r, lo]) <= tol * scale:
+                    hi += 1
+                a, b = set(gi[r, lo:hi].tolist()), set(wi[r, lo:hi].tolist())
+                if hi < ws.shape[1] and a != b:
+                    raise AssertionError(f"{name}: row {r} ids differ at {lo}:{hi}")
+                swaps += int(not np.array_equal(gi[r, lo:hi], wi[r, lo:hi]))
+                lo = hi
+    return max_err, swaps
+
+
+def timed_programs(programs, reps=REPEATS):
+    """p50 / p99 ms of each program at Q = 1, 8, 32 (host clock around calls
+    that end in a synchronize; 2 warm-up calls)."""
+    return {name: time_calls(lambda nq, r: fn(nq), BATCHES, reps)
+            for name, fn in programs.items()}
+
+
+def merge_ms(mesh, nq, k, dev, reps=3 * REPEATS):
+    """p50 ms of one gather merge of [nq, k] (score, id) pairs over the
+    shard axis, and of the all_reduce of an [nq, 96, 384] f32 MMR pool
+    (more repeats than a call's: each is short, and Gloo's loopback
+    latency spreads)."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.parallel import gather_merge_topk
+    from advanced_rag_tpu_torch.parallel.comm import all_reduce_sum
+
+    s = torch.randn(nq, k, device=dev)
+    i = torch.arange(nq * k, dtype=torch.int32, device=dev).reshape(nq, k)
+    pool = torch.zeros(nq, SHARD_HYBRID["k_cand"], 384, device=dev)
+    out = {}
+    for name, fn in (("merge", lambda: gather_merge_topk(s, i, min(k, 10), mesh=mesh)),
+                     ("pool", lambda: all_reduce_sum(pool, mesh, "shard"))):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = float(np.percentile(times[2:], 50))
+    return out
+
+
+def merge_shares(mesh, times, dev):
+    """The merges' p50 ms at Q = 1, 8, 32 and their share of the sharded
+    dense call (one merge of k) and of the hybrid scan (two merges of
+    k_cand and the MMR pool's all_reduce)."""
+    out = {}
+    for nq in BATCHES:
+        k = merge_ms(mesh, nq, SHARD_K, dev)["merge"]
+        deep = merge_ms(mesh, nq, SHARD_HYBRID["k_cand"], dev)
+        hyb = 2 * deep["merge"] + deep["pool"]
+        out[nq] = dict(merge_k_ms=k, merge_kcand_ms=deep["merge"], pool_ms=deep["pool"],
+                       dense_share=k / times["dense-bf16"][nq]["p50_ms"],
+                       hybrid_share=hyb / times["hybrid-scan"][nq]["p50_ms"])
+    return out
+
+
+def run_sharded(mesh, c, inp, bi, ce):
+    """Every program of ``sharded_programs`` at Q = 1, 8, 32 -> answers."""
+    import torch
+
+    programs, _ = sharded_programs(mesh, c, inp, bi, ce)
+    out = {}
+    with torch.inference_mode():
+        for name, fn in programs.items():
+            for nq in BATCHES:
+                out[(name, nq)] = as_topk(name, fn(nq))
+    torch.cuda.synchronize()
+    return out, programs
+
+
+def unsharded_answers(c, inp, bi, ce):
+    """The port's unsharded functions with the same knobs on the same rows."""
+    import torch
+
+    from advanced_rag_tpu_torch.ops.dense_kernels import (dense_topk_kernel,
+                                                          dense_topk_sq8_kernel)
+    from advanced_rag_tpu_torch.ops.e2e import make_retrieve_rerank
+    from advanced_rag_tpu_torch.ops.hybrid import hybrid_retrieve
+    from advanced_rag_tpu_torch.ops.sparse_kernels import sparse_topk_kernel
+
+    dev = torch.device("cuda")
+    df, n_docs = inp["df"].to(dev), torch.tensor(inp["n_docs"], device=dev)
+    w, lam = torch.tensor([0.7, 0.3], device=dev), torch.tensor(0.8, device=dev)
+    sparse = (c["idx_t"], c["tf_t"], c["doc_len"], df, n_docs)
+    e2e = make_retrieve_rerank(bi, ce, pad_id=inp["pad_id"], sep_id=inp["sep_id"],
+                               **SHARD_E2E)
+    out = {}
+    with torch.inference_mode():
+        for nq, (q_ids, q_mask, q_idx, q_tf) in inp["queries"].items():
+            q_ids, q_mask, q_idx, q_tf = (x.to(dev) for x in (q_ids, q_mask, q_idx, q_tf))
+            q = bi(q_ids, q_mask)
+            hy = lambda rows, **kw: hybrid_retrieve(  # noqa: E731
+                rows, *sparse, q, q_idx, q_tf, c["valid"], w, lam, **SHARD_HYBRID, **kw)
+            out[("dense-bf16", nq)] = dense_topk_kernel(c["emb"], q, SHARD_K, c["valid"],
+                                                        normalize_queries=False)
+            out[("dense-sq8", nq)] = dense_topk_sq8_kernel(c["codes"], c["scale"], q, SHARD_K,
+                                                           c["valid"], normalize_queries=False)
+            out[("sparse", nq)] = sparse_topk_kernel(*sparse, q_idx, q_tf, SHARD_K, c["valid"])
+            out[("hybrid-scan", nq)] = hy(c["emb"])
+            out[("hybrid-sq8", nq)] = hy(c["codes"], emb_scale=c["scale"], dense_impl="sq8")
+            out[("hybrid-pq", nq)] = hy(c["pq"], pq_codebooks=inp["pq_cb"].to(dev),
+                                        dense_impl="pq", pq_m=PQ_M, pq_bits=4)
+            out[("e2e", nq)] = e2e(q_ids, q_mask, q_idx, q_tf, c["tokens"], c["emb"], None,
+                                   None, *sparse, c["valid"], w, lam)
+    return {key: as_topk(key[0], v) for key, v in out.items()}
+
+
+def check_answers(got, want, who):
+    """Every program's answer at every Q against ``want``; -> max |err|, swaps."""
+    rec = {}
+    for key, w in want.items():
+        err, swaps = same_topk(f"{who} {key[0]} Q={key[1]}", got[key], w)
+        rec[f"{key[0]}/{key[1]}"] = dict(max_abs_err=err, tie_swaps=swaps)
+    return rec
+
+
+def to_cpu(answers):
+    return {k: [(s.cpu(), i.cpu()) for s, i in v] for k, v in answers.items()}
+
+
+def pair_arrays(texts, n, seed, max_len):
+    """n inverse-cloze pairs of ``texts`` tokenized at the shipped geometry."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+    from advanced_rag_tpu_torch.models.encoder import SHIPPED_BIENCODER
+    from advanced_rag_tpu_torch.train.contrastive import cloze_query
+
+    rng = np.random.default_rng(seed)
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=SHIPPED_BIENCODER.vocab_size,
+                                           max_len=max_len))
+    docs = [texts[i] for i in rng.integers(0, len(texts), n)]
+    out = dict(zip(("q_ids", "q_mask"), tok.encode_batch([cloze_query(d, rng) for d in docs],
+                                                         max_len)))
+    out.update(zip(("d_ids", "d_mask"), tok.encode_batch(docs, max_len)))
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def phase_sharded_world1(texts, work, embedder):
+    """Phase 11 (a): world size 1 under NCCL in this process."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.encoder import (SHIPPED_BIENCODER,
+                                                       SHIPPED_BIENCODER_OUT_DIM, BiEncoder,
+                                                       init_bi_encoder)
+    from advanced_rag_tpu_torch.ops.pq import pq_train
+    from advanced_rag_tpu_torch.parallel import build_mesh, build_pod_mesh, pod_dense_topk
+    from advanced_rag_tpu_torch.train import (TrainConfig, build_train_mesh, make_optimizer,
+                                              make_train_step)
+    from advanced_rag_tpu_torch.utils.checkpoint import load_index
+
+    dev = torch.device("cuda")
+    rec = {}
+    ckpt = work / "index-bfloat16"
+    shard_dir = work / "sharded"
+    shard_dir.mkdir(exist_ok=True)
+    # phase 4's bf16 manager, restored: its tensors are what the ranks read
+    # from the checkpoint's files
+    t = time.perf_counter()
+    cfg = PipelineConfig(fused_rerank=True, semantic_dtype="bfloat16")
+    cfg.semantic_dim = SHIPPED_BIENCODER_OUT_DIM
+    mgr = MultiIndexManager(cfg, embedder=embedder, device=dev)
+    load_index(mgr, ckpt)
+    n = mgr.store.size
+    np.save(shard_dir / "tokens.npy", mgr.token_table._host[:n])
+    rng = np.random.default_rng(53)
+    inp = dict(n=n, n_docs=float(max(mgr.sparse.n_docs, 1)), df=mgr.sparse.df.cpu(),
+               pad_id=mgr.token_table.tokenizer.config.pad_id,
+               sep_id=mgr.token_table.tokenizer.config.sep_id, queries={})
+    for nq in BATCHES:
+        qt = snippet_queries(rng, texts, nq)
+        q_ids, q_mask = embedder.tokenizer.encode_batch(qt, SERVE["q_max_len"])
+        q_idx, q_tf = mgr.sparse.encode_query(qt)
+        inp["queries"][nq] = tuple(torch.from_numpy(np.asarray(a))
+                                   for a in (q_ids, q_mask, q_idx, q_tf))
+    mirror = np.load(ckpt / "dense_semantic.npy", mmap_mode="r")
+    inp["pq_cb"] = pq_train(np.asarray(mirror), m=PQ_M, bits=4, device=dev).codebooks.cpu()
+    c = shard_rows(ckpt, shard_dir / "tokens.npy", 0, n, inp["pq_cb"])
+    sp = mgr.sparse
+    same = dict(emb=torch.equal(c["emb"], mgr.semantic.emb[:n]),
+                idx_t=torch.equal(c["idx_t"], sp.idx_t[:, :n]),
+                tf_t=torch.equal(c["tf_t"], sp.tf_t[:, :n]),
+                doc_len=torch.equal(c["doc_len"], sp.doc_len[:n]),
+                valid=torch.equal(c["valid"], mgr._row_mask(None)[:n]),
+                tokens=torch.equal(c["tokens"], mgr.token_table.tokens[:n]))
+    mgr.close()
+    del mgr, sp
+    rec["load_s"] = time.perf_counter() - t
+    log(f"sharded[a]: {n} chunks restored from phase 9 (b)'s bf16 checkpoint, PQ "
+        f"codebooks (m {PQ_M}) trained, rows read from its files in {rec['load_s']:.2f}s; "
+        f"the files' rows equal the restored manager's tensors: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the checkpoint's files and the restored manager differ: {same}")
+
+    port = free_port()
+    init_group("nccl", 0, 1, port)
+    try:
+        mesh, pod, tmesh = build_mesh(), build_pod_mesh(), build_train_mesh()
+        rec["meshes"] = dict(mesh=mesh.shape, pod=pod.shape, train=tmesh.shape,
+                             backend=dist.get_backend())
+        bi, ce = f32_encoders(work)
+        reset_counters()
+        t = time.perf_counter()
+        answers, programs = run_sharded(mesh, c, inp, bi, ce)
+        with torch.inference_mode():
+            for nq in BATCHES:
+                q = bi(inp["queries"][nq][0].to(dev), inp["queries"][nq][1].to(dev))
+                answers[("pod", nq)] = as_topk("pod", pod_dense_topk(
+                    c["emb"], q, SHARD_K, c["valid"], mesh=pod))
+        rec["launches"] = read_counters()
+        rec["calls_s"] = time.perf_counter() - t
+        want = unsharded_answers(c, inp, bi, ce)
+        for nq in BATCHES:
+            want[("pod", nq)] = want[("dense-bf16", nq)]
+        rec["checks"] = check_answers(answers, want, "world 1")
+        times = timed_programs(programs)
+        rec["ms"] = times
+        rec["merge"] = merge_shares(mesh, times, dev)
+        # the cross-encoder over one query's k_rerank pairs of the program's
+        # layout ([CLS] q [SEP] in q_max_len slots, the doc window, [SEP])
+        lq = SERVE["q_max_len"]
+        seq = lq + c["tokens"].shape[1] + 1
+        gen = torch.Generator(device=dev).manual_seed(73)
+        pairs = (torch.randint(4, ce.config.vocab_size, (SHARD_E2E["k_rerank"], seq),
+                               generator=gen, device=dev),
+                 torch.ones(SHARD_E2E["k_rerank"], seq, device=dev),
+                 (torch.arange(seq, device=dev) >= lq).long().expand(SHARD_E2E["k_rerank"], seq))
+        with torch.inference_mode():
+            q1 = [x.to(dev) for x in inp["queries"][1][:2]]
+            embed = time_calls(lambda nq, r: bi(*q1), (1,))[1]["p50_ms"]
+            rerank = time_calls(lambda nq, r: ce(*pairs), (1,))[1]["p50_ms"]
+        mrow = n / 1e6
+        dense = times["dense-sq8"][1]["p50_ms"]
+        sparse = times["sparse"][1]["p50_ms"]
+        e2e = times["e2e"][1]
+        rec["anchors"] = dict(
+            embed_ms=embed, dense_sq8_ms_per_mrow=dense / mrow,
+            sparse_postings_ms_per_mrow=sparse / mrow,
+            fuse_fixed_ms=max(times["hybrid-sq8"][1]["p50_ms"] - dense - sparse, 0.0),
+            rerank_ms=rerank, eval_host_ms=0.0, jitter_p99_ms=e2e["p99_ms"] - e2e["p50_ms"])
+
+        # one contrastive step pair on build_train_mesh()'s (1, 1) mesh
+        # against mesh=None, from one init and batch
+        init = init_bi_encoder(SHIPPED_BIENCODER, SHIPPED_BIENCODER_OUT_DIM, seed=3,
+                               device="cpu")[1]
+        batch = {k: v.to(dev) for k, v in pair_arrays(texts, 32, 59, 256).items()}
+        tcfg = TrainConfig(**TRAIN_CONFIG)
+        runs = []
+        for m in (None, tmesh):
+            model = BiEncoder(SHIPPED_BIENCODER, out_dim=SHIPPED_BIENCODER_OUT_DIM)
+            step, p, o = make_train_step(model, make_optimizer(tcfg), tcfg, m, init,
+                                         device=dev)
+            metrics = [{k: float(v) for k, v in step(p, o, batch)[2].items()}
+                       for _ in range(2)]
+            runs.append((metrics, {k: v.detach().clone() for k, v in p.items()}))
+        rec["train_mesh_1x1_same"] = (runs[0][0] == runs[1][0] and all(
+            torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items()))
+        del runs, model, step, p, o
+    finally:
+        dist.destroy_process_group()
+    log(f"sharded[a]: world 1 under NCCL, meshes {rec['meshes']}; "
+        f"{len(rec['checks'])} answers against the unsharded functions: max |err| "
+        f"{max(v['max_abs_err'] for v in rec['checks'].values()):.3g}, ids differing at "
+        f"ties {sum(v['tie_swaps'] for v in rec['checks'].values())}; launches "
+        f"{rec['launches']}; the (1, 1) train mesh answers as mesh=None: "
+        f"{rec['train_mesh_1x1_same']}")
+    log("sharded[a]: p50 ms per call at Q = 1, 8, 32: " + "; ".join(
+        f"{k} " + "/".join(f"{v[nq]['p50_ms']:.3f}" for nq in BATCHES)
+        for k, v in rec["ms"].items()))
+    log("sharded[a]: merge p50 ms (share of the dense call, of the hybrid scan) at Q = 1, "
+        "8, 32: " + "; ".join(f"Q={nq} {v['merge_k_ms']:.3f} ({v['dense_share']:.3f}, "
+                              f"{v['hybrid_share']:.3f})" for nq, v in rec["merge"].items()))
+    if not rec["train_mesh_1x1_same"]:
+        raise AssertionError("the (1, 1) train mesh does not answer as mesh=None")
+    for key in ("K1", "K2", "K3", "K6"):
+        if rec["launches"][key] == 0:
+            raise AssertionError(f"phase 11 (a) launched no {key}: {rec['launches']}")
+    inp["answers"] = to_cpu(answers)
+    torch.save(inp, shard_dir / "inputs.pt")
+    del c, answers, programs, bi, ce
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spawn_ranks(job, world, args):
+    """``world`` processes of ``rank_main(job)`` (start method spawn) sharing
+    the card; joined within SHARD_JOIN_S, killed and raised on a timeout or
+    a non-zero exit -> each rank's result."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = Path(args["dir"])
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=rank_main, args=(job, r, world, port, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SHARD_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if hung:
+        raise AssertionError(f"phase 11 {job}: ranks {hung} did not finish in {SHARD_JOIN_S}s")
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        raise AssertionError(f"phase 11 {job}: ranks exited with {bad}")
+    return [torch.load(out / f"{job}.{r}.pt", weights_only=False) for r in range(world)]
+
+
+def rank_main(job, rank, world, port, args):
+    """One rank of phase 11 (b) or (c): Gloo on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group("gloo", rank, world, port)
+    try:
+        rec = (rank_search if job == "search" else rank_train)(rank, world, args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, Path(args["dir"]) / f"{job}.{rank}.pt")
+
+
+def rank_search(rank, world, args):
+    """Phase 11 (b) on one rank: its quarter of the checkpoint's rows through
+    every program, the pod mesh and tree_merge_topk; then its quarter of
+    phase 6's 1M clustered rows through the sharded IVF / SQ8-IVF / IVF-PQ
+    builds and searches at full probe against the exact sharded K1 scan."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.ops.dense_kernels import dense_topk_kernel
+    from advanced_rag_tpu_torch.ops.ivfpq import build_ivfpq, ivfpq_topk
+    from advanced_rag_tpu_torch.parallel import (build_mesh, build_pod_mesh,
+                                                 build_sharded_ivf, build_sharded_ivfpq,
+                                                 pod_dense_topk, sharded_dense_topk,
+                                                 sharded_ivf_topk, sharded_ivfpq_topk,
+                                                 tree_merge_topk)
+    from advanced_rag_tpu_torch.parallel.sharded_search import to_global
+
+    dev = torch.device("cuda")
+    work = Path(args["work"])
+    rec = {}
+    t0 = time.perf_counter()
+    inp = torch.load(work / "sharded" / "inputs.pt", weights_only=False)
+    mesh, pod = build_mesh(), build_pod_mesh(dcn=2, shard=world // 2)
+    per = inp["n"] // world
+    lo = rank * per
+    c = shard_rows(work / "index-bfloat16", work / "sharded" / "tokens.npy", lo, lo + per,
+                   inp["pq_cb"])
+    bi, ce = f32_encoders(work)
+    reset_counters()
+    answers, programs = run_sharded(mesh, c, inp, bi, ce)
+    with torch.inference_mode():
+        for nq in BATCHES:
+            q = bi(inp["queries"][nq][0].to(dev), inp["queries"][nq][1].to(dev))
+            answers[("pod", nq)] = as_topk("pod", pod_dense_topk(c["emb"], q, SHARD_K,
+                                                                 c["valid"], mesh=pod))
+            s, i = dense_topk_kernel(c["emb"], q, SHARD_K, c["valid"], normalize_queries=False)
+            answers[("tree", nq)] = as_topk("tree", tree_merge_topk(
+                s, to_global(i, lo), SHARD_K, "shard", world, mesh=mesh))
+    rec["launches"] = read_counters()
+    want = dict(inp["answers"])
+    for nq in BATCHES:
+        want[("tree", nq)] = want[("dense-bf16", nq)]
+    rec["checks"] = check_answers(answers, want, f"rank {rank}")
+    rec["ms"] = timed_programs(programs)
+    rec["merge"] = merge_shares(mesh, rec["ms"], dev)
+    rec["checkpoint_s"] = time.perf_counter() - t0
+    del c, answers, programs
+    torch.cuda.empty_cache()
+
+    # the 1M clustered rows of phase 6, this rank's quarter
+    t = time.perf_counter()
+    x, qv = clustered_vectors(N_TIER, 256, seed=21)
+    per = N_TIER // world
+    rows = np.ascontiguousarray(x[rank * per:(rank + 1) * per])
+    del x
+    q = torch.from_numpy(qv[:SHARD_TIER_Q]).to(dev)
+    valid = torch.ones(per, dtype=torch.bool, device=dev)
+    rec["tier_make_s"] = time.perf_counter() - t
+    reset_counters()
+    xf = torch.from_numpy(rows).to(dev)
+    _, oracle = sharded_dense_topk(xf, q, 10, valid, mesh=mesh)
+    oracle = oracle.cpu().numpy()
+    # this rank's own exact top 10 (local ids): the IVF-PQ witness's oracle
+    _, local = dense_topk_kernel(xf, q, 10, valid, normalize_queries=False)
+    local = local.cpu().numpy()
+    del xf
+
+    def recall(ids, exact=oracle):
+        ids = ids.cpu().numpy()
+        return float(np.mean([len(set(a[a >= 0]) & set(b)) / 10 for a, b in zip(ids, exact)]))
+
+    rec["tiers"] = {}
+    for name, dtype in (("ivf-bf16", "bfloat16"), ("ivf-sq8", "int8")):
+        t = time.perf_counter()
+        parts = build_sharded_ivf(rows, mesh, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        nlist = int(parts.packed_emb.shape[0])
+        _, ids = sharded_ivf_topk(parts, q, 10, valid, mesh=mesh, nprobe=nlist)
+        rec["tiers"][name] = dict(build_s=build_s, nlist=nlist, recall_at_10=recall(ids))
+        del parts
+    for m in (PQ_M, SHARD_IVFPQ_M):
+        t = time.perf_counter()
+        # 65,536 training rows: the residual codebooks' k-means holds
+        # [m, sample, 16] f32, 6.1 GB at m = 384 over all 250,000
+        idx = build_sharded_ivfpq(rows, mesh, m=m, bits=4, train_sample=65_536, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        nlist = int(idx.centroids.shape[0])
+        _, ids = sharded_ivfpq_topk(idx, q, 40, valid, mesh=mesh, nprobe=nlist, m=m, bits=4)
+        rec["tiers"][f"ivfpq-m{m}"] = tier = dict(build_s=build_s, nlist=nlist, depth=40,
+                                                  recall_at_10=recall(ids))
+        if m == PQ_M and rank == 0:
+            # the witness at m 96: this rank's own index searched alone, and
+            # the unsharded build (its default knobs: every row trains)
+            # over the same rows, each against this rank's exact top 10
+            _, ids = ivfpq_topk(idx, q, 40, valid, nprobe=nlist, m=m, bits=4)
+            tier["rank_recall_at_10"] = recall(ids, local)
+            del idx
+            t = time.perf_counter()
+            idx = build_ivfpq(rows, nlist, m=m, bits=4, device=dev)
+            torch.cuda.synchronize()
+            tier["unsharded_build_s"] = time.perf_counter() - t
+            _, ids = ivfpq_topk(idx, q, 40, valid, nprobe=nlist, m=m, bits=4)
+            tier["unsharded_recall_at_10"] = recall(ids, local)
+        del idx
+    rec["tier_launches"] = read_counters()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t0
+    bounds = {"ivf-bf16": 0.95, "ivf-sq8": 0.9, f"ivfpq-m{SHARD_IVFPQ_M}": 0.9}
+    low = {k: v["recall_at_10"] for k, v in rec["tiers"].items()
+           if v["recall_at_10"] < bounds.get(k, 0.0)}
+    if low:
+        raise AssertionError(f"rank {rank}: recall below the JAX tests' bounds: {low}")
+    witness = rec["tiers"][f"ivfpq-m{PQ_M}"]
+    if rank == 0 and witness["rank_recall_at_10"] < \
+            witness["unsharded_recall_at_10"] - SHARD_IVFPQ_WITNESS:
+        raise AssertionError(f"rank 0: the sharded build's IVF-PQ at m {PQ_M} falls below "
+                             f"the unsharded build's on the same rows: {witness}")
+    if rec["tier_launches"]["K5"] == 0 or rec["tier_launches"]["K6"] == 0:
+        raise AssertionError(f"rank {rank}: K5 / K6 not launched: {rec['tier_launches']}")
+    return rec
+
+
+def train_reference(texts, work):
+    """Phase 11 (c)'s single-process references on the card, in f32 at the
+    shipped geometry: two contrastive updates of one batch of TRAIN_BATCH
+    pairs, one reranker step and one distillation step; written under
+    ``work`` with their inputs for the ranks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.encoder import (SHIPPED_BIENCODER,
+                                                       SHIPPED_BIENCODER_OUT_DIM,
+                                                       SHIPPED_RERANKER, init_bi_encoder,
+                                                       init_cross_encoder)
+    from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+    from advanced_rag_tpu_torch.train import DistillConfig, RerankTrainConfig
+    from advanced_rag_tpu_torch.train.contrastive import cloze_query
+    from advanced_rag_tpu_torch.train.distill import make_distill_batch
+    from advanced_rag_tpu_torch.train.rerank import make_rerank_batch
+
+    bi_cfg = dataclasses.replace(SHIPPED_BIENCODER, dtype=torch.float32)
+    ce_cfg = dataclasses.replace(SHIPPED_RERANKER, dtype=torch.float32)
+    chunks = list(texts[:4096])
+    rng = np.random.default_rng(61)
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=ce_cfg.vocab_size,
+                                           max_len=ce_cfg.max_len))
+    pairs = [(cloze_query(t, rng), t) for t in chunks[:512]]
+    negs = [[chunks[(i * 7 + j + 1) % len(chunks)] for j in range(8)] for i in range(512)]
+    rcfg = RerankTrainConfig(**SHARD_RERANK)
+    dcfg = DistillConfig(queries_per_batch=SHARD_RERANK["queries_per_batch"],
+                         candidates_per_query=SHARD_RERANK["candidates_per_query"])
+    distill, _, _ = make_distill_batch(tok, chunks, dcfg, rng, ce_cfg.max_len, device="cpu")
+    distill["teacher"] = torch.from_numpy(
+        rng.standard_normal((dcfg.queries_per_batch, dcfg.candidates_per_query))
+        .astype(np.float32) * 5)
+    ref = dict(bi_cfg=bi_cfg, ce_cfg=ce_cfg, rcfg=rcfg, dcfg=dcfg,
+               bi_init=init_bi_encoder(bi_cfg, SHIPPED_BIENCODER_OUT_DIM, seed=3,
+                                       device="cpu")[1],
+               ce_init=init_cross_encoder(ce_cfg, seed=4, device="cpu")[1],
+               batch=pair_arrays(texts, TRAIN_BATCH, 67, bi_cfg.max_len),
+               rerank=make_rerank_batch(tok, pairs, negs, rcfg, rng, device="cpu"),
+               distill=distill)
+    ref["single"] = train_steps(ref, None)
+    torch.save(ref, work / "sharded" / "train.pt")
+    return ref
+
+
+def train_steps(ref, mesh):
+    """The steps of phase 11 (c) over ``mesh`` (None: one process): two
+    contrastive updates, one reranker step (dropout from a generator seeded
+    alike everywhere), one distillation step; metrics, each step's first
+    gradients (after the clip, as the module holds them: on a model axis
+    of two ranks, this rank's slices), the trained weights whole, what a
+    rank holds between steps and ms a step."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.encoder import (SHIPPED_BIENCODER_OUT_DIM, BiEncoder,
+                                                       CrossEncoder)
+    from advanced_rag_tpu_torch.train import TrainConfig, make_optimizer, make_train_step
+    from advanced_rag_tpu_torch.train.distill import make_distill_step
+    from advanced_rag_tpu_torch.train.rerank import make_rerank_step
+
+    dev = torch.device("cuda")
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    grads = lambda m: {k: p.grad.detach().cpu().clone()  # noqa: E731
+                       for k, p in m.named_parameters()}
+    out = {}
+    model = BiEncoder(ref["bi_cfg"], out_dim=SHIPPED_BIENCODER_OUT_DIM)
+    step, p, o = make_train_step(model, make_optimizer(tcfg), tcfg, mesh, ref["bi_init"],
+                                 device=dev)
+    b = {k: v.to(dev) for k, v in ref["batch"].items()}
+    metrics, times = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, m = step(p, o, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        times.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            first = grads(model)
+    held = dict(params_mb=sum(x.numel() * x.element_size() for x in model.parameters()) / 1e6,
+                adam_mb=sum(v.numel() * v.element_size() for st in o.adamw.state.values()
+                            for k, v in st.items() if k != "step") / 1e6)
+    out["contrastive"] = dict(metrics=metrics, lr=o.schedule(1), seconds=sum(times) / 1e3,
+                              grads=first, step_ms=times[1], held=held, **layout(model, o),
+                              params={k: v.detach().cpu() for k, v in o.full_params().items()})
+    del model, step, p, o
+    for kind in ("rerank", "distill"):
+        student = CrossEncoder(ref["ce_cfg"])
+        b = {k: v.to(dev) for k, v in ref[kind].items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "rerank":
+            step, _, p, o = make_rerank_step(student, make_optimizer(tcfg), tcfg, mesh,
+                                             ref["ce_init"], ref["rcfg"], device=dev)
+            gen = torch.Generator(device=dev).manual_seed(71)
+            p, o, m = step(p, o, b, gen)
+        else:
+            step, _, p, o = make_distill_step(student, make_optimizer(tcfg), tcfg, mesh,
+                                              ref["ce_init"], ref["dcfg"], device=dev)
+            p, o, m = step(p, o, b)
+        out[kind] = dict(metrics={k: float(v) for k, v in m.items()}, grads=grads(student),
+                         build_and_step_ms=(time.perf_counter() - t) * 1e3, **layout(student, o))
+        del student, step, p, o
+    return out
+
+
+def layout(model, opt):
+    """Which dim of each parameter a rank holds a slice of, and the rank's
+    place on the model axis (tp, coordinate)."""
+    mp = opt.mesh_params
+    return dict(sliced=dict(zip([n for n, _ in model.named_parameters()], mp.dims)),
+                model_index=(mp.tp, mp.mesh.index(mp.model_axis)))
+
+
+def own_slices(grads, got):
+    """``grads`` (whole) cut to the slices that the rank of ``got`` holds."""
+    import torch
+
+    tp, me = got["model_index"]
+    return {k: g if got["sliced"].get(k) is None else torch.chunk(g, tp, got["sliced"][k])[me]
+            for k, g in grads.items()}
+
+
+def grads_within(name, got, want):
+    """Each tensor's gradient within PARITY_TOL's f32 bounds of ``want``'s."""
+    import torch
+
+    tol = PARITY_TOL["float32"]
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want.values())))
+    bad = [k for k, w in want.items()
+           if float((got[k] - w).double().norm()) > tol["grad_rtol"] * float(w.double().norm())
+           + tol["grad_atol"] * total]
+    if bad:
+        raise AssertionError(f"{name}: gradients outside the f32 bounds: {bad[:5]}")
+    return len(want)
+
+
+def rank_train(rank, world, args):
+    """Phase 11 (c) on one rank: the steps on a (data 2, model 1) mesh built
+    by hand and on build_train_mesh(2)'s (data 1, model 2), each held to the
+    single-process references with PARITY_TOL's f32 bounds."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.parallel.mesh import Mesh
+    from advanced_rag_tpu_torch.train import build_train_mesh
+
+    ref = torch.load(Path(args["work"]) / "sharded" / "train.pt", weights_only=False)
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, mesh in (("data2", Mesh(np.arange(world).reshape(world, 1), ("data", "model"))),
+                        ("model2", build_train_mesh(world))):
+        got = train_steps(ref, mesh)
+        single = ref["single"]
+        r = {"shape": mesh.shape}
+        want = dict(single["contrastive"], grads=own_slices(single["contrastive"]["grads"],
+                                                            got["contrastive"]))
+        r["contrastive"] = parity_record(
+            "float32", {"cuda": got["contrastive"], "cpu": want},
+            ref["bi_init"], what=f"rank {rank} on {mesh.shape} vs one process",
+            names=("mesh", "single"))
+        r["contrastive"]["step_ms"] = got["contrastive"]["step_ms"]
+        r["contrastive"]["held"] = got["contrastive"]["held"]
+        for kind in ("rerank", "distill"):
+            loss, want = got[kind]["metrics"]["loss"], single[kind]["metrics"]["loss"]
+            if abs(loss - want) > PARITY_TOL["float32"]["loss"] * abs(want):
+                raise AssertionError(f"rank {rank} {label} {kind}: loss {loss} vs {want}")
+            r[kind] = dict(loss=loss, single_loss=want, tensors=grads_within(
+                f"rank {rank} {label} {kind}", got[kind]["grads"],
+                own_slices(single[kind]["grads"], got[kind])),
+                build_and_step_ms=got[kind]["build_and_step_ms"])
+        rec[label] = r
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def phase_sharded(texts, work, embedder, smi):
+    """Phase 11: parallel/ and the training mesh on the card: (a) world size
+    1 under NCCL in this process, (b) SHARD_RANKS ranks over Gloo, (c) two
+    ranks training on a mesh.  -> the record and its launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    rec = {"a": phase_sharded_world1(texts, work, embedder)}
+    rec["a"]["seconds"] = time.perf_counter() - t_phase
+    launches = dict(rec["a"]["launches"])
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    rec["parent_gb"] = [torch.cuda.memory_allocated() / 1e9]
+    args = {"work": str(work), "dir": str(work / "sharded")}
+    ranks = spawn_ranks("search", SHARD_RANKS, args)
+    b = rec["b"] = {"seconds": time.perf_counter() - t, "rank0": ranks[0],
+                    "peak_gb": [r["peak_gb"] for r in ranks],
+                    "rank_seconds": [r["seconds"] for r in ranks],
+                    "tier_launches": [r["tier_launches"] for r in ranks]}
+    for r in ranks:
+        for key in KERNEL_KEYS:
+            launches[key] += r["launches"][key] + r["tier_launches"][key]
+    r0 = ranks[0]
+    log(f"sharded[b]: {SHARD_RANKS} ranks on one card over Gloo in {b['seconds']:.2f}s "
+        f"(ranks {', '.join(f'{s:.1f}' for s in b['rank_seconds'])}s); rank 0's "
+        f"{len(r0['checks'])} answers equal (a)'s: max |err| "
+        f"{max(v['max_abs_err'] for v in r0['checks'].values()):.3g}, ids differing at "
+        f"ties {sum(v['tie_swaps'] for v in r0['checks'].values())}; peak memory per rank "
+        + ", ".join(f"{g:.2f}" for g in b["peak_gb"]) + " GB")
+    log("sharded[b]: rank 0 p50 ms per call at Q = 1, 8, 32: " + "; ".join(
+        f"{k} " + "/".join(f"{v[nq]['p50_ms']:.3f}" for nq in BATCHES)
+        for k, v in r0["ms"].items()))
+    log("sharded[b]: merge p50 ms (share of the dense call, of the hybrid scan): " + "; ".join(
+        f"Q={nq} {v['merge_k_ms']:.3f} ({v['dense_share']:.3f}, {v['hybrid_share']:.3f})"
+        for nq, v in r0["merge"].items()))
+    log("sharded[b]: 1M clustered rows, 250,000 a rank, full probe (IVF-PQ: the exact top "
+        "10 in depth 40): " + "; ".join(
+        f"{k} build {v['build_s']:.2f}s nlist {v['nlist']} recall@10 {v['recall_at_10']:.4f}"
+        for k, v in r0["tiers"].items()) + f"; K5/K6 launches per rank "
+        + ", ".join(f"{x['K5']}/{x['K6']}" for x in b["tier_launches"]))
+    w = r0["tiers"][f"ivfpq-m{PQ_M}"]
+    log(f"sharded[b]: IVF-PQ m {PQ_M} witness on rank 0's 250,000 rows against its exact "
+        f"top 10 (depth 40, full probe): its own sharded-build index {w['rank_recall_at_10']:.4f}"
+        f", the unsharded build_ivfpq {w['unsharded_recall_at_10']:.4f} (built in "
+        f"{w['unsharded_build_s']:.2f}s; the first may fall {SHARD_IVFPQ_WITNESS} below)")
+
+    t = time.perf_counter()
+    ref = train_reference(texts, work)
+    torch.cuda.empty_cache()
+    rec["parent_gb"].append(torch.cuda.memory_allocated() / 1e9)
+    ranks = spawn_ranks("train", 2, args)
+    c = rec["c"] = {"seconds": time.perf_counter() - t, "rank0": ranks[0],
+                    "single_step_ms": ref["single"]["contrastive"]["step_ms"],
+                    "peak_gb": [r["peak_gb"] for r in ranks]}
+    for label in ("data2", "model2"):
+        log(f"sharded[c]: {c['rank0'][label]['shape']}: contrastive ms per step a rank "
+            + ", ".join(f"{r[label]['contrastive']['step_ms']:.1f}" for r in ranks)
+            + f" (one process {c['single_step_ms']:.1f}); held between steps a rank: "
+            + ", ".join(f"{r[label]['contrastive']['held']['params_mb']:.1f} MB weights + "
+                        f"{r[label]['contrastive']['held']['adam_mb']:.1f} MB AdamW"
+                        for r in ranks) + "; rerank loss "
+            f"{c['rank0'][label]['rerank']['loss']:.6f} (one process "
+            f"{c['rank0'][label]['rerank']['single_loss']:.6f}), distill loss "
+            f"{c['rank0'][label]['distill']['loss']:.6f} (one process "
+            f"{c['rank0'][label]['distill']['single_loss']:.6f})")
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["anchors"] = dict(rec["a"]["anchors"], source=f"chip_smoke.py phase 11 (a), {smi}")
+    log(f"sharded: phase 11 took {rec['seconds']:.2f}s ((a) {rec['a']['seconds']:.2f}s, "
+        f"(b) {b['seconds']:.2f}s, (c) {c['seconds']:.2f}s); this process held "
+        + " and ".join(f"{g:.2f}" for g in rec["parent_gb"]) + " GB of the card when "
+        "(b) and (c) started")
+    return rec, launches
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -3095,6 +4001,7 @@ def main() -> None:
         manager_tiers["pq"] = phase_manager_tier("pq", None, embedder, texts, work)
         encoders = phase_encoder_checkpoints(embedder, reranker, texts, work)
         service = phase_service(embedder, reranker, texts, work)
+        sharded, sharded_launches = phase_sharded(texts, work, embedder, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_reference()
@@ -3131,6 +4038,8 @@ def main() -> None:
         for rec in runs.values():
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
+    for key in KERNEL_KEYS:
+        launches[key] += sharded_launches[key]
 
     meta = {
         "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "dense_scan.cu", True),
@@ -3167,7 +4076,7 @@ def main() -> None:
             raise AssertionError(f"{key} was never launched on the main paths")
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
                       "manager_tiers": manager_tiers, "service": service,
-                      "lifecycle": lifecycle, "training": training,
+                      "lifecycle": lifecycle, "training": training, "sharded": sharded,
                       "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

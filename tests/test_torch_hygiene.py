@@ -47,8 +47,11 @@ def port_modules():
         pkg.__path__, pkg.__name__ + ".")]
 
 
-#: scripts that run beside the port on hosts without JAX
-CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py"]
+#: scripts that run beside the port on hosts without JAX, and the Gloo ranks
+#: of the sharded tests
+CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py",
+                REPO / "scripts" / "torch_nccl_one_card.py",
+                REPO / "tests" / "torch_dist_worker.py"]
 
 
 def test_port_and_chip_smoke_import_no_jax():

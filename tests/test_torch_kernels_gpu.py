@@ -902,3 +902,51 @@ def test_training_steps_on_the_card_match_the_cpu(cuda, dtype):
                for d in (got, want)]
         cos = float(torch.nn.functional.cosine_similarity(*upd, dim=0))
         assert cos >= (0.999 if f32 else 0.99), (tower, cos)
+
+
+def test_sharded_hybrid_at_world_size_1_under_nccl(cuda):
+    """parallel/: the sharded fused hybrid on a one-rank NCCL process group
+    answers as ops/hybrid.py's unsharded program on the same rows (the
+    same kernels, K1 and K3; every collective over one rank is the
+    identity), with and without MMR."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize
+    from advanced_rag_tpu_torch.ops.hybrid import hybrid_retrieve
+    from advanced_rag_tpu_torch.parallel import build_mesh, sharded_hybrid_retrieve
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, d, p, vocab = 4096, 384, 64, 5000
+    emb = l2_normalize(torch.randn(n, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    rows = torch.arange(n, device=cuda)[:, None]
+    idx_t = ((rows * 7 + torch.arange(p, device=cuda)[None] * 73) % vocab).to(torch.int32)
+    idx_t = torch.where(torch.rand(n, p, generator=gen, device=cuda) < 0.4, idx_t, -1)
+    tf_t = torch.randint(1, 4, (n, p), generator=gen, device=cuda).to(torch.bfloat16)
+    doc_len = (idx_t >= 0).sum(1).float() * 2
+    df = torch.randint(1, 50, (vocab,), generator=gen, device=cuda)
+    q = l2_normalize(torch.randn(8, d, generator=gen, device=cuda))
+    q_idx = idx_t[torch.arange(8, device=cuda) * 97][:, :16].contiguous()
+    q_tf = torch.ones(8, 16, device=cuda)
+    valid = torch.rand(n, generator=gen, device=cuda) < 0.9
+    args = (emb, idx_t.T.contiguous(), tf_t.T.contiguous(), doc_len, df,
+            torch.tensor(float(n), device=cuda), q, q_idx, q_tf, valid,
+            torch.tensor([0.7, 0.3], device=cuda), torch.tensor(0.8, device=cuda))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = build_mesh()
+        for mmr in (False, True):
+            got = sharded_hybrid_retrieve(*args, mesh=mesh, k_cand=64, k_out=16, use_mmr=mmr)
+            want = hybrid_retrieve(*args, k_cand=64, k_out=16, use_mmr=mmr)
+            assert torch.equal(got[0], want.ids)
+            assert torch.equal(got[1], want.scores)
+            assert torch.equal(got[2], want.method_counts)
+            assert bool((got[0] >= 0).any())
+    finally:
+        dist.destroy_process_group()

@@ -44,6 +44,7 @@ from advanced_rag_tpu.train import loop as jloop
 from advanced_rag_tpu_torch.models import encoder as tenc
 from advanced_rag_tpu_torch.models.convert import params_from_jax
 from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+from advanced_rag_tpu_torch.parallel.mesh import Mesh, single_device_mesh
 from advanced_rag_tpu_torch.train import contrastive as tc
 from advanced_rag_tpu_torch.train import loop as tloop
 
@@ -260,18 +261,55 @@ def test_train_biencoder_matches_jax(jax_steps, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("axes", [dict(data_axis="batch"), dict(model_axis="tensor")])
 def test_mesh_axes_are_refused(axes):
-    """The axis names matter only on a mesh: a caller who sets them is
-    told, not ignored."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tc.TrainConfig(**axes)
+    """The axis names name the training mesh's axes: a mesh that lacks one
+    is refused, and one built with those names is taken."""
+    _, tcfg = configs("f32")
+    cfg = tc.TrainConfig(**axes)
+    model = tenc.BiEncoder(tcfg, out_dim=OUT)
+    with pytest.raises(ValueError, match="lack"):
+        tc.make_train_step(model, tc.make_optimizer(cfg), cfg, tc.build_train_mesh(),
+                           None, device="cpu")
+    mesh = tc.build_train_mesh(config=cfg)
+    assert mesh.axis_names == (cfg.data_axis, cfg.model_axis)
+    assert mesh.shape == {cfg.data_axis: 1, cfg.model_axis: 1}
+    tc.make_train_step(model, tc.make_optimizer(cfg), cfg, mesh, None, device="cpu")
 
 
 def test_mesh_is_refused():
+    """Without a process group the world is one rank: a mesh of more ranks,
+    or one lacking the config's axes, is refused by the step and the loop."""
     _, tcfg = configs("f32")
     model = tenc.BiEncoder(tcfg, out_dim=OUT)
     cfg = tc.TrainConfig()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tc.make_train_step(model, tc.make_optimizer(cfg), cfg, object(), None,
+    with pytest.raises(ValueError, match="does not cover"):
+        tc.build_train_mesh(2)
+    with pytest.raises(ValueError, match="does not cover"):
+        Mesh(np.arange(2).reshape(2, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="lack"):
+        tc.make_train_step(model, tc.make_optimizer(cfg), cfg, single_device_mesh(), None,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tloop.train_biencoder(TEXTS, encoder_config=tcfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="lack"):
+        tloop.train_biencoder(TEXTS, encoder_config=tcfg, mesh=single_device_mesh(),
+                              device="cpu")
+
+
+def test_one_rank_mesh_answers_as_no_mesh(jax_steps):
+    """The 1 x 1 train mesh, given explicitly, takes the same steps as
+    ``mesh=None``; its partition rule shards nothing."""
+    init, batches, _, _ = jax_steps["f32"]
+    _, tcfg = configs("f32")
+    cfg = tc.TrainConfig(**TRAIN)
+    runs = []
+    for mesh in (None, tc.build_train_mesh(1)):
+        model = tenc.BiEncoder(tcfg, out_dim=OUT)
+        step, params, opt = tc.make_train_step(model, tc.make_optimizer(cfg), cfg, mesh,
+                                               init, device="cpu")
+        metrics = [step(params, opt, jax_batch_to_torch(b))[2] for b in batches[:3]]
+        runs.append(([{k: float(v) for k, v in m.items()} for m in metrics],
+                     {k: v.clone() for k, v in params.items()}))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+    spec = tc.param_partition_spec(init, tc.build_train_mesh(1), "model",
+                                   num_heads=TINY["num_heads"])
+    assert set(spec) == set(init) and set(spec.values()) == {None}

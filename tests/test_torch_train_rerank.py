@@ -36,6 +36,7 @@ from advanced_rag_tpu.train import rerank as jr
 from advanced_rag_tpu_torch.models import encoder as tenc
 from advanced_rag_tpu_torch.models.convert import params_from_jax
 from advanced_rag_tpu_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+from advanced_rag_tpu_torch.parallel.mesh import single_device_mesh
 from advanced_rag_tpu_torch.train import contrastive as tc
 from advanced_rag_tpu_torch.train import distill as td
 from advanced_rag_tpu_torch.train import rerank as tr
@@ -297,8 +298,9 @@ def test_train_reranker_refuses_what_jax_refuses():
                           rerank_config=tr.RerankTrainConfig(residual=True, **LAYOUT))
     with pytest.raises(ValueError, match="max_len"):
         tr.train_reranker(PAIRS, NEGATIVES, encoder_config=TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tr.train_reranker(PAIRS, NEGATIVES, encoder_config=TCFG, mesh=object(),
+    # a mesh lacking the train config's axes
+    with pytest.raises(ValueError, match="lack"):
+        tr.train_reranker(PAIRS, NEGATIVES, encoder_config=TCFG, mesh=single_device_mesh(),
                           rerank_config=tr.RerankTrainConfig(**LAYOUT), device="cpu")
 
 
