@@ -45,6 +45,7 @@ from ..ops.dense import NEG_INF, l2_normalize
 from ..utils.cache import EmbeddingCache, domain_cache, semantic_cache
 from ..utils.constants import IndexConstants
 from ..utils.exceptions import IndexingError, ValidationError
+from ..utils.profiling import annotate
 from .corpus import ChunkRecord, CorpusStore, next_pow2
 from .dense_index import DenseIndex
 from .sparse_index import SparseIndex
@@ -633,6 +634,7 @@ class MultiIndexManager:
             hits.append(self.store.hit(int(row), float(score), method=method))
         return hits
 
+    @annotate("fused_retrieve_batch")
     def fused_retrieve_batch_sync(
         self,
         queries: Sequence[str],
@@ -745,7 +747,8 @@ class MultiIndexManager:
                 f"max_len {ce_max}")
         dev = self.device
         texts = list(queries)
-        q_ids, q_mask = self.embedder.tokenizer.encode_batch(texts, q_max_len)
+        with annotate("tokenize_queries"):
+            q_ids, q_mask = self.embedder.tokenizer.encode_batch(texts, q_max_len)
         if sparse_on:
             q_idx, q_tf = self.sparse.encode_query(texts)
             sp = self.sparse
@@ -762,26 +765,28 @@ class MultiIndexManager:
                            torch.zeros(8, dtype=torch.int32, device=dev),
                            self._scalar(1.0))
 
-        res = program(
-            torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_mask).to(dev),
-            torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_tf).to(dev),
-            self.token_table.tokens, self.semantic.emb, *sparse_args, mask,
-            self._scalar(dense_weight, sparse_weight),
-            self._scalar(mmr_lambda), **kw)
-        ids = res.ids.cpu().numpy()
-        ce_scores = res.ce_scores.cpu().numpy()
-        fused = res.fused_scores.cpu().numpy()
+        with annotate("retrieve_rerank"):
+            res = program(
+                torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_mask).to(dev),
+                torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_tf).to(dev),
+                self.token_table.tokens, self.semantic.emb, *sparse_args, mask,
+                self._scalar(dense_weight, sparse_weight),
+                self._scalar(mmr_lambda), **kw)
+            ids = res.ids.cpu().numpy()
+            ce_scores = res.ce_scores.cpu().numpy()
+            fused = res.fused_scores.cpu().numpy()
         out: List[List[Dict[str, Any]]] = []
-        for qi in range(nq):
-            hits: List[Dict[str, Any]] = []
-            for row, ce, fs in zip(ids[qi].tolist(), ce_scores[qi].tolist(),
-                                   fused[qi].tolist()):
-                if row < 0:
-                    continue
-                hits.append(self.store.hit(int(row), float(fs),
-                                           method="fused_rerank",
-                                           rerank_score=float(ce)))
-            out.append(hits)
+        with annotate("hydrate"):
+            for qi in range(nq):
+                hits: List[Dict[str, Any]] = []
+                for row, ce, fs in zip(ids[qi].tolist(), ce_scores[qi].tolist(),
+                                       fused[qi].tolist()):
+                    if row < 0:
+                        continue
+                    hits.append(self.store.hit(int(row), float(fs),
+                                               method="fused_rerank",
+                                               rerank_score=float(ce)))
+                out.append(hits)
         return out
 
     def rescore_candidates_sync(

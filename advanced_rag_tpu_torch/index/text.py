@@ -7,10 +7,13 @@ stays on the host (it is string work); everything numeric happens on
 device.
 
 This is the PyTorch port's copy of ``advanced_rag_tpu/index/text.py``.
-It keeps the pure-Python path only: the JAX package's optional C++ fast
-path lives in that package, which the port never imports, and both
-paths give the same arrays.
-``hash_term`` memoizes per distinct term, since corpora repeat words.
+ASCII text goes through the C++ fast path (``native/text_native.cpp``),
+which gives the same arrays as the Python rule here; other text goes
+through the Python rule, row by row, because ``str.lower()`` maps a few
+non-ASCII letters to ASCII and the C++ path treats every non-ASCII byte
+as a separator.  ``ADVANCED_RAG_TPU_NO_NATIVE=1`` selects the Python rule
+for every row.  ``hash_term`` memoizes per distinct term, since corpora
+repeat words.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from collections import Counter
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
+from ..utils.profiling import annotate
 
 _TOKEN_RE = re.compile(r"[a-z0-9]+")
 
@@ -55,6 +61,7 @@ def hash_term(term: str, vocab_size: int) -> int:
     return int.from_bytes(h, "little") % vocab_size
 
 
+@annotate("encode_documents")
 def encode_documents(
     texts: Sequence[str],
     vocab_size: int,
@@ -68,6 +75,34 @@ def encode_documents(
     truncation).  ``df_delta`` counts one per (doc, distinct-term) for
     the corpus document-frequency table.
     """
+    if not native.enabled():
+        return _encode_documents_python(texts, vocab_size, doc_nnz)
+    rows, ascii_texts = _split_ascii(texts)
+    doc_idx, doc_tf, doc_len, df_delta = native.encode_documents_native(
+        ascii_texts, vocab_size, doc_nnz)
+    if rows:
+        py_idx, py_tf, py_len, py_df = _encode_documents_python(
+            [texts[i] for i in rows], vocab_size, doc_nnz)
+        doc_idx[rows], doc_tf[rows], doc_len[rows] = py_idx, py_tf, py_len
+        df_delta += py_df
+    return doc_idx, doc_tf, doc_len, df_delta
+
+
+def _split_ascii(texts: Sequence[str]) -> Tuple[List[int], Sequence[str]]:
+    """(rows of the non-ASCII texts, ``texts`` with those rows emptied):
+    the C++ path encodes the second, the Python rule the rows."""
+    rows = [i for i, t in enumerate(texts) if not t.isascii()]
+    if not rows:
+        return rows, texts
+    blank = list(texts)
+    for i in rows:
+        blank[i] = ""
+    return rows, blank
+
+
+def _encode_documents_python(
+    texts: Sequence[str], vocab_size: int, doc_nnz: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     n = len(texts)
     doc_idx = np.full((n, doc_nnz), -1, dtype=np.int32)
     doc_tf = np.zeros((n, doc_nnz), dtype=np.float32)
@@ -89,6 +124,7 @@ def encode_documents(
     return doc_idx, doc_tf, doc_len, df_delta
 
 
+@annotate("encode_queries")
 def encode_queries(
     texts: Sequence[str],
     vocab_size: int,
@@ -101,6 +137,20 @@ def encode_queries(
     ``drop_ratio`` prunes the lowest-tf fraction of query terms — parity
     with Milvus ``drop_ratio_search=0.2`` (reference retrieval.py:97-101).
     """
+    if not native.enabled():
+        return _encode_queries_python(texts, vocab_size, query_nnz, drop_ratio)
+    rows, ascii_texts = _split_ascii(texts)
+    q_idx, q_tf = native.encode_queries_native(ascii_texts, vocab_size, query_nnz,
+                                               drop_ratio)
+    if rows:
+        q_idx[rows], q_tf[rows] = _encode_queries_python(
+            [texts[i] for i in rows], vocab_size, query_nnz, drop_ratio)
+    return q_idx, q_tf
+
+
+def _encode_queries_python(
+    texts: Sequence[str], vocab_size: int, query_nnz: int, drop_ratio: float,
+) -> Tuple[np.ndarray, np.ndarray]:
     q = len(texts)
     q_idx = np.full((q, query_nnz), -1, dtype=np.int32)
     q_tf = np.zeros((q, query_nnz), dtype=np.float32)

@@ -23,6 +23,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from .. import native
 from ..utils.constants import ChunkingConstants as CC
 from .diagnostics import DiagnosticMetrics, split_sentences, tokenize_words
 
@@ -135,12 +136,17 @@ class AdaptiveChunker:
             pieces = self._fixed_chunks(text, self.base_chunk_size)
             return self._finalize(pieces, doc_id, metrics, source, extra)
         target = self.target_chunk_size(metrics)
-        # The JAX package splits ASCII text with its C++ fast path
-        # (advanced_rag_tpu.native); the port keeps the python rule
-        # until that code is copied into it (ROADMAP.md, queue A item 7).
-        sentences = split_sentences(text)
+        # C++ fast path: sentences and per-sentence token counts in one
+        # pass (per-sentence python tokenize calls dominate bulk ingest).
+        # ASCII only: the python regexes treat unicode whitespace
+        # differently.
+        sent_counts = None
+        if native.enabled() and text.isascii():
+            sentences, sent_counts = native.split_sentences_native(text)
+        else:
+            sentences = split_sentences(text)
         if len(sentences) >= 2:
-            pieces = self._semantic_chunks(text, sentences, target)
+            pieces = self._semantic_chunks(text, sentences, target, sent_counts)
         else:
             pieces = self._fixed_chunks(text, target)
         return self._finalize(pieces, doc_id, metrics, source, extra)
@@ -148,11 +154,15 @@ class AdaptiveChunker:
     def _finalize(self, pieces, doc_id, metrics, source, extra) -> List[Chunk]:
         chunks: List[Chunk] = []
         for idx, (content, start, end) in enumerate(pieces):
-            # python path only: the C++ per-chunk stats of the JAX
-            # package come with ROADMAP.md queue A item 7
-            tokens = tokenize_words(content)
-            ntok = len(tokens)
-            entropy, redundancy = self._quick_stats(tokens)
+            # per-chunk stats without materializing token strings
+            # (art_quick_stats follows tokenize_words' rule exactly)
+            if native.enabled() and content.isascii():
+                ntok, entropy, distinct = native.quick_stats_native(content)
+                redundancy = (1.0 - distinct / ntok) if ntok else 0.0
+            else:
+                tokens = tokenize_words(content)
+                ntok = len(tokens)
+                entropy, redundancy = self._quick_stats(tokens)
             meta = ChunkMetadata(
                 chunk_id=content_hash(f"{doc_id}:{content}"),
                 doc_id=doc_id,
@@ -171,11 +181,13 @@ class AdaptiveChunker:
 
     def _semantic_chunks(
         self, text: str, sentences: List[str], target: int,
+        sent_tokens: Optional[List[int]] = None,
     ) -> List[tuple[str, int, int]]:
         """Pack sentences up to the target size; overlap by trailing
         sentences covering ~overlap_ratio of the target
         (reference chunking.py:203-263)."""
-        sent_tokens = [len(tokenize_words(s)) for s in sentences]
+        if sent_tokens is None:
+            sent_tokens = [len(tokenize_words(s)) for s in sentences]
         overlap_budget = int(target * self.overlap_ratio)
         out: List[tuple[str, int, int]] = []
         i, cursor = 0, 0

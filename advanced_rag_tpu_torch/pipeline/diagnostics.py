@@ -21,9 +21,11 @@ import math
 import re
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
+
+from .. import native
 
 _WORD_RE = re.compile(r"[a-zA-Z0-9']+")
 _SENT_RE = re.compile(r"(?<=[.!?])\s+|\n\n+")
@@ -152,10 +154,41 @@ class DocumentDiagnostics:
     # -- top level ------------------------------------------------------------
 
     def analyze_document(self, text: str) -> DiagnosticMetrics:
-        # The JAX package analyzes ASCII text with its C++ fast path
-        # (advanced_rag_tpu.native); the port runs the python reference
-        # until that code is copied into it (ROADMAP.md, queue A item 7).
+        # C++ fast path (text_native.cpp art_analyze_document): tokens,
+        # entropy, n-grams, lexicons, coherence and the top 20 in two C
+        # passes, no python token strings.  ASCII only: the python regexes
+        # treat unicode whitespace and word characters differently
+        # (hash-based grouping collides with probability ~n^2/2^64).
+        if native.enabled() and text.isascii():
+            return self._metrics_from_native(
+                native.analyze_document_native(text, self.lexicons))
         return self._analyze_python(text)
+
+    def _metrics_from_native(self, nat: Dict[str, Any]) -> DiagnosticMetrics:
+        ngrams = nat["ngrams"]
+        redundancy = (0.4 * ngrams[1] + 0.35 * ngrams[2]
+                      + 0.25 * ngrams[3])
+        n_tok = nat["token_count"]
+        n_sent = nat["sentence_count"]
+        diversity = (nat["distinct"] / n_tok) if n_tok else 0.0
+        density = max(nat["domain_scores"].values(), default=0.0)
+        avg_sent_len = (n_tok / n_sent) if n_sent else 0.0
+        complexity = float(np.clip(
+            0.4 * nat["entropy"] + 0.3 * diversity
+            + 0.3 * min(avg_sent_len / 40.0, 1.0), 0.0, 1.0))
+        return DiagnosticMetrics(
+            entropy=nat["entropy"],
+            redundancy=redundancy,
+            domain_density=density,
+            vocabulary_diversity=diversity,
+            coherence=nat["coherence"] if n_sent >= 2 else 1.0,
+            complexity=complexity,
+            token_count=n_tok,
+            sentence_count=n_sent,
+            token_distribution=nat["token_distribution"],
+            ngram_redundancy=ngrams,
+            domain_scores=nat["domain_scores"],
+        )
 
     def _analyze_python(self, text: str) -> DiagnosticMetrics:
         """Pure-python reference implementation (source of truth)."""

@@ -142,6 +142,26 @@ Phases, each printing its elapsed seconds:
    model 2): two contrastive updates of one batch of TRAIN_BATCH pairs,
    one reranker and one distillation step, against one process on the
    card (PARITY_TOL's f32 bounds).  A rank that fails makes the run fail.
+12. the host native code and the timers (phase_host_native, last): (a)
+   the C++ text path against the Python rule (ADVANCED_RAG_TPU_NO_NATIVE=1)
+   on the card's host: the g++ build's seconds, encode_documents over
+   phase 4's chunks and encode_queries at Q = 1, 8, 32 (arrays identical),
+   the chunker and the diagnostics over phase 8's service documents
+   (chunk ids equal, metrics within 1e-9), two fused pipelines ingesting
+   them, a U+212A document (the Python rule's terms) and one fused Q = 1
+   batch each way (ids and scores identical; encode_queries' share of
+   the batch from the annotate ranges of a CPU profile); (b) the HNSW
+   baseline (M 16, ef_construction 200, ef 64, every host core; recall 0.85 and
+   self-query 0.95 at tests/test_hnsw_baseline.py's 5,000 x 48, a
+   cached graph answering identically) against the exact bf16 (K1), SQ8
+   (K2) and IVF bf16 (K5, tune_nprobe) tiers on HNSW_N clustered rows of
+   scripts/bench_hnsw_parity.py: recall@10 against the f32 oracle (exact
+   bf16 >= 0.99), bytes per row, build seconds, ms per query (HNSW single
+   queries on the host, the tiers at Q = 8 through timing.fetch_ms and
+   timing.scanned_ms); (c) timing.scanned_ms of K1 (bf16, N = MAIN_N,
+   Q = 32) within 10% of graph_ms, chained_ms and fetch_ms at least the
+   device time, and a profiling.device_trace of a fused Q = 8 batch
+   naming the annotate ranges and K1's and K3's kernels.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -739,6 +759,18 @@ KERNEL_GROUPS = (
 )
 
 
+def device_events(prof):
+    """The profile's kernels and copies on the card: its CUDA events less the
+    GPU spans of ``profiling.annotate`` ranges, which cover kernels rather
+    than add to them."""
+    import torch
+
+    events = prof.events()
+    ranges = {ev.name for ev in events if getattr(ev, "is_user_annotation", False)}
+    return [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.name not in ranges]
+
+
 def profile_batch(mgr, reranker, queries):
     """One batch under torch.profiler: wall time, device busy time (the sum
     of the kernels' device time; one stream, so they do not overlap), the
@@ -753,9 +785,8 @@ def profile_batch(mgr, reranker, queries):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    for ev in device_events(prof):
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     if not kernels:
         raise AssertionError("the profiler recorded no device kernels")
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
@@ -2639,8 +2670,7 @@ def timed_steps(step, params, opt, batch, *extra, n=12):
         params, opt, m = step(params, opt, batch, *extra)
         float(m["loss"])
         wall = (time.perf_counter() - t) * 1e3
-    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in device_events(prof))
     if busy == 0.0:
         raise AssertionError("the profiler recorded no device kernels")
     return dict(step_ms_p50=float(np.percentile(times[2:], 50)), profiled_wall_ms=wall,
@@ -3981,6 +4011,499 @@ def phase_sharded(texts, work, embedder, smi):
     return rec, launches
 
 
+#: phase 12 (the host native code and the timing and profiling helpers): the
+#: HNSW comparison's corpus (scripts/bench_hnsw_parity.py's "clustered"
+#: corpus at D = 384, its queries and nprobe tuning queries), the reference's
+#: HNSW knobs (indexing.py:150-153) and tests/test_hnsw_baseline.py's geometry
+HNSW_N = 100_000
+HNSW_D = 384
+HNSW_QUERIES = 128
+HNSW_KNOBS = dict(M=16, ef_construction=200)
+HNSW_EF = 64
+HNSW_BUILD_LIMIT_S = 60.0
+HNSW_TEST_GEOMETRY = (5000, 48)
+TIER_Q = 8
+ENCODE_REPS = 50
+#: U+212A KELVIN SIGN: str.lower() maps it to "k"; the C++ path would read
+#: it as a separator, so the ASCII gate sends this text to the Python rule
+KELVIN_DOC = "\u212aelvin scale temperature of the probe"
+
+
+def parity_corpus(n: int, d: int, nq: int, seed: int = 0):
+    """scripts/bench_hnsw_parity.py's "clustered" corpus (make_corpus) and
+    its queries and tuning queries (run_config): n unit rows around
+    max(256, n // 500) centres with noise 0.15; queries are stored rows
+    plus noise 0.05, from a second seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_clusters = max(256, n // 500)
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    assign = rng.integers(0, n_clusters, n)
+    v = centers[assign] + 0.15 * rng.standard_normal((n, d)).astype(np.float32)
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    rng = np.random.default_rng(1)
+    qs = []
+    for _ in range(2):
+        q = v[rng.integers(0, n, nq)] + 0.05 * rng.standard_normal((nq, d)).astype(np.float32)
+        qs.append(q / np.linalg.norm(q, axis=1, keepdims=True))
+    return v, qs[0], qs[1]
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def set_recall(ids, oracle):
+    import numpy as np
+
+    k = oracle.shape[1]
+    return float(np.mean([len(set(a[a >= 0].tolist()) & set(b.tolist())) / k
+                          for a, b in zip(ids, oracle)]))
+
+
+def both_paths(fn):
+    """(fn() through the C++ path, its seconds, fn() through the Python
+    rule under ADVANCED_RAG_TPU_NO_NATIVE=1, its seconds)."""
+    from advanced_rag_tpu_torch import native
+
+    if not native.enabled():
+        raise AssertionError(f"{native.SWITCH} is set: phase 12 compares both paths")
+    t = time.perf_counter()
+    fast = fn()
+    fast_s = time.perf_counter() - t
+    os.environ[native.SWITCH] = "1"
+    try:
+        t = time.perf_counter()
+        slow = fn()
+        slow_s = time.perf_counter() - t
+    finally:
+        del os.environ[native.SWITCH]
+    return fast, fast_s, slow, slow_s
+
+
+def same_arrays(name, got, want):
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: array {i} differs between the C++ path and "
+                                 "the Python rule")
+
+
+def range_ms(prof, name):
+    """CPU ms of the ranges ``name`` in a profile (summed over calls)."""
+    ev = [e for e in prof.key_averages() if e.key == name]
+    if not ev:
+        raise AssertionError(f"the trace holds no range {name!r}")
+    return ev[0].cpu_time_total / 1e3
+
+
+def phase_text_path(texts, embedder, reranker, dev="cuda"):
+    """Phase 12 (a): the C++ text path against the Python rule on the card's
+    host: phase 4's chunks, queries at Q = 1, 8 and 32, phase 8's service
+    documents through the chunker, the diagnostics and two pipelines, the
+    U+212A document, and one fused Q = 1 batch each way, with the share of
+    its wall time that encode_queries takes.  Returns the record and the
+    C++ path's pipeline (its manager serves (c))."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch import native
+    from advanced_rag_tpu_torch.config import IndexConfig, IndexType, PipelineConfig
+    from advanced_rag_tpu_torch.index import text as text_mod
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline, HybridRetriever
+    from advanced_rag_tpu_torch.pipeline.chunking import AdaptiveChunker
+    from advanced_rag_tpu_torch.pipeline.diagnostics import DocumentDiagnostics
+
+    rec = {}
+    native.text_lib()
+    rec["build_s"] = native.build_seconds.get("text_native")
+    lib = native.library_path(native.SRC_DIR / "text_native.cpp", native.TEXT_FLAGS)
+    log("native[a]: text_native.so " + (
+        f"built by g++ in {rec['build_s']:.2f}s" if rec["build_s"] is not None else
+        "was built before this run") + f" ({lib.name})")
+    sparse = IndexConfig(index_type=IndexType.SPARSE)
+    vocab, nnz = sparse.vocab_size, sparse.doc_nnz
+    fast, fast_s, slow, slow_s = both_paths(
+        lambda: text_mod.encode_documents(texts, vocab, nnz))
+    same_arrays("encode_documents", fast, slow)
+    rec["encode_documents"] = dict(n=len(texts), vocab=vocab, doc_nnz=nnz, cpp_s=fast_s,
+                                   python_s=slow_s)
+    log(f"native[a]: encode_documents over {len(texts)} chunks (V={vocab}, P={nnz}): "
+        f"C++ {fast_s:.3f}s, Python {slow_s:.3f}s; the four arrays identical")
+    rng = np.random.default_rng(61)
+    rec["encode_queries_us"] = {}
+    for nq in BATCHES:
+        batches = [snippet_queries(rng, texts, nq) for _ in range(ENCODE_REPS)]
+        fast, fast_s, slow, slow_s = both_paths(
+            lambda: [text_mod.encode_queries(b, vocab, sparse.query_nnz,
+                                             drop_ratio=sparse.drop_ratio) for b in batches])
+        for f, s in zip(fast, slow):
+            same_arrays(f"encode_queries Q={nq}", f, s)
+        rec["encode_queries_us"][nq] = dict(cpp=fast_s / ENCODE_REPS * 1e6,
+                                           python=slow_s / ENCODE_REPS * 1e6)
+        log(f"native[a]: encode_queries Q={nq}: C++ {fast_s / ENCODE_REPS * 1e6:.1f} us, "
+            f"Python {slow_s / ENCODE_REPS * 1e6:.1f} us per batch; arrays identical")
+    fast, _, slow, _ = both_paths(lambda: text_mod.encode_documents([KELVIN_DOC], vocab, nnz))
+    same_arrays("encode_documents (U+212A)", fast, slow)
+    if text_mod.hash_term("kelvin", vocab) not in fast[0][0].tolist():
+        raise AssertionError("the U+212A document lost the term 'kelvin'")
+
+    docs, probes = service_documents(31, SERVICE_DOCS)
+
+    def chunk_and_diagnose():
+        diag, chunker = DocumentDiagnostics(), AdaptiveChunker()
+        out = []
+        for doc in docs:
+            m = diag.analyze_document(doc["content"])
+            chunks = chunker.chunk_document(doc["content"], doc_id=doc["doc_id"], metrics=m)
+            out.append((m, [(c.chunk_id, c.metadata.start_char, c.metadata.token_count,
+                             c.metadata.entropy, c.metadata.redundancy) for c in chunks]))
+        return out
+
+    fast, fast_s, slow, slow_s = both_paths(chunk_and_diagnose)
+    worst = 0.0
+    for (mf, cf), (ms, cs) in zip(fast, slow):
+        if [c[:3] for c in cf] != [c[:3] for c in cs]:
+            raise AssertionError("chunk ids differ between the C++ path and the Python rule")
+        if (mf.token_count, mf.sentence_count, mf.token_distribution, mf.domain_scores) != (
+                ms.token_count, ms.sentence_count, ms.token_distribution, ms.domain_scores):
+            raise AssertionError("diagnostics counts differ between the paths")
+        diffs = [abs(getattr(mf, f) - getattr(ms, f)) for f in (
+            "entropy", "redundancy", "domain_density", "vocabulary_diversity", "coherence",
+            "complexity")] + [abs(mf.ngram_redundancy[g] - ms.ngram_redundancy[g])
+                              for g in (1, 2, 3)]
+        diffs += [abs(a - b) for x, y in zip(cf, cs) for a, b in zip(x[3:], y[3:])]
+        worst = max(worst, *diffs)
+    if worst > 1e-9:
+        raise AssertionError(f"diagnostics differ by {worst} > 1e-9 between the paths")
+    n_chunks = sum(len(c) for _, c in fast)
+    rec["chunk_diagnose"] = dict(docs=len(docs), chunks=n_chunks, cpp_s=fast_s,
+                                 python_s=slow_s, max_abs_diff=worst)
+    log(f"native[a]: chunker + diagnostics over {len(docs)} service documents "
+        f"({n_chunks} chunks): C++ {fast_s:.3f}s, Python {slow_s:.3f}s; chunk ids equal, "
+        f"metrics within {worst:.3g}")
+
+    cfg = PipelineConfig(fused_rerank=True, semantic_dtype="bfloat16")
+    cfg.semantic_dim = embedder.dim
+
+    def pipeline():
+        mgr = MultiIndexManager(cfg, embedder=embedder, device=dev)
+        return AdvancedRAGPipeline(cfg, index_manager=mgr, retriever=HybridRetriever(
+            mgr, cfg.retrieval, reranker=reranker))
+
+    # the first ingest into a fresh fused pipeline pays first-use costs that
+    # are not the text path's; a throwaway pipeline takes them before the
+    # two timed ones
+    warm = pipeline()
+    try:
+        warm.ingest_documents(docs[:16])
+        sync(dev)
+    finally:
+        warm.close()
+    pipes = [pipeline(), pipeline()]
+    try:
+        def ingest(pipe):
+            def run():
+                report = pipe.ingest_documents(docs)
+                sync(dev)
+                return report
+            return run
+
+        fast_s = both_paths(ingest(pipes[0]))[1]
+        slow_s = both_paths(ingest(pipes[1]))[3]
+        held = [p.index_manager.store.n_valid() for p in pipes]
+        if held[0] != held[1] or held[0] < len(docs):
+            raise AssertionError(f"the pipelines hold {held} chunks of {len(docs)} documents")
+        rec["pipeline_ingest"] = dict(cpp_s=fast_s, python_s=slow_s, chunks=held[0])
+        log(f"native[a]: pipeline ingest of {len(docs)} documents ({held[0]} chunks): "
+            f"C++ {fast_s:.3f}s, Python {slow_s:.3f}s")
+        mgr = pipes[0].index_manager
+        query = [probes[0][1]]
+
+        def fused():
+            out = mgr.fused_retrieve_batch_sync(query, reranker=reranker, **SERVE)
+            return [[(h["chunk_id"], h["score"], h["rerank_score"]) for h in hits]
+                    for hits in out]
+
+        fast, _, slow, _ = both_paths(fused)
+        if fast != slow or not fast[0]:
+            raise AssertionError("the fused Q=1 batch differs between the C++ path and "
+                                 "the Python rule")
+        # the host share needs the host ranges only: a CPU-activity profile,
+        # without CUDA tracing's cost on every launch of the batch
+        shares = {}
+        for label, switch in (("cpp", False), ("python", True)):
+            if switch:
+                os.environ[native.SWITCH] = "1"
+            try:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                    for _ in range(5):
+                        fused()
+            finally:
+                os.environ.pop(native.SWITCH, None)
+            enc = range_ms(prof, "encode_queries")
+            batch = range_ms(prof, "fused_retrieve_batch")
+            shares[label] = dict(encode_queries_ms=enc / 5, batch_ms=batch / 5,
+                                 share=enc / batch)
+        rec["fused_q1"] = shares
+        log("native[a]: fused Q=1 batch identical both ways; encode_queries share of the "
+            "batch (annotate ranges, 5 batches): " + ", ".join(
+                f"{k} {v['encode_queries_ms']:.4f} of {v['batch_ms']:.2f} ms ({v['share']:.5f})"
+                for k, v in shares.items()))
+    except BaseException:
+        for p in pipes:
+            p.close()
+        raise
+    pipes[1].close()
+    return rec, pipes[0]
+
+
+def phase_hnsw(launches, dev="cuda"):
+    """Phase 12 (b): the HNSW baseline against the exact bf16 (K1), SQ8 (K2)
+    and IVF bf16 (K5) tiers on scripts/bench_hnsw_parity.py's clustered
+    corpus: recall@10 against the f32 exact oracle, bytes per row, build
+    seconds, ms per query (HNSW: single queries on the host; the tiers: Q =
+    TIER_Q through timing.fetch_ms and timing.scanned_ms).  Each tier's
+    search and build run with the counters zeroed before and read after;
+    the timers run outside them.  Returns the record and the IVF tier's K5
+    cases on real probes."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.baselines import HNSWBaseline
+    from advanced_rag_tpu_torch.config import IndexConfig, IndexType, Metric
+    from advanced_rag_tpu_torch.index.dense_index import DenseIndex
+    from advanced_rag_tpu_torch.utils import timing
+
+    dev = torch.device(dev)
+    rec = {"host_cpus": os.cpu_count(), "affinity_cpus": len(os.sched_getaffinity(0))}
+    # tests/test_hnsw_baseline.py's checks at its geometry, and the cache
+    rng = np.random.default_rng(0)
+    n, d = HNSW_TEST_GEOMETRY
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    cache = Path(tempfile.mkdtemp(prefix="hnsw-", dir=BUILD_DIR))
+    try:
+        h = HNSWBaseline(v, M=16, ef_construction=200, seed=1, cache_path=cache / "g.bin")
+        self_hit = float((h.search(v[:32], 1, ef=64, normalize=False)[1][:, 0]
+                          == np.arange(32)).mean())
+        rng = np.random.default_rng(2)
+        q = v[rng.integers(0, n, 64)] + 0.03 * rng.standard_normal((64, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        oracle = np.argsort(-(q @ v.T), axis=1)[:, :10]
+        s_a, i_a = h.search(q, 10, ef=64, normalize=False)
+        small_recall = set_recall(i_a, oracle)
+        loaded = HNSWBaseline(v, M=16, ef_construction=200, seed=1, cache_path=cache / "g.bin")
+        s_b, i_b = loaded.search(q, 10, ef=64, normalize=False)
+        if not (np.array_equal(i_a, i_b) and np.array_equal(s_a, s_b)):
+            raise AssertionError("the HNSW graph loaded from its cache answers differently")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    if small_recall < 0.85 or self_hit < 0.95:
+        raise AssertionError(f"HNSW at {n}x{d}: recall {small_recall}, self-query {self_hit}")
+    rec["test_geometry"] = dict(n=n, d=d, recall_at_10=small_recall, self_query=self_hit)
+    log(f"native[b]: HNSW at {n}x{d}: recall@10 {small_recall:.4f} (>= 0.85), self-query "
+        f"{self_hit:.3f} (>= 0.95); the cached graph answers identically")
+
+    t = time.perf_counter()
+    n = HNSW_N
+    v, q, tune_q = parity_corpus(n, HNSW_D, HNSW_QUERIES)
+    vd = torch.from_numpy(v).to(dev)
+    oracle = torch.topk(torch.from_numpy(q).to(dev) @ vd.T, 10, dim=1).indices.cpu().numpy()
+    del vd
+    log(f"native[b]: clustered corpus {n}x{HNSW_D} ({max(256, n // 500)} centres), "
+        f"{HNSW_QUERIES} queries and the f32 oracle in {time.perf_counter() - t:.2f}s")
+    t = time.perf_counter()
+    h = HNSWBaseline(v, **HNSW_KNOBS, normalize=False)
+    build_s = time.perf_counter() - t
+    if build_s > HNSW_BUILD_LIMIT_S:
+        raise AssertionError(f"the HNSW build took {build_s:.1f}s at N={n}, over "
+                             f"{HNSW_BUILD_LIMIT_S}s: halve HNSW_N")
+    h.search(q[0], 10, ef=HNSW_EF, normalize=False)
+    ids = np.empty((len(q), 10), np.int32)
+    times = []
+    for i in range(len(q)):
+        t = time.perf_counter()
+        ids[i] = h.search(q[i], 10, ef=HNSW_EF, normalize=False)[1][0]
+        times.append((time.perf_counter() - t) * 1e3)
+    rows = {"hnsw": dict(recall_at_10=set_recall(ids, oracle),
+                         bytes_per_row=h.memory_bytes() / n, build_s=build_s,
+                         ms_per_query=float(np.median(times)),
+                         mean_ms_per_query=float(np.mean(times)), max_level=h.max_level,
+                         where="host, single queries", **HNSW_KNOBS, ef=HNSW_EF)}
+    del h
+    q_dev = torch.from_numpy(q[:TIER_Q]).to(dev).contiguous()
+    k5_cases = []
+    for name, dtype, ivf, key in (("exact-bf16", "bfloat16", False, "K1"),
+                                  ("exact-sq8", "int8", False, "K2"),
+                                  ("ivf-bf16", "bfloat16", True, "K5")):
+        sync(dev)
+        reset_counters()
+        cfg = IndexConfig(index_type=IndexType.SEMANTIC, dim=HNSW_D, metric=Metric.COSINE,
+                          dtype=dtype)
+        idx = DenseIndex(cfg, device=dev)
+        t = time.perf_counter()
+        idx.bulk_load(v, pre_normalized=True)
+        entry = {}
+        if ivf:
+            idx.build_ivf()
+            entry["nprobe"], entry["tune_recall"] = idx.tune_nprobe(
+                0.95, k=10, sample=64, queries=tune_q)
+            entry["nlist"] = int(idx._ivf.centroids.shape[0])
+        sync(dev)
+        entry["build_s"] = time.perf_counter() - t
+        got = np.concatenate([idx.search(q[s:s + 32], 10)[1].cpu().numpy()
+                              for s in range(0, len(q), 32)])
+        counts = read_counters()
+        if counts[key] == 0:
+            raise AssertionError(f"tier {name} did not run {key}: {counts}")
+        for k in KERNEL_KEYS:
+            launches[k] += counts[k]
+        entry.update(recall_at_10=set_recall(got, oracle),
+                     bytes_per_row=idx.memory_bytes() / n, launches=counts)
+        # the timers, outside the counted window: fetch_ms of the whole
+        # search (the SQ8 tier's exact re-rank of its candidates is host
+        # work), scanned_ms of its device part
+        bound_mask = idx._bound()
+        fetch = [timing.fetch_ms(lambda: idx.search(q_dev, 10), small=lambda r: r[1])
+                 for _ in range(REPEATS)][2:]
+        entry["fetch_ms_per_query"] = float(np.median(fetch)) / TIER_Q
+        entry["scanned_ms_per_query"] = timing.scanned_ms(
+            lambda eps, qq: idx._search_device(qq + eps, 10, bound_mask),
+            operands=(q_dev,), device=str(dev)) / TIER_Q
+        if ivf:
+            k5_cases = real_probe_cases(idx._ivf, torch.from_numpy(q[:32]).to(dev),
+                                        idx.config.nprobe)
+        rows[name] = entry
+        del idx
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if rows["exact-bf16"]["recall_at_10"] < 0.99:
+        raise AssertionError(f"exact bf16 recall@10 {rows['exact-bf16']['recall_at_10']}")
+    rec.update(n=n, d=HNSW_D, queries=HNSW_QUERIES, rows=rows)
+    for name, r in rows.items():
+        ms = (f"{r['ms_per_query']:.4f} ms/query (median, single queries on the host)"
+              if name == "hnsw" else
+              f"fetch {r['fetch_ms_per_query']:.4f} / device {r['scanned_ms_per_query']:.5f} "
+              f"ms/query at Q={TIER_Q}")
+        log(f"native[b]: {name:10s} recall@10 {r['recall_at_10']:.4f}, "
+            f"{r['bytes_per_row']:.1f} B/row, build {r['build_s']:.2f}s, {ms}"
+            + (f", nprobe {r['nprobe']} of {r['nlist']}" if "nprobe" in r else ""))
+    return rec, k5_cases
+
+
+def phase_timers(mgr, reranker, texts, launches, dev="cuda"):
+    """Phase 12 (c): timing.scanned_ms of K1 (bf16, N = MAIN_N, Q = 32) within
+    10% of graph_ms of the same call; chained_ms and fetch_ms of it at least
+    its device time; a device_trace around one fused Q = 8 batch names the
+    annotated ranges and K1's and K3's kernels."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.ops import dense_kernels as dk
+    from advanced_rag_tpu_torch.ops.dense import l2_normalize, mask_additive
+    from advanced_rag_tpu_torch.utils import timing
+    from advanced_rag_tpu_torch.utils.profiling import device_trace
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    n, d, nq = MAIN_N, 384, 32
+    rows = l2_normalize(torch.randn(n, d, generator=gen, device=dev)).to(torch.bfloat16)
+    m = mask_additive(torch.rand(n, generator=gen, device=dev) >= 1.0 / 3.0, n, dev)
+    q = l2_normalize(torch.randn(nq, d, generator=gen, device=dev)).contiguous()
+    rec = dict(shape=f"bf16 rows N={n} D={d} Q={nq}")
+    rec["graph_ms"] = graph_ms(lambda: dk.dense_scores(q, rows, m))
+    rec["scanned_ms"] = timing.scanned_ms(lambda eps, qq: dk.dense_scores(qq + eps, rows, m),
+                                          rounds=20, operands=(q,), device=str(dev))
+    rec["graph_ms_after"] = graph_ms(lambda: dk.dense_scores(q, rows, m))
+    rec["chained_ms"] = timing.chained_ms(lambda i, eps: dk.dense_scores(q + eps, rows, m),
+                                          rounds=20)
+    rec["fetch_ms"] = timing.fetch_ms(lambda: dk.dense_scores(q, rows, m),
+                                      small=lambda s: s[:, :1])
+    device = min(rec["graph_ms"], rec["graph_ms_after"])
+    rec["scanned_vs_graph"] = rec["scanned_ms"] / device - 1.0
+    log(f"timers[c]: K1 {rec['shape']}: scanned_ms {rec['scanned_ms']:.4f}, graph_ms "
+        f"{rec['graph_ms']:.4f} / {rec['graph_ms_after']:.4f} (scanned {rec['scanned_vs_graph']:+.3f}), "
+        f"chained_ms {rec['chained_ms']:.4f}, fetch_ms {rec['fetch_ms']:.4f}")
+    if abs(rec["scanned_vs_graph"]) > 0.10:
+        raise AssertionError(f"scanned_ms {rec['scanned_ms']} is not within 10% of graph_ms "
+                             f"{device}")
+    if rec["chained_ms"] < device or rec["fetch_ms"] < device:
+        raise AssertionError("chained_ms or fetch_ms read less than the device time")
+    del rows, m
+    trace_dir = Path(tempfile.mkdtemp(prefix="trace-", dir=BUILD_DIR))
+    try:
+        rng = np.random.default_rng(67)
+        queries = snippet_queries(rng, texts, 8)
+        sync(dev)
+        reset_counters()
+        with device_trace(str(trace_dir)):
+            out = mgr.fused_retrieve_batch_sync(queries, reranker=reranker, **SERVE)
+            sync(dev)
+        counts = read_counters()
+        for k in KERNEL_KEYS:
+            launches[k] += counts[k]
+        if len(out) != 8:
+            raise AssertionError("the traced batch returned the wrong number of queries")
+        traces = list(trace_dir.glob("trace_*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"device_trace wrote {len(traces)} traces")
+        names = {e.get("name", "") for e in _json.loads(traces[0].read_text())["traceEvents"]}
+        rec["trace_bytes"] = traces[0].stat().st_size
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    ranges = ("fused_retrieve_batch", "tokenize_queries", "encode_queries",
+              "retrieve_rerank", "hydrate")
+    missing = [r for r in ranges if r not in names]
+    kernels = {k: sorted(nm for nm in names if pat in nm.lower())[:2]
+               for k, pat in (("K1", "dense_scores_kernel"), ("K3", "bm25_scores_kernel"))}
+    if missing or not all(kernels.values()):
+        raise AssertionError(f"the trace misses ranges {missing} or kernels {kernels}")
+    rec.update(trace_ranges=list(ranges), trace_kernels=kernels, launches=counts)
+    log(f"timers[c]: device_trace of a fused Q=8 batch ({rec['trace_bytes']} bytes) names "
+        f"{list(ranges)} and kernels {kernels}; launches {counts}")
+    return rec
+
+
+def phase_host_native(texts, embedder, reranker, dev="cuda"):
+    """Phase 12: (a) the C++ text path, (b) HNSW against the tiers, (c) the
+    timers and traces.  Returns the record, the launches of its paths and
+    the K5 cases of (b)'s IVF tier."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNEL_KEYS, 0)
+    rec = {}
+    t = time.perf_counter()
+    rec["a"], pipe = phase_text_path(texts, embedder, reranker, dev)
+    rec["a"]["seconds"] = time.perf_counter() - t
+    try:
+        t = time.perf_counter()
+        rec["b"], k5_cases = phase_hnsw(launches, dev)
+        rec["b"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["c"] = phase_timers(pipe.index_manager, reranker, texts, launches, dev)
+        rec["c"]["seconds"] = time.perf_counter() - t
+    finally:
+        pipe.close()
+    for key in ("K1", "K2", "K3", "K5"):
+        if launches[key] == 0:
+            raise AssertionError(f"phase 12 launched no {key}: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"native: phase 12 took {rec['seconds']:.2f}s ((a) {rec['a']['seconds']:.2f}s, "
+        f"(b) {rec['b']['seconds']:.2f}s, (c) {rec['c']['seconds']:.2f}s); launches {launches}")
+    return rec, launches, k5_cases
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -4020,6 +4543,8 @@ def main() -> None:
         training, training_cases = phase_training(texts, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    host_native, native_launches, native_k5 = phase_host_native(texts, embedder, reranker)
+    kernel_results["K5"] += native_k5
     for key, cases in list(lifecycle_cases.items()) + list(training_cases.items()):
         kernel_results[key] += cases
     for rec in (manager_tiers["ivf"], tiers_1m["ivf-bf16"], tiers_1m["ivf-sq8"]):
@@ -4039,7 +4564,7 @@ def main() -> None:
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
     for key in KERNEL_KEYS:
-        launches[key] += sharded_launches[key]
+        launches[key] += sharded_launches[key] + native_launches[key]
 
     meta = {
         "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "dense_scan.cu", True),
@@ -4077,7 +4602,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
                       "manager_tiers": manager_tiers, "service": service,
                       "lifecycle": lifecycle, "training": training, "sharded": sharded,
-                      "nvidia_smi": smi}), flush=True)
+                      "host_native": host_native, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

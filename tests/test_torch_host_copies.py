@@ -3,9 +3,11 @@ originals, on the same seeded inputs.
 
 Each case runs one module's public surface in both packages and compares
 what comes out.  Bounds: exact for ids, strings, counts and states; the
-diagnostics and chunk statistics within 1e-12 absolute (the JAX package
-computes them for ASCII text in C++, the port in Python; 300 seeded
-documents differed by at most 7e-16); numpy float results of the
+diagnostics and chunk statistics within 1e-12 absolute (both packages
+compute them for ASCII text in C++, and in Python under
+ADVANCED_RAG_TPU_NO_NATIVE=1, the "-python" cases; when the port ran
+Python against the JAX package's C++, 300 seeded documents differed by
+at most 7e-16); numpy float results of the
 evaluator and rankers within 1e-12 relative.  Timestamps, uuids and
 other clock-dependent fields are left out of the comparison.
 """
@@ -13,6 +15,7 @@ other clock-dependent fields are left out of the comparison.
 import concurrent.futures
 import dataclasses
 import enum
+import os
 import random
 
 import numpy as np
@@ -118,6 +121,22 @@ def run_chunker(mod_c, mod_d, strategy, texts):
 
 def run_diagnostics(mod, texts):
     return [plain(mod.DocumentDiagnostics().analyze_document(t)) for t in texts]
+
+
+def python_rule(runner):
+    """``runner`` under ADVANCED_RAG_TPU_NO_NATIVE=1: both packages run
+    their Python rule instead of their C++ fast path."""
+    def run(*args):
+        before = os.environ.get("ADVANCED_RAG_TPU_NO_NATIVE")
+        os.environ["ADVANCED_RAG_TPU_NO_NATIVE"] = "1"
+        try:
+            return runner(*args)
+        finally:
+            if before is None:
+                del os.environ["ADVANCED_RAG_TPU_NO_NATIVE"]
+            else:
+                os.environ["ADVANCED_RAG_TPU_NO_NATIVE"] = before
+    return run
 
 
 QUERIES = [
@@ -276,6 +295,11 @@ CASES = {
                           docs(3, 40), (0.0, 1e-12)),
     "diagnostics-nonascii": (run_diagnostics, j_diagnostics, t_diagnostics,
                              docs(4, 20, nonascii=True), (0.0, 1e-12)),
+    "chunker-python": (python_rule(lambda m, t: run_chunker(*m, "sentence", t)),
+                       (j_chunking, j_diagnostics), (t_chunking, t_diagnostics),
+                       docs(8, 30), (0.0, 1e-12)),
+    "diagnostics-python": (python_rule(run_diagnostics), j_diagnostics, t_diagnostics,
+                           docs(9, 30), (0.0, 1e-12)),
     "query-ops": (run_query_ops, j_query_ops, t_query_ops, None, (0.0, 0.0)),
     "enrichment": (run_enrichment, j_enrichment, t_enrichment, docs(5, 20),
                    (0.0, 0.0)),

@@ -9,6 +9,9 @@ kernels are built.
   ``device="cpu"``; with no card they raise instead of moving to the CPU.
 - The kernels build with one nvcc call for sm_90a from sources that
   include no PyTorch header.
+- The host C++ (native/, baselines/) and the timing and profiling helpers
+  are modules of the port, their libraries build into build/native/, and
+  chip_smoke.py's phase 12 drives them.
 """
 
 import os
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 import advanced_rag_tpu_torch
-from advanced_rag_tpu_torch import _build, resolve_device
+from advanced_rag_tpu_torch import _build, native, resolve_device
 from advanced_rag_tpu_torch.config import PipelineConfig
 from advanced_rag_tpu_torch.index.manager import MultiIndexManager
 from advanced_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
@@ -216,3 +219,20 @@ def test_find_nvcc_raises_without_a_toolkit(monkeypatch):
     monkeypatch.setenv("PATH", "")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
+
+
+def test_host_native_code_and_timers_are_modules_of_the_port():
+    mods = set(port_modules())
+    for name in ("native", "baselines", "baselines.hnsw", "utils.timing", "utils.profiling"):
+        assert f"advanced_rag_tpu_torch.{name}" in mods, name
+    assert native.BUILD_DIR == REPO / "build" / "native"
+    for src in ("text_native.cpp", "hnsw_native.cpp"):
+        assert (native.SRC_DIR / src).is_file()
+        assert native.SRC_DIR == REPO / "advanced_rag_tpu_torch" / "native"
+    assert native.TEXT_FLAGS == ["-O3", "-shared", "-fPIC", "-std=c++17"]
+    smoke = (REPO / "chip_smoke.py").read_text()
+    main = smoke[smoke.index("def main()"):]
+    assert "def phase_host_native(" in smoke and "phase_host_native(" in main
+    for name in ("encode_documents", "encode_queries", "DocumentDiagnostics", "HNSWBaseline",
+                 "scanned_ms", "chained_ms", "fetch_ms", "device_trace"):
+        assert name in smoke, name
