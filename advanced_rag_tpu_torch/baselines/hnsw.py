@@ -35,6 +35,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.art_hnsw_memory_bytes.restype = i64
     lib.art_hnsw_max_level.argtypes = [p]
     lib.art_hnsw_max_level.restype = i32
+    lib.art_hnsw_rows.argtypes = [p]
+    lib.art_hnsw_rows.restype = i64
+    lib.art_hnsw_dim.argtypes = [p]
+    lib.art_hnsw_dim.restype = i32
     lib.art_hnsw_free.argtypes = [p]
     lib.art_hnsw_free.restype = None
     lib.art_hnsw_save.argtypes = [p, ctypes.c_char_p]
@@ -62,8 +66,9 @@ class HNSWBaseline:
 
     Knobs default to the reference's semantic collection
     (indexing.py:150-153): M=16, ef_construction=200, search ef=64.
-    With ``cache_path``, a graph saved there is loaded instead of built,
-    and a graph built is saved there.
+    With ``cache_path``, a graph saved there is loaded instead of built
+    (it must hold as many rows, as wide, as ``vectors``), and a graph
+    built is saved there.
     """
 
     def __init__(self, vectors: np.ndarray, *, M: int = 16,
@@ -81,6 +86,12 @@ class HNSWBaseline:
             self._idx = lib.art_hnsw_load(str(cache_path).encode())
             if not self._idx:
                 raise RuntimeError(f"not an HNSW graph file: {cache_path}")
+            shape = (int(lib.art_hnsw_rows(self._idx)), int(lib.art_hnsw_dim(self._idx)))
+            if shape != (self.n, self.dim):
+                lib.art_hnsw_free(self._idx)
+                self._idx = None
+                raise ValueError(f"the graph in {cache_path} holds {shape[0]} rows "
+                                 f"{shape[1]} wide, the vectors are {self.n} x {self.dim}")
             return
         self._idx = lib.art_hnsw_build(v.ctypes.data, self.n, self.dim, M,
                                        ef_construction, seed)

@@ -16,14 +16,6 @@ is then renamed into place, so two processes building at once cannot
 leave a torn file.  A failed build raises with the command and the
 compiler's output: there is no silent fallback.  The one switch that
 selects the Python rule is ``ADVANCED_RAG_TPU_NO_NATIVE=1``.
-
-A ``ctypes.CDLL`` call releases the interpreter lock and must win it back
-when it returns; while another thread runs Python (the service's event
-loop beside its batch dispatcher), that wait lasts up to the switch
-interval (5 ms by default), against tens of microseconds for a query
-batch or one document.  So the calls on the query and per-document paths
-hold the lock (``ctypes.PyDLL``), and ``encode_documents``, which takes
-seconds on a bulk batch, releases it so that other threads run meanwhile.
 """
 
 from __future__ import annotations
@@ -48,7 +40,7 @@ TEXT_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 SWITCH = "ADVANCED_RAG_TPU_NO_NATIVE"
 
 _lock = threading.Lock()
-_libs: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 #: seconds each library's g++ call took in this process (absent when the
 #: library was already built); chip_smoke.py prints them
 build_seconds: Dict[str, float] = {}
@@ -106,18 +98,15 @@ def build_library(src: Path, flags: Sequence[str], key: str = "") -> Path:
     return out
 
 
-def load(name: str, flags: Sequence[str], bind, key: str = "", *,
-         hold_gil: bool = False) -> ctypes.CDLL:
+def load(name: str, flags: Sequence[str], bind, key: str = "") -> ctypes.CDLL:
     """The library of ``SRC_DIR/<name>.cpp``, built on first use, with
-    ``bind(lib)`` setting its argtypes; its calls keep the interpreter lock
-    with ``hold_gil`` (``ctypes.PyDLL``) and release it otherwise."""
+    ``bind(lib)`` setting its argtypes."""
     with _lock:
-        lib = _libs.get((name, hold_gil))
+        lib = _libs.get(name)
         if lib is None:
-            path = build_library(SRC_DIR / f"{name}.cpp", flags, key)
-            lib = (ctypes.PyDLL if hold_gil else ctypes.CDLL)(str(path))
+            lib = ctypes.CDLL(str(build_library(SRC_DIR / f"{name}.cpp", flags, key)))
             bind(lib)
-            _libs[(name, hold_gil)] = lib
+            _libs[name] = lib
         return lib
 
 
@@ -138,8 +127,8 @@ def _bind_text(lib: ctypes.CDLL) -> None:
     lib.art_analyze_document.restype = None
 
 
-def text_lib(hold_gil: bool = True) -> ctypes.CDLL:
-    return load("text_native", TEXT_FLAGS, _bind_text, hold_gil=hold_gil)
+def text_lib() -> ctypes.CDLL:
+    return load("text_native", TEXT_FLAGS, _bind_text)
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -156,9 +145,8 @@ def _pack(texts: Sequence[str]) -> Tuple[bytes, np.ndarray]:
 def encode_documents_native(
     texts: Sequence[str], vocab_size: int, doc_nnz: int,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """``index.text.encode_documents`` of ASCII ``texts`` in C++, with the
-    interpreter lock released (a bulk batch takes seconds)."""
-    lib = text_lib(hold_gil=False)
+    """``index.text.encode_documents`` of ASCII ``texts`` in C++."""
+    lib = text_lib()
     buf, offsets = _pack(texts)
     n = len(texts)
     doc_idx = np.full((n, doc_nnz), -1, np.int32)

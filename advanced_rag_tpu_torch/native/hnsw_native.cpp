@@ -475,6 +475,12 @@ int64_t art_hnsw_memory_bytes(HnswIndex* idx) {
 
 int32_t art_hnsw_max_level(HnswIndex* idx) { return idx->max_level; }
 
+// the graph's rows and width, for checking a loaded file against the
+// vectors it is meant to index
+int64_t art_hnsw_rows(HnswIndex* idx) { return idx->n; }
+
+int32_t art_hnsw_dim(HnswIndex* idx) { return idx->dim; }
+
 void art_hnsw_free(HnswIndex* idx) { delete idx; }
 
 }  // extern "C"

@@ -136,6 +136,17 @@ def test_bad_cache_file_raises(tmp_path):
         HNSWBaseline(np.eye(4, dtype=np.float32), M=4, cache_path=path)
 
 
+@pytest.mark.parametrize("shape", [(64, 12), (48, 16)], ids=["wider", "fewer-rows"])
+def test_cache_file_of_another_shape_raises(tmp_path, shape):
+    rng = np.random.default_rng(5)
+    path = tmp_path / "graph.bin"
+    HNSWBaseline(rng.standard_normal((64, 16)).astype(np.float32), M=4,
+                 ef_construction=16, cache_path=path)
+    other = rng.standard_normal(shape).astype(np.float32)
+    with pytest.raises(ValueError, match="holds 64 rows 16 wide"):
+        HNSWBaseline(other, M=4, ef_construction=16, cache_path=path)
+
+
 def test_build_is_keyed_by_host_and_raises_on_failure(monkeypatch, tmp_path):
     from advanced_rag_tpu_torch import native
 

@@ -54,6 +54,7 @@ def port_modules():
 #: of the sharded tests
 CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py",
                 REPO / "scripts" / "torch_nccl_one_card.py",
+                REPO / "scripts" / "torch_service_ab.py",
                 REPO / "tests" / "torch_dist_worker.py"]
 
 

@@ -299,26 +299,25 @@ def test_library_is_keyed_by_source_flags_and_host(tmp_path):
     assert t_native.host_key()
 
 
-def test_short_calls_keep_the_interpreter_lock(monkeypatch):
-    """The query and per-document entry points hold the lock (a released
-    one is won back only after a busy thread's switch interval); the bulk
-    document encode releases it."""
+def test_one_library_handle_serves_every_entry_point(monkeypatch):
+    """The text library loads once, as one ``ctypes.CDLL`` (as the JAX
+    package loads it), and every entry point calls through that handle."""
     monkeypatch.delenv("ADVANCED_RAG_TPU_NO_NATIVE", raising=False)
-    assert isinstance(t_native.text_lib(), ctypes.PyDLL)
-    assert not isinstance(t_native.text_lib(hold_gil=False), ctypes.PyDLL)
+    lib = t_native.text_lib()
+    assert type(lib) is ctypes.CDLL and t_native.text_lib() is lib
     calls = []
     real = t_native.text_lib
 
-    def spy(hold_gil=True):
-        calls.append(hold_gil)
-        return real(hold_gil=hold_gil)
+    def spy():
+        calls.append(1)
+        return real()
 
     monkeypatch.setattr(t_native, "text_lib", spy)
     t_text.encode_queries(["alpha beta"], 4096, 8)
+    t_text.encode_documents(["alpha beta"], 4096, 8)
     t_native.split_sentences_native("One. Two.")
     t_native.quick_stats_native("one two")
     t_native.text_stats_native("one two")
     t_native.analyze_document_native("One. Two.", t_diag.DocumentDiagnostics().lexicons)
-    assert calls == [True] * 5
-    t_text.encode_documents(["alpha beta"], 4096, 8)
-    assert calls[-1] is False
+    assert len(calls) == 6
+    assert [k for k in t_native._libs if k.startswith("text_native")] == ["text_native"]
