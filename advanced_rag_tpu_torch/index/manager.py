@@ -112,16 +112,20 @@ class MultiIndexManager:
                             dim=self.domain_embedder.dim, metric=Metric.COSINE),
                 device=dev)
         # the token table: the text column on the device, which the fused
-        # retrieve program gathers the reranker's candidates from
+        # retrieve program gathers the reranker's candidates from.  It holds
+        # hashing ids, so an embedder with another tokenizer (an HF
+        # checkpoint's WordPiece) gets none and the pipeline takes its
+        # default path (JAX builds the table with it; its first ingest fails)
         self.token_table = None
         if self.config.fused_rerank:
             from ..models.tokenizer import HashingTokenizer, TokenizerConfig
             from .token_table import TokenTable
 
-            tok = getattr(self.embedder, "tokenizer", None) or \
-                HashingTokenizer(TokenizerConfig())
-            self.token_table = TokenTable(
-                tok, max_len=self.config.fused_token_len, device=dev)
+            tok = getattr(self.embedder, "tokenizer", None)
+            if tok is None or isinstance(tok, HashingTokenizer):
+                self.token_table = TokenTable(
+                    tok or HashingTokenizer(TokenizerConfig()),
+                    max_len=self.config.fused_token_len, device=dev)
         self._dev_scalars: Dict[Any, torch.Tensor] = {}
         self._default_reranker: Any = None
         self._semantic_cache = semantic_cache_ or semantic_cache

@@ -1,0 +1,91 @@
+"""HF-checkpoint embedder: the port of
+``advanced_rag_tpu/models/hf_embedder.py``.
+
+A local BERT-family checkpoint (e.g. a MiniLM sentence-transformer) as a
+mean-pooled, L2-normalised embedder on the card, under the ``Embedder``
+interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
+nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
+directory, ``hf_tokenizer.py`` tokenizes as ``BertTokenizerFast`` does and
+``hf_bert.py`` runs the encoder.
+"""
+
+from __future__ import annotations
+
+import uuid
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import DeviceLike, resolve_device
+from .hf_bert import BertModel
+from .hf_checkpoint import load_checkpoint
+from .hf_tokenizer import WordPieceTokenizer
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    b = 1
+    while b < n and b < max_batch:
+        b *= 2
+    return min(b, max_batch)
+
+
+def check_max_len(max_len: int, positions: int, path) -> None:
+    # JAX's position gather clamps past the table; the port refuses
+    if max_len > positions:
+        raise ValueError(f"max_len {max_len} exceeds the {positions} "
+                         f"positions of {path}")
+
+
+class HFEmbedder:
+    """Mean-pooled sentence embedder from a local HF checkpoint; ``dtype``
+    is the compute dtype (weights stay f32)."""
+
+    def __init__(self, path, *, max_len: int = 128, max_batch: int = 64,
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.tokenizer = WordPieceTokenizer.from_pretrained(path)
+        config, state = load_checkpoint(path, head=False, pooler=False)
+        check_max_len(max_len, config.max_position_embeddings, path)
+        model = BertModel(config, pooler=False, dtype=dtype)
+        model.load_state_dict(state)
+        self.model = model.to(self.device).eval()
+        self.max_len = max_len
+        self.max_batch = max_batch
+        self.dim = int(config.hidden_size)
+        # per-instance cache identity (JAX's class has none): two
+        # checkpoints of one width must never exchange cached embeddings
+        self.cache_tag = f"hf{self.dim}-{uuid.uuid4().hex[:12]}"
+
+    def _tokenize(self, texts: Sequence[str], batch: int):
+        enc = self.tokenizer(list(texts), max_length=self.max_len)
+        ids, mask = enc["input_ids"], enc["attention_mask"]
+        if ids.shape[0] < batch:
+            pad = ((0, batch - ids.shape[0]), (0, 0))
+            ids, mask = np.pad(ids, pad), np.pad(mask, pad)
+        return ids, mask
+
+    @torch.inference_mode()
+    def encode_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """[len(texts), dim] f32 on the device, without a host copy."""
+        b = _bucket(max(len(texts), 1), self.max_batch)
+        ids, mask = (torch.from_numpy(a).to(self.device)
+                     for a in self._tokenize(texts, b))
+        hidden, _ = self.model(ids, mask, torch.zeros_like(ids))
+        m = mask[:, :, None].float()
+        pooled = torch.sum(hidden.float() * m, dim=1) / torch.clamp(
+            torch.sum(m, dim=1), min=1.0)
+        norm = torch.sqrt(torch.sum(pooled * pooled, dim=-1, keepdim=True))
+        return (pooled / torch.clamp(norm, min=1e-12))[: len(texts)]
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        if len(texts) == 0:
+            return np.zeros((0, self.dim), np.float32)
+        out = np.zeros((len(texts), self.dim), np.float32)
+        for pos in range(0, len(texts), self.max_batch):
+            chunk = list(texts[pos: pos + self.max_batch])
+            out[pos: pos + len(chunk)] = self.encode_device(chunk).cpu().numpy()
+        return out
+
+
+__all__ = ["HFEmbedder"]

@@ -37,6 +37,7 @@ from .. import DeviceLike, resolve_device
 from ..config import PipelineConfig
 from ..index.corpus import ChunkRecord
 from ..index.manager import MultiIndexManager
+from ..models.encoder import CrossEncoder
 from ..utils.constants import PerformanceConstants as PC
 from .chunking import AdaptiveChunker, content_hash
 from .compliance import ComplianceManager
@@ -208,13 +209,17 @@ class AdvancedRAGPipeline:
         """One-dispatch retrieve+rerank is used when configured AND all
         its pieces are live: a token table, a neural embedder, and a
         neural cross-encoder reranker on the retriever (bf16/f32/SQ8
-        tiers)."""
+        tiers).  The reranker must be the fused program's own
+        (``models/encoder.py``); an HF embedder gets no token table.  HF
+        checkpoints (``hf_embedder.py``, ``hf_cross_encoder.py``) thus take
+        the default path, where JAX's gate sends them into a program that
+        fails on them."""
         return (self.config.fused_rerank
                 and self.config.enable_reranking
                 and self.index_manager.token_table is not None
                 and hasattr(self.index_manager.embedder, "model")
-                and self.retriever.reranker is not None
-                and hasattr(self.retriever.reranker, "model")
+                and isinstance(getattr(self.retriever.reranker, "model", None),
+                               CrossEncoder)
                 and not self.index_manager.semantic.has_ivf
                 and not self.index_manager.semantic._pq_mode)
 

@@ -9,8 +9,9 @@ JAX package's orbax ones); ``/admin/index/checkpoint`` saves and restores
 the index (``utils/checkpoint.py``, the JAX package's format) and a boot
 with ``RAG_CHECKPOINT_DIR`` restores it, raising if that fails (the JAX
 service logs and starts empty); ``/admin/index/maintain`` runs the
-manager's maintenance pass.  ``RAG_RERANKER=hf:`` raises at startup: HF
-cross-encoders are ROADMAP.md queue A item 6.
+manager's maintenance pass.  ``RAG_RERANKER=hf:<dir>`` serves a local
+BERT-family sequence-classification checkpoint (``models/hf_cross_encoder.py``,
+read without ``transformers``).
 
 Capability parity with reference service.py (FastAPI, 799 LoC):
 - request-ID middleware (:97-105), API-key auth (:275-280),
@@ -93,11 +94,6 @@ def _json_error(status: int, message: str, request_id: str = "") -> web.Response
     )
 
 
-def _not_ported(what: str, item: int) -> str:
-    return (f"{what} is not ported to advanced_rag_tpu_torch yet "
-            f"(ROADMAP.md, queue A item {item})")
-
-
 class ServiceState:
     """Everything the handlers share; built at startup."""
 
@@ -110,12 +106,6 @@ class ServiceState:
         # CUDA kernels are built once into build/kernels/ by _build.py.
         self.config = config or self._config_from_env()
         rk_env = os.environ.get("RAG_RERANKER", "")
-        # the one model kind the port cannot load yet, where the JAX
-        # service would use it (a wired reranker is kept)
-        if ((pipeline is None or pipeline.retriever.reranker is None)
-                and rk_env.lower().startswith("hf:")):
-            raise NotImplementedError(
-                _not_ported("RAG_RERANKER=hf: (HF cross-encoders)", 6))
         dev = resolve_device(device) if pipeline is None else pipeline.device
         # Preload a ckpt reranker before the manager builds the device
         # token table: the table truncates every chunk to fused_token_len
@@ -311,8 +301,8 @@ class ServiceState:
         return cfg
 
     def _wire_rerankers(self) -> None:
-        """RAG_RERANKER env: cross_encoder | ckpt:<dir> | learned |
-        passthrough (the hf: kind raises in __init__ until it is ported)."""
+        """RAG_RERANKER env: cross_encoder | ckpt:<dir> | hf:<dir> |
+        learned | passthrough."""
         kind = os.environ.get("RAG_RERANKER", "").lower()
         retriever = self.pipeline.retriever
         if (self.config.fused_rerank and not kind
@@ -329,6 +319,12 @@ class ServiceState:
             retriever.reranker = (self._preloaded_reranker
                                   or self._load_reranker(
                                       os.environ["RAG_RERANKER"][5:], self.device))
+        elif kind.startswith("hf:") and retriever.reranker is None:
+            from ..models.hf_cross_encoder import HFCrossEncoder
+
+            # a local ms-marco-class checkpoint (JAX app.py:333-338)
+            retriever.reranker = HFCrossEncoder(
+                os.environ["RAG_RERANKER"][3:], device=self.device)
         elif kind == "learned" and retriever.learned_ranker is None:
             from ..pipeline.ranker import LearnedRanker
 
@@ -882,8 +878,8 @@ async def index_stats(request: web.Request) -> web.Response:
 async def index_checkpoint(request: web.Request) -> web.Response:
     """Persist or restore the full index state (``utils/checkpoint.py``).
     Body: {"dir": "/path", "action": "save"|"load"}.  A restore needs an
-    empty manager (a fresh boot), as ``load_index`` does; a saved OPQ or
-    IVF-PQ tier answers 501 (ROADMAP.md, queue A items 4 and 5)."""
+    empty manager (a fresh boot), as ``load_index`` does; every tier the
+    JAX package saves, OPQ and IVF-PQ included, restores."""
     state: ServiceState = request.app["state"]
     if not _auth_ok(state, request):
         return _json_error(401, "invalid API key", request["request_id"])
@@ -946,8 +942,6 @@ async def index_checkpoint(request: web.Request) -> web.Response:
                            request["request_id"])
     except (ValueError, FileNotFoundError) as exc:
         return _json_error(409, str(exc), request["request_id"])
-    except NotImplementedError as exc:
-        return _json_error(501, str(exc), request["request_id"])
 
 
 def _maintain(state: "ServiceState", body: Dict[str, Any]) -> Dict[str, Any]:

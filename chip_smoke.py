@@ -162,6 +162,24 @@ Phases, each printing its elapsed seconds:
    Q = 32) within 10% of graph_ms, chained_ms and fetch_ms at least the
    device time, and a profiling.device_trace of a fused Q = 8 batch
    naming the annotate ranges and K1's and K3's kernels.
+13. the HF checkpoint models (phase_hf, after phase 12): (a) an embedder
+   (BertModel) and a reranker (BertForSequenceClassification, one label)
+   at MiniLM-L6's geometry (HF_GEOMETRY: 384 wide, 6 layers, 12 heads,
+   FFN 1536, 512 positions, a 30,522-entry vocab.txt of BERT-uncased's
+   layout holding phase 4's corpus words) written in HF format from
+   seeded generators (config.json, tokenizer_config.json, a
+   model.safetensors of this script's own writer); (b) HFEmbedder.encode
+   and HFCrossEncoder.score_pairs on the card against the same classes
+   with device="cpu" on HF_PARITY_TEXTS texts: f32 within HF_TOL, the
+   bf16 distance recorded; (d) encode at HF_BATCH x 128 tokens and rerank
+   HF_BATCH pairs at 256 tokens, f32 and bf16, whole call and forward;
+   (c) a bf16-tier manager with the HF embedder ingests HF_CHUNKS of
+   phase 4's chunks, and the port's app with RAG_RERANKER=hf: answers
+   HF_REQUESTS /retrieve requests from 1 and from 8 clients: every answer
+   a 200 with finite, reranked scores; then, after /admin/warmup puts the
+   latency budgets in force, 8 clients again, the answers shed past the
+   budgets counted; K1 and K3 launched (then held against their plain
+   versions on the manager's tensors); peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -4534,6 +4552,361 @@ def phase_host_native(texts, embedder, reranker, dev="cuda"):
     return rec, launches, k5_cases
 
 
+# -- phase 13: the HF checkpoint models (models/hf_*.py) -----------------------
+
+#: sentence-transformers/all-MiniLM-L6-v2's and
+#: cross-encoder/ms-marco-MiniLM-L-6-v2's geometry (BERT, uncased WordPiece)
+HF_GEOMETRY = dict(vocab_size=30522, hidden_size=384, num_hidden_layers=6,
+                   num_attention_heads=12, intermediate_size=1536,
+                   max_position_embeddings=512, type_vocab_size=2)
+HF_CHUNKS = 20_000
+HF_PARITY_TEXTS = 256
+HF_BATCH = 64
+HF_REQUESTS = 64
+HF_CLIENTS = (1, 8)
+HF_TOL = 1e-4                  # card vs CPU, f32, max |err|
+
+
+def hf_vocab():
+    """A vocab.txt of HF_GEOMETRY's size laid out as BERT-uncased's:
+    [PAD], [unused0-98], [UNK], [CLS], [SEP], [MASK], more [unused], the
+    printable ASCII characters and their ## pieces, then phase 4's corpus
+    words (synthetic_corpus's vocabulary) by frequency."""
+    import numpy as np
+
+    words, _ = zipf_vocab(np.random.default_rng(11))
+    out = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+           + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+           + [f"[unused{i}]" for i in range(99, 994)])
+    chars = [chr(c) for c in range(33, 127)]
+    out += chars + ["##" + c for c in chars]
+    seen = set(out)
+    for w in words.tolist():
+        if len(out) == HF_GEOMETRY["vocab_size"]:
+            break
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out + [f"[unused{i}]" for i in range(994, 994 + HF_GEOMETRY["vocab_size"]
+                                                 - len(out))]
+
+
+def write_safetensors(path, state):
+    """``state`` (f32 tensors) as one safetensors file: an 8-byte header
+    length, the JSON header, the raw little-endian bytes."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name, t in state.items():
+        b = t.detach().float().contiguous().cpu().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def write_hf_checkpoint(path, head: bool, seed: int):
+    """An HF BERT checkpoint at HF_GEOMETRY: config.json, vocab.txt,
+    tokenizer_config.json and model.safetensors with weights drawn from a
+    seeded torch.Generator (N(0, 0.02); LayerNorm scales 1 + N(0, 0.05)).
+    ``head``: BertForSequenceClassification with one label, else BertModel
+    (with its pooler, as all-MiniLM-L6-v2 ships)."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_bert import (BertForSequenceClassification,
+                                                       BertModel)
+    from advanced_rag_tpu_torch.models.hf_checkpoint import BertConfig
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.txt").write_text("\n".join(hf_vocab()) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}))
+    cfg = dict(model_type="bert", hidden_act="gelu", layer_norm_eps=1e-12,
+               position_embedding_type="absolute", pad_token_id=0,
+               architectures=["BertForSequenceClassification" if head else "BertModel"],
+               **HF_GEOMETRY)
+    if head:
+        cfg["id2label"] = {"0": "LABEL_0"}
+    (path / "config.json").write_text(json.dumps(cfg, indent=2))
+    config = BertConfig(**HF_GEOMETRY, num_labels=1)
+    names = (BertForSequenceClassification(config) if head
+             else BertModel(config)).state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, p in names.items():
+        n = torch.randn(p.shape, generator=gen)
+        state[name] = 1.0 + 0.05 * n if name.endswith("LayerNorm.weight") else 0.02 * n
+    write_safetensors(path / "model.safetensors", state)
+
+
+def hf_parity(root, docs, queries, dev):
+    """(b): each model on the card against the same module on the CPU, f32
+    within HF_TOL; the bf16 distance from the CPU's f32 is recorded."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    rec = {}
+    for kind, cls, run in (
+            ("embed", HFEmbedder, lambda m: m.encode(docs)),
+            ("rerank", HFCrossEncoder, lambda m: m.score_pairs(queries, docs))):
+        path = root / ("emb" if kind == "embed" else "ce")
+        t = time.perf_counter()
+        want = run(cls(path, device="cpu"))
+        rec[f"{kind}_cpu_s"] = time.perf_counter() - t
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            got = run(cls(path, dtype=dtype, device=dev))
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"hf {kind} {name}: shape {got.shape} or "
+                                     "non-finite values")
+            rec[f"{kind}_{name}_max_abs_err"] = float(np.abs(got - want).max())
+        rec[f"{kind}_scale"] = float(np.abs(want).max())
+        if rec[f"{kind}_float32_max_abs_err"] > HF_TOL:
+            raise AssertionError(f"hf {kind}: the card's f32 differs from the CPU's "
+                                 f"by {rec[f'{kind}_float32_max_abs_err']} > {HF_TOL}")
+    norms = np.linalg.norm(HFEmbedder(root / "emb", device=dev).encode(docs[:8]), axis=1)
+    if not np.allclose(norms, 1.0, atol=1e-5):
+        raise AssertionError(f"hf embeddings are not unit vectors: {norms}")
+    log("hf: card vs CPU on " + f"{len(docs)} texts: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in rec.items()))
+    return rec
+
+
+def hf_throughput(root, texts, queries, dev):
+    """(d): encode at HF_BATCH x 128 tokens and rerank HF_BATCH pairs at
+    256 tokens, f32 and bf16: the whole call (tokenization, the forward,
+    the pooling) on the host clock and the model's forward alone in CUDA
+    events, after warm-up."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    # two 100-word chunks fill the embedder's 128 tokens, three a pair's 256
+    docs = [f"{texts[i]} {texts[i + 1]}" for i in range(1, 2 * HF_BATCH, 2)]
+    pairs_d = [" ".join(texts[i:i + 3]) for i in range(1, 3 * HF_BATCH, 3)]
+    rec = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        emb = HFEmbedder(root / "emb", dtype=dtype, device=dev)
+        ce = HFCrossEncoder(root / "ce", dtype=dtype, device=dev)
+        e_in = [torch.from_numpy(a).to(dev) for a in emb._tokenize(docs, HF_BATCH)]
+        c_in = [torch.from_numpy(a).to(dev)
+                for a in ce._tokenize(queries[:HF_BATCH], pairs_d, HF_BATCH)]
+        if not (bool(e_in[1].all()) and bool(c_in[1].all())):
+            raise AssertionError("hf throughput batches are not full length")
+        with torch.inference_mode():
+            fwd_e = cuda_ms(lambda: emb.model(e_in[0], e_in[1], torch.zeros_like(e_in[0])))
+            fwd_c = cuda_ms(lambda: ce.model(*c_in))
+        whole = {}
+        for key, call in (("encode", lambda: emb.encode_device(docs)),
+                          ("rerank", lambda: ce.score_pairs(queries[:HF_BATCH], pairs_d))):
+            call()
+            sync(dev)
+            t = time.perf_counter()
+            for _ in range(10):
+                call()
+            sync(dev)
+            whole[key] = (time.perf_counter() - t) / 10 * 1e3
+        rec[name] = dict(
+            encode_ms=whole["encode"], encode_texts_per_s=HF_BATCH / whole["encode"] * 1e3,
+            encode_forward_ms=fwd_e, rerank_ms=whole["rerank"],
+            rerank_pairs_per_s=HF_BATCH / whole["rerank"] * 1e3, rerank_forward_ms=fwd_c)
+        log(f"hf[{name}]: encode {HF_BATCH} x {emb.max_len} tokens "
+            f"{whole['encode']:.2f} ms ({rec[name]['encode_texts_per_s']:.0f} texts/s; "
+            f"forward {fwd_e:.3f} ms); rerank {HF_BATCH} pairs x {ce.max_len} tokens "
+            f"{whole['rerank']:.2f} ms ({rec[name]['rerank_pairs_per_s']:.0f} pairs/s; "
+            f"forward {fwd_c:.3f} ms)")
+    return rec
+
+
+def hf_service(root, texts, queries, dev):
+    """(c): a bf16-tier manager with the HF embedder ingests HF_CHUNKS of
+    phase 4's chunks; the port's app, RAG_RERANKER=hf: wiring the HF
+    cross-encoder into that pipeline, answers HF_REQUESTS /retrieve
+    requests from each of HF_CLIENTS clients, where every answer must be a
+    200 with finite reranked scores.  Then /admin/warmup puts the service's
+    latency budgets in force (the retriever's degrade-to-empty, the
+    endpoint's timeout) and the last level runs again as "warm-8": answers
+    past the budgets are shed (an empty 200, a 504, a 503 once the breaker
+    opens, a 429) and counted, not failed.  K1 and K3 must run (counters
+    zeroed just before the ingest, read after the load) and then match
+    their plain versions on the manager's own tensors."""
+    import numpy as np
+
+    from advanced_rag_tpu_torch.config import PipelineConfig
+    from advanced_rag_tpu_torch.index.manager import MultiIndexManager
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+    from advanced_rag_tpu_torch.pipeline import AdvancedRAGPipeline
+    from advanced_rag_tpu_torch.utils.db_pool import DatabasePool
+
+    cfg = PipelineConfig(semantic_dtype="bfloat16")
+    emb = HFEmbedder(root / "emb", device=dev)
+    cfg.semantic_dim = emb.dim
+    mgr = MultiIndexManager(cfg, embedder=emb, device=dev)
+    pipe = AdvancedRAGPipeline(cfg, index_manager=mgr, device=dev)
+    rec = {}
+    reset_counters()
+    t = time.perf_counter()
+    ingest_all(mgr, texts[:HF_CHUNKS])
+    sync(dev)
+    rec["ingest_s"] = time.perf_counter() - t
+    rec["chunks"] = mgr.store.n_valid()
+    log(f"hf: {rec['chunks']} chunks through index_chunks with the HF embedder in "
+        f"{rec['ingest_s']:.2f}s")
+    saved = {k: os.environ.get(k) for k in (*SERVICE_ENV, "API_KEY", "RAG_RERANKER")}
+    os.environ.update(SERVICE_ENV, RAG_RERANKER=f"hf:{root / 'ce'}")
+    os.environ.pop("API_KEY", None)
+
+    async def go():
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from advanced_rag_tpu_torch.service import create_app
+
+        client = TestClient(TestServer(create_app(
+            cfg, pipeline=pipe, db=DatabasePool(sqlite_path=str(BUILD_DIR / "service_hf.db")))))
+        await client.start_server()
+        try:
+            if not isinstance(pipe.retriever.reranker, HFCrossEncoder):
+                raise AssertionError("RAG_RERANKER=hf: wired no HF cross-encoder")
+            if pipe._use_fused_path():
+                raise AssertionError("the HF pipeline took the fused path")
+
+            async def one(q, shed_ok):
+                """(ms, "200" or how the answer was shed)"""
+                t0 = time.perf_counter()
+                resp = await client.post("/retrieve", json={"query": q,
+                                                            "top_k": SERVICE_TOP_K})
+                body = await resp.json()
+                ms = (time.perf_counter() - t0) * 1e3
+                scores = [r["score"] for r in body.get("results") or []]
+                if shed_ok and (resp.status in (429, 503, 504)
+                                or (resp.status == 200 and not scores)):
+                    return ms, "empty" if resp.status == 200 else str(resp.status)
+                if resp.status != 200 or not scores or not np.isfinite(scores).all():
+                    raise AssertionError(f"/retrieve answered {resp.status} with "
+                                         f"{len(scores)} results: {str(body)[:300]}")
+                if not all("rerank_score" in r["metadata"] for r in body["results"]):
+                    raise AssertionError("the HF reranker did not score the results")
+                return ms, "200"
+
+            async def client_run(qs, shed_ok):
+                return [await one(q, shed_ok) for q in qs]
+
+            async def level(name, conc, qs, shed_ok=False):
+                per = HF_REQUESTS // conc
+                before = {k: len(v) for k, v in pipe._stage_latencies.items()}
+                before["retrieve"] = len(pipe._retrieve_latencies)
+                t0 = time.perf_counter()
+                runs = await asyncio.gather(*[client_run(qs[c * per:(c + 1) * per], shed_ok)
+                                              for c in range(conc)])
+                wall = time.perf_counter() - t0
+                ms = np.asarray([m for r in runs for m, _ in r])
+                kinds = [k for r in runs for _, k in r]
+                served = np.asarray([m for r in runs for m, k in r if k == "200"])
+                # the pipeline's own p50s of this level: retrieve and its stages
+                stages = {}
+                for key, n0 in before.items():
+                    vals = (pipe._retrieve_latencies if key == "retrieve"
+                            else pipe._stage_latencies[key])[n0:]
+                    if vals:
+                        stages[key] = float(np.percentile(vals, 50))
+                rec = dict(requests=int(ms.size), p50_ms=float(np.percentile(ms, 50)),
+                           p99_ms=float(np.percentile(ms, 99)),
+                           requests_per_s=ms.size / wall, pipeline_p50_ms=stages,
+                           answers={k: kinds.count(k) for k in sorted(set(kinds))},
+                           shed=int(ms.size - served.size),
+                           served_p99_ms=(float(np.percentile(served, 99))
+                                          if served.size else None))
+                log(f"hf: /retrieve {name} from {conc} client(s): {ms.size} requests "
+                    f"{rec['answers']}, p50 {rec['p50_ms']:.2f} ms, p99 "
+                    f"{rec['p99_ms']:.2f} ms, {rec['requests_per_s']:.1f} requests/s; "
+                    "pipeline p50 ms " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+                return rec
+
+            for q in queries[:8]:                      # warm-up
+                await one(q, False)
+            out, qi = {}, 8
+            for conc in HF_CLIENTS:
+                out[conc] = await level("cold", conc, queries[qi:qi + HF_REQUESTS])
+                qi += HF_REQUESTS
+            resp = await client.post("/admin/warmup", json={"top_k": [SERVICE_TOP_K]})
+            if resp.status != 200:
+                raise AssertionError(f"/admin/warmup answered {resp.status}")
+            if not pipe.is_warm(queries[qi], SERVICE_TOP_K):
+                raise AssertionError("the HF app is not warm after /admin/warmup")
+            out[f"warm-{HF_CLIENTS[-1]}"] = await level(
+                "warm", HF_CLIENTS[-1], queries[qi:qi + HF_REQUESTS], shed_ok=True)
+            qi += HF_REQUESTS
+            sync(dev)
+            launches = read_counters()
+            if launches["K1"] == 0 or launches["K3"] == 0:
+                raise AssertionError(f"the HF path ran no K1 or K3: {launches}")
+            kernels = check_served_tensors(mgr, queries[qi:qi + 32])
+            return out, launches, kernels
+        finally:
+            await client.close()     # on_shutdown closes the pipeline
+
+    try:
+        rec["retrieve"], launches, rec["kernels"] = asyncio.run(go())
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["launches"] = launches
+    log(f"hf: launches {launches}; against the plain versions on its tensors "
+        f"{rec['kernels']}")
+    return rec, launches
+
+
+def phase_hf(texts, dev="cuda"):
+    """Phase 13: the HF checkpoint models on the card at MiniLM-L6's width.
+    (a) an embedder (BertModel) and a reranker (BertForSequenceClassification,
+    one label) written in HF format from seeded generators; (b) each on the
+    card against the CPU; (d) encode and rerank throughput; (c) ingest and
+    /retrieve through the port's app with RAG_RERANKER=hf:.  Returns the
+    record and (c)'s launches."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    base = memory_mark() if dev == "cuda" else 0
+    rec = {}
+    root = Path(tempfile.mkdtemp(prefix="hf-", dir=BUILD_DIR))
+    try:
+        t = time.perf_counter()
+        write_hf_checkpoint(root / "emb", head=False, seed=41)
+        write_hf_checkpoint(root / "ce", head=True, seed=43)
+        rec["write_s"] = time.perf_counter() - t
+        log(f"hf: two MiniLM-L6 checkpoints written in {rec['write_s']:.2f}s "
+            f"({(root / 'emb' / 'model.safetensors').stat().st_size / 1e6:.1f} + "
+            f"{(root / 'ce' / 'model.safetensors').stat().st_size / 1e6:.1f} MB)")
+        rng = np.random.default_rng(47)
+        docs = [texts[i] for i in rng.choice(HF_CHUNKS, HF_PARITY_TEXTS, replace=False)]
+        queries = snippet_queries(rng, texts[:HF_CHUNKS], HF_PARITY_TEXTS + 8
+                                  + (len(HF_CLIENTS) + 1) * HF_REQUESTS + 32)
+        rec["parity"] = hf_parity(root, docs, queries[:HF_PARITY_TEXTS], dev)
+        rec["throughput"] = hf_throughput(root, texts, queries, dev)
+        rec["service"], launches = hf_service(root, texts, queries[HF_PARITY_TEXTS:], dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"hf: phase 13 took {rec['seconds']:.2f}s; peak device memory "
+        f"{rec['peak_gb']} GB beyond the earlier phases'")
+    return rec, launches
+
+
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
@@ -4574,6 +4947,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     host_native, native_launches, native_k5 = phase_host_native(texts, embedder, reranker)
+    hf, hf_launches = phase_hf(texts)
     kernel_results["K5"] += native_k5
     for key, cases in list(lifecycle_cases.items()) + list(training_cases.items()):
         kernel_results[key] += cases
@@ -4594,7 +4968,7 @@ def main() -> None:
             for key in KERNEL_KEYS:
                 launches[key] += rec["launches"][key]
     for key in KERNEL_KEYS:
-        launches[key] += sharded_launches[key] + native_launches[key]
+        launches[key] += sharded_launches[key] + native_launches[key] + hf_launches[key]
 
     meta = {
         "K1": ("advanced_rag_tpu/ops/pallas_dense.py:39", "dense_scan.cu", True),
@@ -4632,7 +5006,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "main_path": tiers, "tiers_1m": tiers_1m,
                       "manager_tiers": manager_tiers, "service": service,
                       "lifecycle": lifecycle, "training": training, "sharded": sharded,
-                      "host_native": host_native, "nvidia_smi": smi}), flush=True)
+                      "host_native": host_native, "hf": hf, "nvidia_smi": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

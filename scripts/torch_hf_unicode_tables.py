@@ -1,0 +1,138 @@
+"""Print the Unicode tables of ``advanced_rag_tpu_torch/models/hf_tokenizer.py``.
+
+The ``tokenizers`` crate that ``BertTokenizerFast`` runs classifies
+characters with its own Unicode tables, which are older than Python's
+``unicodedata`` in some places (categories) and newer in others (Rust's
+lowercase mapping).  This script finds, over every code point, where the
+port's rules built on ``unicodedata`` and the crate's BERT normalizer and
+pre-tokenizer disagree, and prints the code points where the crate's
+answer has to be taken instead, as the ``_CRATE_*`` literals that
+``hf_tokenizer.py`` carries.
+
+It needs ``tokenizers`` (installed beside ``transformers``), so it runs on
+a machine with the JAX package's dependencies, never on the card's:
+
+    python scripts/torch_hf_unicode_tables.py
+
+``tests/test_torch_hf_tokenizer.py::test_every_code_point_matches_the_crate``
+holds the tables against the crate over every code point.
+"""
+
+from __future__ import annotations
+
+import sys
+import unicodedata
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from tokenizers import normalizers, pre_tokenizers  # noqa: E402
+
+CODE_POINTS = [c for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
+
+
+def ranges(cps: Iterable[int]) -> List[Tuple[int, int]]:
+    out: List[List[int]] = []
+    for c in sorted(cps):
+        if out and out[-1][1] == c - 1:
+            out[-1][1] = c
+        else:
+            out.append([c, c])
+    return [(lo, hi) for lo, hi in out]
+
+
+def shift_runs(mapping: Dict[int, int]) -> List[Tuple[int, int, int]]:
+    """(lo, hi, delta) runs of consecutive code points sharing a delta."""
+    out: List[List[int]] = []
+    for c in sorted(mapping):
+        d = mapping[c] - c
+        if out and out[-1][1] == c - 1 and out[-1][2] == d:
+            out[-1][1] = c
+        else:
+            out.append([c, c, d])
+    return [tuple(r) for r in out]
+
+
+def crate_tables() -> Dict[str, object]:
+    def norm(**flags):
+        return normalizers.BertNormalizer(
+            **{"clean_text": False, "handle_chinese_chars": False,
+               "strip_accents": False, "lowercase": False, **flags})
+
+    clean, strip, lower = (norm(clean_text=True), norm(strip_accents=True),
+                           norm(lowercase=True))
+    pre = pre_tokenizers.BertPreTokenizer()
+    nfd = normalizers.NFD()
+    control, mn, punct, low, nfd_whole = set(), set(), set(), {}, set()
+    for c in CODE_POINTS:
+        ch = chr(c)
+        if clean.normalize_str(ch) == "" and ch not in " \t\n\r":
+            control.add(c)
+        if strip.normalize_str(ch) == "":
+            mn.add(c)
+        lo = lower.normalize_str(ch)
+        if len(lo) == 1 and lo != ch.lower():
+            low[c] = ord(lo)
+        elif len(lo) != 1 and lo != ch.lower():
+            raise SystemExit(f"U+{c:04X}: lowercase {lo!r} is not one character")
+        crate_nfd, py_nfd = nfd.normalize_str(ch), unicodedata.normalize("NFD", ch)
+        if crate_nfd != py_nfd:
+            if crate_nfd != ch or unicodedata.combining(ch):
+                raise SystemExit(f"U+{c:04X}: NFD {crate_nfd!r} against {py_nfd!r}")
+            nfd_whole.add(c)
+        words = [w for w, _ in pre.pre_tokenize_str(f"x{ch}y")]
+        if words == ["x", ch, "y"]:
+            punct.add(c)
+    py_control = {c for c in CODE_POINTS
+                  if unicodedata.category(chr(c)) in ("Cc", "Cf", "Co", "Cs")
+                  and chr(c) not in "\t\n\r"}
+    # the port strips after NFD, so a character that decomposes is judged
+    # by its pieces: the tables hold characters the crate's NFD leaves alone
+    whole = [c for c in CODE_POINTS
+             if unicodedata.normalize("NFD", chr(c)) == chr(c) or c in nfd_whole]
+    mn &= set(whole)
+    py_mn = {c for c in whole if unicodedata.category(chr(c)) == "Mn"}
+    py_punct = {c for c in CODE_POINTS
+                if unicodedata.category(chr(c)).startswith("P")
+                or 33 <= c <= 47 or 58 <= c <= 64 or 91 <= c <= 96
+                or 123 <= c <= 126}
+    if control - py_control - {0xFFFD}:
+        raise SystemExit("the crate drops characters unicodedata does not "
+                         f"call control: {ranges(control - py_control)}")
+    return {
+        "_CRATE_NOT_CONTROL": ranges(py_control - control),
+        "_CRATE_MN": ranges(mn - py_mn),
+        "_CRATE_NOT_MN": ranges(py_mn - mn),
+        "_CRATE_PUNCT": ranges(punct - py_punct),
+        "_CRATE_NOT_PUNCT": ranges(py_punct - punct),
+        "_CRATE_LOWER": shift_runs(low),
+        # starters (combining class 0) NFD decomposes and the crate does not
+        "_CRATE_NFD_WHOLE": ranges(nfd_whole),
+    }
+
+
+def literal(name: str, runs) -> str:
+    """``name = (...)`` as hf_tokenizer.py holds it, 79 columns wide."""
+    items = ["(" + ", ".join(f"{v:#x}" if i < 2 else str(v)
+                             for i, v in enumerate(r)) + ")" for r in runs]
+    one = f"{name} = ({', '.join(items)}{',' if len(items) == 1 else ''})"
+    if len(one) <= 79:
+        return one
+    lines, cur = [f"{name} = ("], "   "
+    for item in items:
+        if len(cur) + len(item) + 2 > 79:
+            lines.append(cur)
+            cur = "   "
+        cur += f" {item},"
+    return "\n".join([*lines, cur, ")"])
+
+
+def main() -> None:
+    print(f"# unicodedata {unicodedata.unidata_version}")
+    for name, runs in crate_tables().items():
+        print(literal(name, runs))
+
+
+if __name__ == "__main__":
+    main()

@@ -58,6 +58,12 @@ CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py",
                 REPO / "tests" / "torch_dist_worker.py"]
 
 
+#: top-level packages the port, chip_smoke.py and the card's scripts never
+#: import: the JAX stack, and the HF libraries the card's machine lacks
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "advanced_rag_tpu", "transformers",
+             "tokenizers", "safetensors", "huggingface_hub")
+
+
 def test_port_and_chip_smoke_import_no_jax():
     mods = port_modules()
     assert len(mods) >= 20
@@ -70,7 +76,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    spec.loader.exec_module(mod)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'advanced_rag_tpu'))\n"
+        f"{FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -81,9 +87,10 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_no_port_source_names_jax_at_module_level():
     """No file of the port, nor chip_smoke.py or a script that runs on the
-    card, imports jax, jaxlib, flax, orbax or the JAX package, at any
-    indentation (inside a function too)."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|advanced_rag_tpu)\b")
+    card, imports jax, jaxlib, flax, orbax, the JAX package or the HF
+    libraries the card's machine lacks, at any indentation (inside a
+    function too)."""
+    pat = re.compile(r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b")
     files = sorted((REPO / "advanced_rag_tpu_torch").rglob("*.py"))
     assert len(files) >= 20
     for path in files + [REPO / "chip_smoke.py"] + CARD_SCRIPTS:

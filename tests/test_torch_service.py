@@ -16,8 +16,8 @@ directory loading in the other package's app) and
 ``RAG_CHECKPOINT_DIR`` restores the saved corpus (and raises where the JAX
 app would start empty); ``RAG_EMBEDDER=ckpt:`` / ``RAG_RERANKER=ckpt:``
 boot from the JAX app's orbax checkpoints converted by
-``scripts/torch_convert_checkpoints.py``.  ``RAG_RERANKER=hf:`` still
-raises at startup.
+``scripts/torch_convert_checkpoints.py``; ``RAG_RERANKER=hf:`` is in
+tests/test_torch_hf_service.py.
 """
 
 import json
@@ -29,7 +29,6 @@ from aiohttp.test_utils import TestClient, TestServer
 from advanced_rag_tpu.service import create_app as j_create_app
 from advanced_rag_tpu.utils.db_pool import DatabasePool as JPool
 from advanced_rag_tpu.utils.rate_limit import RateLimiter as JLimiter
-from advanced_rag_tpu_torch.config import PipelineConfig
 from advanced_rag_tpu_torch.service import app as t_app
 from advanced_rag_tpu_torch.service import create_app as t_create_app
 from advanced_rag_tpu_torch.service import metrics as t_metrics
@@ -205,17 +204,6 @@ async def test_ported_routes_answer_with_the_jax_apps_keys(loop, tmp_path):
     finally:
         await jc.close()
         await tc.close()
-
-
-@pytest.mark.parametrize("env,item", [
-    (("RAG_RERANKER", "hf:/nowhere"), 6),
-])
-def test_not_ported_startup_paths_raise(tmp_path, monkeypatch, env, item):
-    name, value = env
-    monkeypatch.setenv(name, value)
-    monkeypatch.setenv("CHAT_DB_PATH", str(tmp_path / "c.db"))
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        t_create_app(PipelineConfig(), device="cpu")
 
 
 async def checkpoint(client, body):
