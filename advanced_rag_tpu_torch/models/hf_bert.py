@@ -28,17 +28,17 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .encoder import dense
-from .hf_checkpoint import BertConfig
+from .hf_checkpoint import HFConfig
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """Flax ``nn.LayerNorm(epsilon, dtype)`` with f32 parameters."""
     x = x.float()
     mean = x.mean(-1, keepdim=True)
@@ -46,7 +46,7 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.
     return ((x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias).to(dtype)
 
 
-def _activation(name: str):
+def activation(name: str):
     if name == "gelu":
         return partial(F.gelu, approximate="none")
     if name in ("gelu_new", "gelu_pytorch_tanh"):
@@ -57,25 +57,34 @@ def _activation(name: str):
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config: BertConfig):
+    """Word + token-type + position embeddings, then LayerNorm.  The
+    tables are taken in ``table_dtype`` (the compute dtype for BERT and
+    RoBERTa, whose Flax ``nn.Embed`` has ``dtype=``; f32 for ELECTRA's,
+    which has none) and summed in that order; ``positions`` [B, L] replaces
+    ``arange(L)`` (RoBERTa's offset ids)."""
+
+    def __init__(self, config: HFConfig, width: Optional[int] = None):
         super().__init__()
-        h = config.hidden_size
+        h = width or config.hidden_size
         self.word_embeddings = nn.Embedding(config.vocab_size, h)
         self.position_embeddings = nn.Embedding(config.max_position_embeddings, h)
         self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h)
         self.LayerNorm = nn.LayerNorm(h, eps=config.layer_norm_eps)
 
     def forward(self, ids: torch.Tensor, type_ids: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-        pos = torch.arange(ids.shape[1], device=ids.device)
-        x = (self.word_embeddings.weight.to(dtype)[ids]
-             + self.token_type_embeddings.weight.to(dtype)[type_ids]
-             + self.position_embeddings.weight.to(dtype)[pos][None])
-        return _layer_norm(x, self.LayerNorm, dtype)
+                dtype: torch.dtype, positions: Optional[torch.Tensor] = None,
+                table_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        td = dtype if table_dtype is None else table_dtype
+        pos = self.position_embeddings.weight.to(td)
+        pos = (pos[positions] if positions is not None
+               else pos[torch.arange(ids.shape[1], device=ids.device)][None])
+        x = (self.word_embeddings.weight.to(td)[ids]
+             + self.token_type_embeddings.weight.to(td)[type_ids] + pos)
+        return layer_norm(x, self.LayerNorm, dtype)
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         h = config.hidden_size
         self.heads = config.num_attention_heads
@@ -109,12 +118,12 @@ class _DenseNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-        return _layer_norm(dense(x, self.dense, dtype) + residual,
+        return layer_norm(dense(x, self.dense, dtype) + residual,
                            self.LayerNorm, dtype)
 
 
 class BertAttention(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         self.self = BertSelfAttention(config)
         self.output = _DenseNorm(config.hidden_size, config.hidden_size,
@@ -122,19 +131,19 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.intermediate_size)
 
 
 class BertLayer(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         self.attention = BertAttention(config)
         self.intermediate = BertIntermediate(config)
         self.output = _DenseNorm(config.intermediate_size, config.hidden_size,
                                  config.layer_norm_eps)
-        self.act = _activation(config.hidden_act)
+        self.act = activation(config.hidden_act)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
@@ -144,23 +153,33 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         self.layer = nn.ModuleList(BertLayer(config)
                                    for _ in range(config.num_hidden_layers))
 
 
 class BertPooler(nn.Module):
-    def __init__(self, config: BertConfig):
+    def __init__(self, config: HFConfig):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.hidden_size)
 
 
+def attention_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, 1, 1, L]: 0 where attended, ``finfo.min`` where masked, filled on
+    the device (a host scalar tensor copied over would wait for the
+    stream)."""
+    return torch.zeros((mask.shape[0], 1, 1, mask.shape[1]), dtype=dtype,
+                       device=mask.device).masked_fill_(mask[:, None, None, :] <= 0,
+                                                        torch.finfo(dtype).min)
+
+
 class BertModel(nn.Module):
     """The trunk: ``forward`` returns the last hidden state [B, L, H] in
-    ``dtype`` and, with the pooler, the pooled [CLS] [B, H]."""
+    ``dtype`` and, with the pooler, the pooled [CLS] [B, H] (else None).
+    The families that share BERT's encoder override ``embed``."""
 
-    def __init__(self, config: BertConfig, *, pooler: bool = True,
+    def __init__(self, config: HFConfig, *, pooler: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
@@ -169,15 +188,14 @@ class BertModel(nn.Module):
         self.encoder = BertEncoder(config)
         self.pooler = BertPooler(config) if pooler else None
 
+    def embed(self, ids: torch.Tensor, type_ids: torch.Tensor) -> torch.Tensor:
+        return self.embeddings(ids, type_ids, self.dtype)
+
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                type_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                type_ids: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         dt = self.dtype
-        x = self.embeddings(ids, type_ids, dt)
-        # 0 where attended, finfo.min where masked; filled on the device
-        # (a host scalar tensor copied over would wait for the stream)
-        bias = torch.zeros((ids.shape[0], 1, 1, ids.shape[1]), dtype=dt,
-                           device=x.device).masked_fill_(mask[:, None, None, :] <= 0,
-                                                         torch.finfo(dt).min)
+        x = self.embed(ids, type_ids)
+        bias = attention_bias(mask, dt)
         for layer in self.encoder.layer:
             x = layer(x, bias, dt)
         pooled = (torch.tanh(dense(x[:, 0], self.pooler.dense, dt))
@@ -188,7 +206,7 @@ class BertModel(nn.Module):
 class BertForSequenceClassification(nn.Module):
     """``forward`` returns the logits [B, num_labels] in ``dtype``."""
 
-    def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: HFConfig, *, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.bert = BertModel(config, pooler=True, dtype=dtype)
         self.classifier = nn.Linear(config.hidden_size, config.num_labels)
@@ -199,4 +217,20 @@ class BertForSequenceClassification(nn.Module):
         return dense(pooled, self.classifier, self.bert.dtype)
 
 
-__all__ = ["BertForSequenceClassification", "BertModel"]
+class ClassificationHead(nn.Module):
+    """RoBERTa's and ELECTRA's head on token 0: ``dense``, ``act``,
+    ``out_proj`` (no pooler on this path)."""
+
+    def __init__(self, config: HFConfig, act):
+        super().__init__()
+        self.dense = nn.Linear(config.hidden_size, config.hidden_size)
+        self.out_proj = nn.Linear(config.hidden_size, config.num_labels)
+        self.act = act
+
+    def forward(self, hidden: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return dense(self.act(dense(hidden[:, 0], self.dense, dtype)),
+                     self.out_proj, dtype)
+
+
+__all__ = ["BertForSequenceClassification", "BertModel", "ClassificationHead",
+           "attention_bias"]

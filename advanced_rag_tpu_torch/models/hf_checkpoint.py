@@ -1,10 +1,13 @@
-"""A local HF BERT checkpoint read without ``transformers``.
+"""A local HF encoder checkpoint read without ``transformers``.
 
-The port's copy of what ``from_pretrained`` does for the BERT family
-(``BertModel`` / ``BertForSequenceClassification``, e.g. a MiniLM
-sentence-transformer or ``cross-encoder/ms-marco-MiniLM-L-6-v2``):
+The port's copy of what ``from_pretrained`` does for the encoder families
+that JAX's ``FlaxAutoModel`` / ``FlaxAutoModelForSequenceClassification``
+load for a RAG deployment:
 
-- ``config.json``: ``model_type`` ``bert`` only, ``hidden_act`` ``gelu``
+- ``config.json``: ``model_type`` ``bert``, ``roberta``, ``xlm-roberta``,
+  ``electra`` or ``distilbert`` (``HFConfig``, one dataclass with the
+  families' fields; a key the file leaves out takes the default of
+  transformers' config class for the family), ``hidden_act`` ``gelu``
   (erf), ``gelu_new`` / ``gelu_pytorch_tanh`` (tanh) or ``relu``,
   ``position_embedding_type`` ``absolute``; anything else raises
   ``ValueError`` naming it;
@@ -14,9 +17,12 @@ sentence-transformer or ``cross-encoder/ms-marco-MiniLM-L-6-v2``):
   (``torch.load(weights_only=True)``), or the sharded ``*.index.json``
   form of either; a directory with ``flax_model.msgpack`` alone raises,
   naming ``scripts/torch_export_hf.py``, which converts it;
-- the names: legacy ``LayerNorm.gamma`` / ``beta`` become ``weight`` /
-  ``bias``, the ``position_ids`` buffer is dropped, and the ``bert.``
-  prefix is added or removed to fit the module (``bert_state``).
+- the names (``family_state``): legacy ``LayerNorm.gamma`` / ``beta``
+  become ``weight`` / ``bias``, the ``position_ids`` buffer is dropped, the
+  family's prefix (``bert.``, ``roberta.`` for RoBERTa and XLM-R,
+  ``electra.``, ``distilbert.``) is added or removed to fit the module, and
+  the weights of heads the module does not run (MLM, LM, discriminator)
+  are left out, as ``from_pretrained`` leaves them.
 """
 
 from __future__ import annotations
@@ -26,20 +32,41 @@ import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 ACTIVATIONS = ("gelu", "gelu_new", "gelu_pytorch_tanh", "relu")
+FAMILIES = ("bert", "roberta", "xlm-roberta", "electra", "distilbert")
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
            "BF16": torch.bfloat16, "I64": torch.int64}
 _EXPORT_HINT = ("convert it with scripts/torch_export_hf.py (where "
                 "transformers and Flax are installed), which writes "
                 "model.safetensors beside it")
+#: each family's weight prefix in a model with a head, and the top-level
+#: modules of its trunk
+_PREFIX = {"bert": "bert.", "roberta": "roberta.", "xlm-roberta": "roberta.",
+           "electra": "electra.", "distilbert": "distilbert."}
+_TRUNK = {"bert": ("embeddings.", "encoder."),
+          "roberta": ("embeddings.", "encoder."),
+          "xlm-roberta": ("embeddings.", "encoder."),
+          "electra": ("embeddings.", "embeddings_project.", "encoder."),
+          "distilbert": ("embeddings.", "transformer.")}
+#: the classification head's weights (DistilBERT serves as an embedder
+#: only, so its ``pre_classifier`` / ``classifier`` are always left out)
+_HEAD = {"bert": ("classifier.",),
+         "roberta": ("classifier.dense.", "classifier.out_proj."),
+         "xlm-roberta": ("classifier.dense.", "classifier.out_proj."),
+         "electra": ("classifier.dense.", "classifier.out_proj.")}
+# transformers' config classes' defaults, where a family's differ from
+# BertConfig's (DistilBERT's names are read in read_config)
+_DEFAULTS = {"roberta": dict(pad_token_id=1), "xlm-roberta": dict(pad_token_id=1),
+             "electra": dict(hidden_size=256, num_attention_heads=4,
+                             intermediate_size=1024, embedding_size=128)}
 
 
 @dataclass(frozen=True)
-class BertConfig:
+class HFConfig:
     vocab_size: int
     hidden_size: int
     num_hidden_layers: int
@@ -50,6 +77,20 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_act: str = "gelu"
     num_labels: int = 2
+    model_type: str = "bert"
+    #: RoBERTa / XLM-R: the padding id, which sets the position offset
+    pad_token_id: int = 0
+    #: ELECTRA: the embeddings' width (``hidden_size`` when None)
+    embedding_size: Optional[int] = None
+    #: DistilBERT: Flax's fixed sinusoidal table instead of the learned one
+    sinusoidal_pos_embds: bool = False
+
+    @property
+    def position_offset(self) -> int:
+        """How far past ``max_len - 1`` the position ids of a row reach:
+        RoBERTa's start at ``pad_token_id + 1``."""
+        return (self.pad_token_id + 1
+                if self.model_type in ("roberta", "xlm-roberta") else 0)
 
 
 def checkpoint_dir(path) -> Path:
@@ -60,36 +101,56 @@ def checkpoint_dir(path) -> Path:
     return path
 
 
-def read_config(path) -> BertConfig:
-    """``config.json`` of a BERT checkpoint; other families raise."""
-    cfg = json.loads((checkpoint_dir(path) / "config.json").read_text())
+def read_json(path) -> dict:
+    return json.loads(Path(path).read_text())
+
+
+def read_config(path) -> HFConfig:
+    """``config.json`` of an encoder checkpoint of one of ``FAMILIES``;
+    other families, and options the port does not run, raise."""
+    cfg = read_json(checkpoint_dir(path) / "config.json")
     model_type = cfg.get("model_type")
-    if model_type != "bert":
+    if model_type not in FAMILIES:
         raise ValueError(
             f"{path}: model_type {model_type!r} is not supported; the port "
-            "reads BERT-family checkpoints (model_type 'bert') only")
+            f"reads {', '.join(map(repr, FAMILIES))} checkpoints")
+    what = f"{path}: model_type {model_type!r}:"
+    if model_type == "distilbert":
+        cfg = dict(cfg, hidden_size=cfg.get("dim", 768),
+                   intermediate_size=cfg.get("hidden_dim", 3072),
+                   num_hidden_layers=cfg.get("n_layers", 6),
+                   num_attention_heads=cfg.get("n_heads", 12),
+                   hidden_act=cfg.get("activation", "gelu"),
+                   # no token types; Flax's LayerNorms take 1e-12 always
+                   type_vocab_size=0, layer_norm_eps=1e-12)
+    cfg = {**_DEFAULTS.get(model_type, {}), **cfg}
     act = cfg.get("hidden_act", "gelu")
     if act not in ACTIVATIONS:
-        raise ValueError(f"{path}: hidden_act {act!r} is not supported "
+        raise ValueError(f"{what} hidden_act {act!r} is not supported "
                          f"(supported: {', '.join(ACTIVATIONS)})")
     pos = cfg.get("position_embedding_type", "absolute")
     if pos != "absolute":
-        raise ValueError(f"{path}: position_embedding_type {pos!r} is not "
+        raise ValueError(f"{what} position_embedding_type {pos!r} is not "
                          "supported (only 'absolute')")
     if cfg.get("is_decoder"):
-        raise ValueError(f"{path}: a decoder (is_decoder) is not supported")
+        raise ValueError(f"{what} a decoder (is_decoder) is not supported")
     # as PretrainedConfig: id2label decides num_labels when it is written
     num_labels = (len(cfg["id2label"]) if cfg.get("id2label")
                   else int(cfg.get("num_labels", 2)))
-    return BertConfig(
-        vocab_size=int(cfg["vocab_size"]), hidden_size=int(cfg["hidden_size"]),
-        num_hidden_layers=int(cfg["num_hidden_layers"]),
-        num_attention_heads=int(cfg["num_attention_heads"]),
-        intermediate_size=int(cfg["intermediate_size"]),
-        max_position_embeddings=int(cfg["max_position_embeddings"]),
+    hidden = int(cfg.get("hidden_size", 768))
+    return HFConfig(
+        vocab_size=int(cfg.get("vocab_size", 30522)), hidden_size=hidden,
+        num_hidden_layers=int(cfg.get("num_hidden_layers", 12)),
+        num_attention_heads=int(cfg.get("num_attention_heads", 12)),
+        intermediate_size=int(cfg.get("intermediate_size", 3072)),
+        max_position_embeddings=int(cfg.get("max_position_embeddings", 512)),
         type_vocab_size=int(cfg.get("type_vocab_size", 2)),
         layer_norm_eps=float(cfg.get("layer_norm_eps", 1e-12)),
-        hidden_act=act, num_labels=num_labels)
+        hidden_act=act, num_labels=num_labels, model_type=model_type,
+        pad_token_id=int(cfg.get("pad_token_id") or 0),
+        embedding_size=(int(cfg.get("embedding_size", hidden))
+                        if model_type == "electra" else None),
+        sinusoidal_pos_embds=bool(cfg.get("sinusoidal_pos_embds", False)))
 
 
 def read_safetensors(file) -> Dict[str, torch.Tensor]:
@@ -174,19 +235,26 @@ def read_state_dict(path) -> Dict[str, torch.Tensor]:
     return out
 
 
-def bert_state(raw: Dict[str, torch.Tensor], *, head: bool,
-               pooler: bool = True) -> Dict[str, torch.Tensor]:
-    """``raw`` under the names of ``hf_bert.BertModel`` (``head=False``,
-    no ``bert.`` prefix) or ``BertForSequenceClassification`` (``bert.``
-    trunk plus ``classifier``), as f32; the weights of other heads (an MLM
-    or NSP head) are left out, as ``from_pretrained`` leaves them."""
+def family_state(raw: Dict[str, torch.Tensor], config: HFConfig, *,
+                 head: bool, pooler: bool = True) -> Dict[str, torch.Tensor]:
+    """``raw`` under the names of the family's trunk (``head=False``, no
+    prefix) or its sequence classifier (the prefixed trunk plus the
+    classification head), as f32.  BERT's trunk keeps its pooler unless
+    ``pooler`` is false (no other family's module runs one); DistilBERT's
+    learned position table is left out where Flax computes a sinusoidal
+    one; the weights of other heads are left out."""
+    family = config.model_type
+    prefix, trunk_parts = _PREFIX[family], _TRUNK[family]
+    if family == "bert" and pooler:
+        trunk_parts += ("pooler.",)
     out: Dict[str, torch.Tensor] = {}
     for name, t in raw.items():
-        trunk = name[len("bert."):] if name.startswith("bert.") else name
-        if trunk.startswith(("embeddings.", "encoder.")) or (
-                pooler and trunk.startswith("pooler.")):
-            key = f"bert.{trunk}" if head else trunk
-        elif head and name.startswith("classifier."):
+        trunk = name[len(prefix):] if name.startswith(prefix) else name
+        if config.sinusoidal_pos_embds and trunk == "embeddings.position_embeddings.weight":
+            continue
+        if trunk.startswith(trunk_parts):
+            key = f"{prefix}{trunk}" if head else trunk
+        elif head and name.startswith(_HEAD.get(family, ())):
             key = name
         else:
             continue
@@ -195,14 +263,14 @@ def bert_state(raw: Dict[str, torch.Tensor], *, head: bool,
 
 
 def load_checkpoint(path, *, head: bool, pooler: bool = True
-                    ) -> Tuple[BertConfig, Dict[str, torch.Tensor]]:
+                    ) -> Tuple[HFConfig, Dict[str, torch.Tensor]]:
     """The config and the f32 state of a checkpoint directory, named for
-    ``hf_bert.BertModel`` or, with ``head``, for
-    ``BertForSequenceClassification``."""
+    the family's trunk or, with ``head``, its sequence classifier."""
     config = read_config(path)
-    return config, bert_state(read_state_dict(path), head=head, pooler=pooler)
+    return config, family_state(read_state_dict(path), config, head=head,
+                                pooler=pooler)
 
 
-__all__ = ["ACTIVATIONS", "BertConfig", "bert_state", "checkpoint_dir",
-           "load_checkpoint",
-           "read_config", "read_safetensors", "read_state_dict"]
+__all__ = ["ACTIVATIONS", "FAMILIES", "HFConfig", "checkpoint_dir",
+           "family_state", "load_checkpoint", "read_config", "read_json",
+           "read_safetensors", "read_state_dict"]

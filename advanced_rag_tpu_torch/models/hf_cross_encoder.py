@@ -1,13 +1,22 @@
 """HF-checkpoint cross-encoder reranker: the port of
 ``advanced_rag_tpu/models/hf_cross_encoder.py``.
 
-A local BERT sequence-classification checkpoint (e.g.
-``cross-encoder/ms-marco-MiniLM-L-6-v2``) scores (query, document) pairs
-on the card with the ``score`` / ``score_pairs`` surface of
-``models/cross_encoder.py``, so it drops into the retriever's rerank stage
-(``RAG_RERANKER=hf:<path>``).  Pairs are ``[CLS] q [SEP] d [SEP]``
-truncated ``longest_first`` to ``max_len``; the score is the first logit
-in f32 (the relevance convention of one-label heads).
+A local sequence-classification checkpoint of the BERT, RoBERTa, XLM-R
+or ELECTRA family (e.g. ``cross-encoder/ms-marco-MiniLM-L-6-v2``,
+``cross-encoder/ms-marco-electra-base``, ``BAAI/bge-reranker-base``)
+scores (query, document) pairs on the card with the ``score`` /
+``score_pairs`` surface of ``models/cross_encoder.py``, so it drops into
+the retriever's rerank stage (``RAG_RERANKER=hf:<path>``).  Pairs are the
+family's template (``[CLS] q [SEP] d [SEP]``, ``<s> q </s></s> d </s>``)
+truncated ``longest_first`` to ``max_len``; where the tokenizer returns no
+token types (RoBERTa's, XLM-R's) zeros are fed, as JAX's class does; the
+score is the first logit in f32 (the relevance convention of one-label
+heads).
+
+A DistilBERT checkpoint raises ``ValueError`` here: JAX's class passes
+``token_type_ids=`` to ``FlaxDistilBertForSequenceClassification``, which
+takes none, so the reference raises ``TypeError`` at its first score, and
+the port serves no reranker the reference cannot.
 """
 
 from __future__ import annotations
@@ -19,9 +28,20 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from .hf_bert import BertForSequenceClassification
-from .hf_checkpoint import load_checkpoint
+from .hf_checkpoint import HFConfig, load_checkpoint, read_config
+from .hf_electra import ElectraForSequenceClassification
 from .hf_embedder import _bucket, check_max_len
-from .hf_tokenizer import WordPieceTokenizer
+from .hf_roberta import RobertaForSequenceClassification
+from .hf_tokenizer import load_tokenizer
+
+
+def build_classifier(config: HFConfig, dtype: torch.dtype):
+    """The family's sequence-classification module."""
+    if config.model_type in ("roberta", "xlm-roberta"):
+        return RobertaForSequenceClassification(config, dtype=dtype)
+    if config.model_type == "electra":
+        return ElectraForSequenceClassification(config, dtype=dtype)
+    return BertForSequenceClassification(config, dtype=dtype)
 
 
 class HFCrossEncoder:
@@ -31,10 +51,15 @@ class HFCrossEncoder:
     def __init__(self, path, *, max_len: int = 256, max_batch: int = 64,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.tokenizer = WordPieceTokenizer.from_pretrained(path)
+        if read_config(path).model_type == "distilbert":
+            raise ValueError(
+                f"{path}: a DistilBERT checkpoint does not serve as a "
+                "cross-encoder: the JAX reference passes token_type_ids, which "
+                "FlaxDistilBertForSequenceClassification does not take")
+        self.tokenizer = load_tokenizer(path)
         config, state = load_checkpoint(path, head=True)
-        check_max_len(max_len, config.max_position_embeddings, path)
-        model = BertForSequenceClassification(config, dtype=dtype)
+        check_max_len(max_len, config, path)
+        model = build_classifier(config, dtype)
         model.load_state_dict(state)
         self.model = model.to(self.device).eval()
         self.max_len = max_len
@@ -44,7 +69,9 @@ class HFCrossEncoder:
                   batch: int):
         enc = self.tokenizer(list(queries), list(documents),
                              max_length=self.max_len)
-        arrays = [enc[k] for k in ("input_ids", "attention_mask", "token_type_ids")]
+        types = enc.get("token_type_ids")
+        arrays = [enc["input_ids"], enc["attention_mask"],
+                  np.zeros_like(enc["input_ids"]) if types is None else types]
         if arrays[0].shape[0] < batch:
             pad = ((0, batch - arrays[0].shape[0]), (0, 0))
             arrays = [np.pad(a, pad) for a in arrays]

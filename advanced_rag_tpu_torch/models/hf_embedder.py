@@ -1,12 +1,18 @@
 """HF-checkpoint embedder: the port of
 ``advanced_rag_tpu/models/hf_embedder.py``.
 
-A local BERT-family checkpoint (e.g. a MiniLM sentence-transformer) as a
+A local encoder checkpoint (e.g. a MiniLM, all-distilroberta or
+msmarco-distilbert sentence-transformer, an XLM-R multilingual-e5) as a
 mean-pooled, L2-normalised embedder on the card, under the ``Embedder``
 interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
 nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
-directory, ``hf_tokenizer.py`` tokenizes as ``BertTokenizerFast`` does and
-``hf_bert.py`` runs the encoder.
+directory (``model_type`` bert, roberta, xlm-roberta, electra or
+distilbert), ``hf_tokenizer.load_tokenizer`` tokenizes as the family's
+fast tokenizer does and ``hf_bert.py`` / ``hf_roberta.py`` /
+``hf_electra.py`` / ``hf_distilbert.py`` run the encoder.
+
+The token types fed to the trunk are what ``FlaxAutoModel`` fills in when
+JAX's class passes none: zeros, except ELECTRA's ones.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from .hf_bert import BertModel
-from .hf_checkpoint import load_checkpoint
-from .hf_tokenizer import WordPieceTokenizer
+from .hf_checkpoint import HFConfig, load_checkpoint
+from .hf_distilbert import DistilBertModel
+from .hf_electra import ElectraModel
+from .hf_roberta import RobertaModel
+from .hf_tokenizer import load_tokenizer
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -30,11 +39,26 @@ def _bucket(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
-def check_max_len(max_len: int, positions: int, path) -> None:
-    # JAX's position gather clamps past the table; the port refuses
-    if max_len > positions:
-        raise ValueError(f"max_len {max_len} exceeds the {positions} "
+def check_max_len(max_len: int, config: HFConfig, path) -> None:
+    # JAX's position gather clamps past the table; the port refuses.
+    # RoBERTa's ids run from pad_token_id + 1 to max_len + pad_token_id.
+    positions = config.max_position_embeddings
+    if max_len + config.position_offset > positions:
+        extra = (f" past RoBERTa's offset of {config.position_offset}"
+                 if config.position_offset else "")
+        raise ValueError(f"max_len {max_len}{extra} exceeds the {positions} "
                          f"positions of {path}")
+
+
+def build_trunk(config: HFConfig, dtype: torch.dtype):
+    """The family's trunk module, without a pooler."""
+    if config.model_type in ("roberta", "xlm-roberta"):
+        return RobertaModel(config, dtype=dtype)
+    if config.model_type == "electra":
+        return ElectraModel(config, dtype=dtype)
+    if config.model_type == "distilbert":
+        return DistilBertModel(config, dtype=dtype)
+    return BertModel(config, pooler=False, dtype=dtype)
 
 
 class HFEmbedder:
@@ -44,11 +68,13 @@ class HFEmbedder:
     def __init__(self, path, *, max_len: int = 128, max_batch: int = 64,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.tokenizer = WordPieceTokenizer.from_pretrained(path)
+        self.tokenizer = load_tokenizer(path)
         config, state = load_checkpoint(path, head=False, pooler=False)
-        check_max_len(max_len, config.max_position_embeddings, path)
-        model = BertModel(config, pooler=False, dtype=dtype)
+        check_max_len(max_len, config, path)
+        model = build_trunk(config, dtype)
         model.load_state_dict(state)
+        # FlaxElectraModel fills absent token types with ones
+        self.type_id = 1 if config.model_type == "electra" else 0
         self.model = model.to(self.device).eval()
         self.max_len = max_len
         self.max_batch = max_batch
@@ -71,7 +97,7 @@ class HFEmbedder:
         b = _bucket(max(len(texts), 1), self.max_batch)
         ids, mask = (torch.from_numpy(a).to(self.device)
                      for a in self._tokenize(texts, b))
-        hidden, _ = self.model(ids, mask, torch.zeros_like(ids))
+        hidden, _ = self.model(ids, mask, torch.full_like(ids, self.type_id))
         m = mask[:, :, None].float()
         pooled = torch.sum(hidden.float() * m, dim=1) / torch.clamp(
             torch.sum(m, dim=1), min=1.0)
@@ -88,4 +114,4 @@ class HFEmbedder:
         return out
 
 
-__all__ = ["HFEmbedder"]
+__all__ = ["HFEmbedder", "build_trunk", "check_max_len"]

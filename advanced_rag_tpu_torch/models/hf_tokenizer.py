@@ -1,4 +1,5 @@
-"""BERT WordPiece tokenizer read from a local HF checkpoint directory.
+"""BERT WordPiece tokenizer read from a local HF checkpoint directory, and
+``load_tokenizer``, the port's ``AutoTokenizer``.
 
 The JAX package tokenizes HF checkpoints with ``AutoTokenizer``, which for
 the BERT family loads ``BertTokenizerFast`` (the ``tokenizers`` crate).
@@ -28,6 +29,17 @@ The normalizer flags follow ``BertTokenizerFast.__init__``:
 ``tokenizer_config.json``'s ``do_lower_case`` (default true),
 ``strip_accents`` (default none) and ``tokenize_chinese_chars`` (default
 true) override those in ``tokenizer.json``.
+
+``load_tokenizer(path)`` chooses as transformers' ``AutoTokenizer`` does:
+``tokenizer_config.json``'s ``tokenizer_class`` first, else
+``config.json``'s ``model_type``.  BERT, ELECTRA and DistilBERT take
+``WordPieceTokenizer``; RoBERTa takes ``hf_bpe.ByteLevelBPETokenizer``;
+XLM-RoBERTa takes ``hf_unigram.UnigramTokenizer``.  Each tokenizer carries
+the ``model_input_names`` of its transformers class: only BERT's and
+ELECTRA's return ``token_type_ids``.  ``TemplateTokenizer`` is what the
+BPE and Unigram tokenizers share: added tokens split out of the text as
+the crate's added vocabulary does, RoBERTa's pair template, truncation
+and padding.
 """
 
 from __future__ import annotations
@@ -35,11 +47,12 @@ from __future__ import annotations
 import json
 import re
 import unicodedata
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .hf_checkpoint import checkpoint_dir
+from .hf_checkpoint import checkpoint_dir, read_json
 
 # Unicode's White_Space property (Rust's char::is_whitespace)
 _WHITESPACE = frozenset(chr(c) for c in (
@@ -197,7 +210,12 @@ def _template_tokens(post: dict) -> Tuple[str, str]:
 class WordPieceTokenizer:
     """``BertTokenizerFast`` on its own: ``__call__`` returns numpy
     ``input_ids``, ``attention_mask`` and ``token_type_ids`` [B, L] int64,
-    padded to ``max_length`` and truncated to it."""
+    padded to ``max_length`` and truncated to it.  ``model_input_names``
+    says which of them the transformers class returns (DistilBERT's
+    tokenizer returns no token types)."""
+
+    model_input_names: Tuple[str, ...] = ("input_ids", "token_type_ids",
+                                          "attention_mask")
 
     def __init__(self, vocab: Dict[str, int], *, unk_token: str = "[UNK]",
                  cls_token: str = "[CLS]", sep_token: str = "[SEP]",
@@ -429,7 +447,242 @@ class WordPieceTokenizer:
             ids[i, :len(row)] = row
             types[i, n_a:len(row)] = 1
             mask[i, :len(row)] = 1
-        return {"input_ids": ids, "attention_mask": mask, "token_type_ids": types}
+        out = {"input_ids": ids, "attention_mask": mask, "token_type_ids": types}
+        return {k: v for k, v in out.items() if k in self.model_input_names}
 
 
-__all__ = ["WordPieceTokenizer"]
+# -- what the BPE and Unigram tokenizers share ----------------------------------
+
+@dataclass(frozen=True)
+class AddedToken:
+    """An entry of the crate's added vocabulary."""
+    content: str
+    id: int
+    lstrip: bool = False
+    rstrip: bool = False
+    normalized: bool = False
+    single_word: bool = False
+
+
+def read_tokenizer_config(path) -> dict:
+    """``tokenizer_config.json`` with ``special_tokens_map.json`` under it."""
+    path = checkpoint_dir(path)
+    cfg = read_json(path / "tokenizer_config.json") \
+        if (path / "tokenizer_config.json").exists() else {}
+    if (path / "special_tokens_map.json").exists():
+        for k, v in read_json(path / "special_tokens_map.json").items():
+            cfg.setdefault(k, v)
+    return cfg
+
+
+#: RoBERTa's and XLM-R's special tokens where the config names none
+ROBERTA_SPECIALS = dict(bos_token="<s>", eos_token="</s>", sep_token="</s>",
+                        cls_token="<s>", unk_token="<unk>", pad_token="<pad>",
+                        mask_token="<mask>")
+
+
+def added_tokens(json_tokens: Sequence[dict], cfg: dict,
+                 vocab: Dict[str, int]) -> List[AddedToken]:
+    """The added vocabulary ``PreTrainedTokenizerFast.__init__`` leaves for
+    RoBERTa's and XLM-R's classes: ``tokenizer.json``'s ``added_tokens``,
+    then ``tokenizer_config.json``'s ``added_tokens_decoder``, then the
+    class's special tokens (``ROBERTA_SPECIALS`` where the config names
+    none; a ``<mask>`` given as a string takes ``lstrip``, as the classes
+    make it), each once, by content; a special token is matched in the
+    raw text (not normalized)."""
+    out: Dict[str, AddedToken] = {}
+
+    def add(content, tid, flags):
+        if content in out:
+            return
+        if tid is None:
+            if content not in vocab:
+                raise ValueError(f"the added token {content!r} is not in the vocabulary")
+            tid = vocab[content]
+        if flags.get("single_word"):
+            raise ValueError(f"the added token {content!r} is single_word, "
+                             "which the port does not support")
+        out[content] = AddedToken(
+            content, int(tid), lstrip=bool(flags.get("lstrip", False)),
+            rstrip=bool(flags.get("rstrip", False)),
+            normalized=bool(flags.get("normalized", not flags.get("special", True))))
+
+    for t in json_tokens:
+        add(t["content"], t["id"], t)
+    for tid, t in sorted((cfg.get("added_tokens_decoder") or {}).items(),
+                         key=lambda kv: int(kv[0])):
+        add(t["content"], int(tid), t)
+    names = [f"{k}_token" for k in ("bos", "eos", "unk", "sep", "pad", "cls", "mask")]
+    for name in names + ["additional_special_tokens"]:
+        toks = cfg.get(name, ROBERTA_SPECIALS.get(name))
+        for tok in (toks if isinstance(toks, list) else [toks]):
+            if tok is None:
+                continue
+            flags = tok if isinstance(tok, dict) else {"lstrip": name == "mask_token"}
+            add(_token_content(tok), None, {"special": True, "normalized": False, **flags})
+    return list(out.values())
+
+
+def special_id(cfg: dict, name: str, added: Sequence[AddedToken]) -> int:
+    """The id of the special token ``name`` (e.g. "pad_token"), which
+    ``added_tokens`` put in the added vocabulary."""
+    content = _token_content(cfg.get(name, ROBERTA_SPECIALS[name]))
+    return next(t.id for t in added if t.content == content)
+
+
+def _added_pattern(tokens: Sequence[AddedToken]):
+    # leftmost-longest: the alternation tries longer tokens first
+    if not tokens:
+        return None
+    return re.compile("|".join(re.escape(t.content) for t in
+                               sorted(tokens, key=lambda t: len(t.content), reverse=True)))
+
+
+def split_added(text: str, pattern, by_content: Dict[str, AddedToken]
+                ) -> List[Union[str, int]]:
+    """``text`` as the crate's ``find_matches`` splits it: the pieces
+    between added tokens (str) and the tokens' ids (int); an ``lstrip``
+    token takes the whitespace before it, an ``rstrip`` one that after."""
+    if pattern is None or not text:
+        return [text] if text else []
+    out: List[Union[str, int]] = []
+    pos = 0
+    for m in pattern.finditer(text):
+        tok = by_content[m.group()]
+        start, stop = m.start(), m.end()
+        if tok.lstrip:
+            while start > pos and text[start - 1] in _WHITESPACE:
+                start -= 1
+        if tok.rstrip:
+            while stop < len(text) and text[stop] in _WHITESPACE:
+                stop += 1
+        if pos < start:
+            out.append(text[pos:start])
+        out.append(tok.id)
+        pos = stop
+    if pos < len(text):
+        out.append(text[pos:])
+    return out
+
+
+class TemplateTokenizer:
+    """The template ``<s> A </s>`` / ``<s> A </s></s> B </s>`` around the
+    ids a subclass's ``encode_piece`` gives the text between added tokens,
+    truncated to ``max_length`` (a pair ``longest_first``) and right-padded
+    with the pad id; ``__call__`` returns numpy ``input_ids`` and
+    ``attention_mask`` [B, L] int64, as RoBERTa's and XLM-R's fast
+    tokenizers do (no token types)."""
+
+    model_input_names: Tuple[str, ...] = ("input_ids", "attention_mask")
+
+    def __init__(self, added: Sequence[AddedToken], *, cls_id: int, sep_id: int,
+                 pad_id: int):
+        self.added = list(added)
+        self.cls_id, self.sep_id, self.pad_id = cls_id, sep_id, pad_id
+        self._by_content = {t.content: t for t in self.added}
+        self._raw_re = _added_pattern([t for t in self.added if not t.normalized])
+        self._norm_re = _added_pattern([t for t in self.added if t.normalized])
+
+    def normalize(self, text: str) -> str:
+        return text
+
+    def encode_piece(self, text: str, first: bool) -> List[int]:
+        """The ids of a normalized piece; ``first``: it starts the text."""
+        raise NotImplementedError
+
+    def encode(self, text: str) -> List[int]:
+        """The ids of ``text`` without the template's special tokens."""
+        out: List[int] = []
+        for i, piece in enumerate(split_added(text, self._raw_re, self._by_content)):
+            if isinstance(piece, int):
+                out.append(piece)
+                continue
+            subs = split_added(self.normalize(piece), self._norm_re, self._by_content)
+            for j, sub in enumerate(subs):
+                out.extend([sub] if isinstance(sub, int)
+                           else self.encode_piece(sub, first=i == j == 0))
+        return out
+
+    def __call__(self, texts: Sequence[str],
+                 pairs: Optional[Sequence[str]] = None, *,
+                 max_length: int) -> Dict[str, np.ndarray]:
+        if pairs is not None and len(pairs) != len(texts):
+            raise ValueError("texts and pairs must align")
+        n_special = 2 if pairs is None else 4
+        if max_length < n_special:
+            raise ValueError(f"max_length {max_length} leaves no room for "
+                             f"the {n_special} special tokens")
+        budget = max_length - n_special
+        ids = np.full((len(texts), max_length), self.pad_id, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            a = self.encode(text)
+            if pairs is None:
+                row = [self.cls_id, *a[:budget], self.sep_id]
+            else:
+                b = self.encode(pairs[i])
+                if len(a) + len(b) > budget:
+                    na, nb = WordPieceTokenizer._pair_budget(len(a), len(b), budget)
+                    a, b = a[:na], b[:nb]
+                row = [self.cls_id, *a, self.sep_id, self.sep_id, *b, self.sep_id]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def roberta_template(post: dict) -> Tuple[int, int]:
+    """The ids of ``<s>`` and ``</s>`` in a ``RobertaProcessing`` or the
+    equal ``TemplateProcessing``; any other template raises."""
+    if post.get("type") == "RobertaProcessing":
+        return int(post["cls"][1]), int(post["sep"][1])
+    if post.get("type") == "TemplateProcessing":
+        def toks(seq):
+            return [("S", p["SpecialToken"]["id"]) if "SpecialToken" in p
+                    else ("Q", p["Sequence"]["id"]) for p in seq]
+
+        single, pair = toks(post.get("single") or []), toks(post.get("pair") or [])
+        special = post.get("special_tokens") or {}
+        if len(single) == 3 and single[1] == ("Q", "A"):
+            cls_tok, sep_tok = single[0][1], single[2][1]
+            want = [("S", cls_tok), ("Q", "A"), ("S", sep_tok), ("S", sep_tok),
+                    ("Q", "B"), ("S", sep_tok)]
+            if single[0][0] == single[2][0] == "S" and pair == want and all(
+                    len(special.get(t, {}).get("ids", [])) == 1 for t in (cls_tok, sep_tok)):
+                return int(special[cls_tok]["ids"][0]), int(special[sep_tok]["ids"][0])
+    raise ValueError(f"not a RoBERTa post-processor: {json.dumps(post)[:200]}")
+
+
+def load_tokenizer(path):
+    """The tokenizer of a checkpoint directory, chosen as ``AutoTokenizer``
+    chooses it: ``tokenizer_config.json``'s ``tokenizer_class``, else
+    ``config.json``'s ``model_type``."""
+    path = checkpoint_dir(path)
+    cls_name = read_tokenizer_config(path).get("tokenizer_class")
+    if cls_name:
+        family = cls_name.removesuffix("Fast").removesuffix("Tokenizer").lower()
+        family = {"xlmroberta": "xlm-roberta"}.get(family, family)
+    else:
+        family = (read_json(path / "config.json").get("model_type")
+                  if (path / "config.json").exists() else None)
+    if family in ("bert", "electra"):
+        return WordPieceTokenizer.from_pretrained(path)
+    if family == "distilbert":
+        tok = WordPieceTokenizer.from_pretrained(path)
+        tok.model_input_names = ("input_ids", "attention_mask")
+        return tok
+    if family == "roberta":
+        from .hf_bpe import ByteLevelBPETokenizer
+
+        return ByteLevelBPETokenizer.from_pretrained(path)
+    if family == "xlm-roberta":
+        from .hf_unigram import UnigramTokenizer
+
+        return UnigramTokenizer.from_pretrained(path)
+    raise ValueError(f"{path}: tokenizer {cls_name or family!r} is not supported; "
+                     "the port reads the BERT, ELECTRA, DistilBERT (WordPiece), "
+                     "RoBERTa (byte-level BPE) and XLM-RoBERTa (Unigram) tokenizers")
+
+
+__all__ = ["ROBERTA_SPECIALS", "AddedToken", "TemplateTokenizer", "WordPieceTokenizer",
+           "added_tokens", "load_tokenizer", "read_tokenizer_config", "roberta_template",
+           "special_id", "split_added"]

@@ -1,0 +1,502 @@
+"""XLM-RoBERTa's Unigram tokenizer read from a local HF checkpoint's
+``tokenizer.json``.
+
+The port's copy of ``XLMRobertaTokenizerFast`` (the ``tokenizers`` crate),
+so the card's machine needs neither ``transformers`` nor ``tokenizers``:
+
+1. added tokens are found in the raw text first, leftmost-longest
+   (``TemplateTokenizer``; XLM-R's ``<mask>`` takes ``lstrip``);
+2. the normalizer on each piece between them (``Normalizer``):
+   ``Sequence``, ``Replace`` (a string, or a regex of literals and
+   repetition such as XLM-R's ``" {2,}"``), ``NFKC``, ``Strip``,
+   ``Lowercase`` (one character at a time, as the crate does) and
+   ``Precompiled``; any other raises, naming it;
+3. ``Precompiled`` is SentencePiece's charsmap: a little-endian ``uint32``
+   trie size, the darts-clone double array (read with numpy), then the
+   NUL-terminated normalized strings.  The crate walks the text by
+   extended grapheme cluster (``graphemes``): a cluster of fewer than 6
+   UTF-8 bytes whose prefix is a key is replaced by the rule of its
+   *shortest* such prefix (the rest of the cluster goes), every other
+   character by its own rule or kept;
+4. the ``Metaspace`` pre-tokenizer: spaces become ``▁``, one is put in
+   front as ``prepend_scheme`` says (``always``; ``first``: only for the
+   piece at the start of the text; ``never``), and with ``split`` the
+   piece is cut before each run of ``▁``;
+5. the Unigram model: Viterbi over the pieces' scores (``_viterbi``, the
+   crate's ``encode_optimized``: a character no piece covers is ``unk``
+   at the lowest score less 10, and consecutive unknowns fuse);
+6. RoBERTa's template ``<s> A </s></s> B </s>``; the ids are
+   ``tokenizer.json``'s (the fairseq offset is already in them).
+
+A directory with ``sentencepiece.bpe.model`` and no ``tokenizer.json``
+raises: transformers converts that file only with ``sentencepiece``
+installed, which the card's machine lacks.
+
+The grapheme cluster classes are Python's ``unicodedata`` (Unicode 15.0)
+with the ``_CRATE_*`` differences that
+``scripts/torch_hf_unicode_tables.py`` finds by probing the crate's
+``Precompiled`` itself; ``tests/test_torch_hf_unigram.py`` holds them
+against it.  Of UAX #29 the rules that join clusters of 6 or more bytes
+only (emoji ZWJ sequences, GB11; Indic conjuncts, GB9c) are left out: the
+crate walks such a cluster one character at a time either way.
+"""
+
+from __future__ import annotations
+
+import base64
+import re
+import struct
+import unicodedata
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .hf_checkpoint import checkpoint_dir, read_json
+from .hf_tokenizer import (_LOWER, _WHITESPACE, TemplateTokenizer, added_tokens,
+                           read_tokenizer_config, roberta_template, special_id)
+
+# Where the crate's grapheme clusters (unicode-segmentation) and the rules
+# below on unicodedata disagree: characters that attach to the one before
+# (Extend, ZWJ, SpacingMark), that break on both sides (Control) or that
+# attach to the one after (Prepend).
+_CRATE_ATTACH = (
+    (0x897, 0x897), (0xe33, 0xe33), (0xeb3, 0xeb3), (0xff9e, 0xff9f),
+    (0x10d69, 0x10d6d), (0x10efc, 0x10efc), (0x113b8, 0x113c0),
+    (0x113c2, 0x113c2), (0x113c5, 0x113c5), (0x113c7, 0x113ca),
+    (0x113cc, 0x113d0), (0x113d2, 0x113d2), (0x113e1, 0x113e2),
+    (0x11f5a, 0x11f5a), (0x1611e, 0x1612f), (0x1e5ee, 0x1e5ef),
+    (0x1f3fb, 0x1f3ff), (0xe0020, 0xe007f),
+)
+_CRATE_NOT_ATTACH = (
+    (0x102b, 0x102c), (0x1038, 0x1038), (0x1062, 0x1064), (0x1067, 0x106d),
+    (0x1083, 0x1083), (0x1087, 0x108c), (0x108f, 0x108f), (0x109a, 0x109c),
+    (0x1a61, 0x1a61), (0x1a63, 0x1a64), (0xaa7b, 0xaa7b), (0xaa7d, 0xaa7d),
+    (0x11720, 0x11721),
+)
+_CRATE_CONTROL = ((0x2065, 0x2065), (0xfff0, 0xfff8))
+_CRATE_NOT_CONTROL = (
+    (0x600, 0x605), (0x6dd, 0x6dd), (0x70f, 0x70f), (0x890, 0x891),
+    (0x8e2, 0x8e2),
+)
+_CRATE_PREPEND = (
+    (0x600, 0x605), (0x6dd, 0x6dd), (0x70f, 0x70f), (0x890, 0x891),
+    (0x8e2, 0x8e2), (0xd4e, 0xd4e), (0x110bd, 0x110bd), (0x110cd, 0x110cd),
+    (0x111c2, 0x111c3), (0x113d1, 0x113d1), (0x1193f, 0x1193f),
+    (0x11941, 0x11941), (0x11a3a, 0x11a3a), (0x11a84, 0x11a89),
+    (0x11d46, 0x11d46), (0x11f02, 0x11f02),
+)
+
+
+def _expand(runs) -> frozenset:
+    return frozenset(c for lo, hi in runs for c in range(lo, hi + 1))
+
+
+_ATTACH, _NOT_ATTACH = _expand(_CRATE_ATTACH), _expand(_CRATE_NOT_ATTACH)
+_CONTROL, _NOT_CONTROL = _expand(_CRATE_CONTROL), _expand(_CRATE_NOT_CONTROL)
+_PREPEND = _expand(_CRATE_PREPEND)
+
+# grapheme cluster classes
+OTHER, CR, LF, CONTROL, ATTACH, PREPEND, L, V, T, LV, LVT, RI = range(12)
+
+
+def base_class(ch: str) -> int:
+    """The grapheme cluster class by unicodedata alone."""
+    cp = ord(ch)
+    if cp == 0x0D:
+        return CR
+    if cp == 0x0A:
+        return LF
+    cat = unicodedata.category(ch)
+    if cat in ("Mn", "Me", "Mc") or cp in (0x200C, 0x200D):
+        return ATTACH
+    if cat in ("Cc", "Cf", "Zl", "Zp"):
+        return CONTROL
+    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
+        return L
+    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
+        return V
+    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
+        return T
+    if 0xAC00 <= cp <= 0xD7A3:
+        return LV if (cp - 0xAC00) % 28 == 0 else LVT
+    if 0x1F1E6 <= cp <= 0x1F1FF:
+        return RI
+    return OTHER
+
+
+def grapheme_class(ch: str) -> int:
+    """The grapheme cluster class as the crate's clusters show it."""
+    cp = ord(ch)
+    for table, k in ((_PREPEND, PREPEND), (_ATTACH, ATTACH), (_CONTROL, CONTROL)):
+        if cp in table:
+            return k
+    k = base_class(ch)
+    if (k == ATTACH and cp in _NOT_ATTACH) or (k == CONTROL and cp in _NOT_CONTROL):
+        return OTHER
+    return k
+
+
+_GCLASS: Dict[str, int] = {}
+
+
+def _joins(a: int, b: int) -> bool:
+    """No cluster break between classes ``a`` and ``b`` (for two regional
+    indicators: when an odd number of them ends at ``a``)."""
+    if a == CR and b == LF:
+        return True
+    if a in (CR, LF, CONTROL) or b in (CR, LF, CONTROL):
+        return False
+    if a == L and b in (L, V, LV, LVT):
+        return True
+    if a in (LV, V) and b in (V, T):
+        return True
+    if a in (LVT, T) and b == T:
+        return True
+    if b == ATTACH or a == PREPEND:
+        return True
+    return a == b == RI
+
+
+_JOIN = [[_joins(a, b) for b in range(12)] for a in range(12)]
+
+
+def graphemes(text: str) -> List[str]:
+    """``text`` cut into extended grapheme clusters (UAX #29, without
+    GB9c and GB11)."""
+    out: List[str] = []
+    start, prev, ri_run = 0, -1, 0
+    gclass, join = _GCLASS, _JOIN
+    for i, ch in enumerate(text):
+        k = gclass.get(ch)
+        if k is None:
+            k = gclass[ch] = grapheme_class(ch)
+        if prev >= 0 and not (join[prev][k] and (k != RI or ri_run % 2)):
+            out.append(text[start:i])
+            start = i
+        ri_run = ri_run + 1 if k == RI else 0
+        prev = k
+    if start < len(text):
+        out.append(text[start:])
+    return out
+
+
+class Precompiled:
+    """SentencePiece's precompiled charsmap, applied as the crate does."""
+
+    def __init__(self, charsmap: bytes):
+        if len(charsmap) < 4:
+            raise ValueError("a precompiled charsmap needs its 4-byte trie size")
+        (size,) = struct.unpack("<I", charsmap[:4])
+        if size % 4 or 4 + size > len(charsmap):
+            raise ValueError(f"a precompiled charsmap's trie of {size} bytes "
+                             f"overruns its {len(charsmap)} bytes")
+        self.units = np.frombuffer(charsmap, dtype="<u4", count=size // 4,
+                                   offset=4).astype(np.int64).tolist()
+        self.normalized = charsmap[4 + size:]
+        self._cache: Dict[str, Optional[str]] = {}
+        # the rules of the ASCII characters, for str.translate
+        self._ascii = {c: r for c in range(128)
+                       if (r := self.transform(chr(c))) is not None}
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+    def transform(self, chunk: str) -> Optional[str]:
+        """The rule of the shortest key that prefixes ``chunk``, or None."""
+        if chunk in self._cache:
+            return self._cache[chunk]
+        units, out = self.units, None
+        pos = self._offset(units[0])
+        for c in chunk.encode("utf-8"):
+            if c == 0:                    # the walk stops at a NUL byte
+                break
+            pos ^= c
+            if pos >= len(units):
+                break
+            unit = units[pos]
+            if unit & ((1 << 31) | 0xFF) != c:
+                break
+            pos ^= self._offset(unit)
+            if (unit >> 8) & 1:
+                start = units[pos] & ((1 << 31) - 1)
+                end = self.normalized.index(b"\0", start)
+                out = self.normalized[start:end].decode("utf-8")
+                break
+        if len(self._cache) >= 1 << 16:
+            self._cache.clear()
+        self._cache[chunk] = out
+        return out
+
+    def _char(self, ch: str) -> str:
+        rule = self.transform(ch)
+        return ch if rule is None else rule
+
+    def __call__(self, text: str) -> str:
+        if text.isascii() and "\r\n" not in text:
+            # every ASCII cluster but CR LF is one character: the same
+            # result as normalize_any (scripts/torch_hf_tokenizer_ab.py)
+            return text.translate(self._ascii)
+        return self.normalize_any(text)
+
+    def normalize_any(self, text: str) -> str:
+        """The charsmap by grapheme cluster, on any text."""
+        parts: List[str] = []
+        for g in graphemes(text):
+            if len(g) > 1 and len(g.encode("utf-8")) < 6:
+                rule = self.transform(g)
+                if rule is not None:
+                    parts.append(rule)
+                    continue
+            parts.extend([self._char(ch) for ch in g])
+        return "".join(parts)
+
+
+def build_precompiled(rules: Dict[str, str]) -> bytes:
+    """A precompiled charsmap of ``rules`` (key -> normalized text): a
+    double array that ``Precompiled`` and the crate read (not byte for
+    byte the one darts-clone would build)."""
+    blob, values = bytearray(), {}
+    for key, value in rules.items():
+        if not key or "\0" in key:
+            raise ValueError(f"a charsmap key must be a non-empty text without "
+                             f"NUL, not {key!r}")
+        values[key] = len(blob)
+        blob += value.encode("utf-8") + b"\0"
+    root: dict = {}
+    for key in rules:
+        node = root
+        for b in key.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[None] = values[key]
+    units: Dict[int, int] = {0: 0}
+    bases, block, free = set(), 1, 1
+    queue = [(root, 0)]
+    for node, pos in queue:
+        labels = sorted(k for k in node if k is not None)
+        if labels:                        # children: a 256-slot block they fit
+            need = labels + [0] if None in node else labels
+            while block * 256 in bases or any(block * 256 + c in units for c in need):
+                block += 1
+            base = block * 256
+            block += 1
+        else:                             # only a value: any free slot
+            while free in units or free in bases:
+                free += 1
+            base = free
+        bases.add(base)
+        offset = pos ^ base
+        if offset >= 1 << 21:
+            raise ValueError("the charsmap is too large for this builder")
+        units[pos] = units[pos] | (offset << 10)
+        if None in node:
+            units[pos] |= 1 << 8
+            units[base] = (1 << 31) | node[None]
+        for label in labels:
+            units[base ^ label] = label
+            queue.append((node[label], base ^ label))
+    # whole 256-unit blocks: a walk XORs any byte into a base in range
+    array = [units.get(i, 0) for i in range(((max(units) >> 8) + 1) << 8)]
+    return struct.pack(f"<I{len(array)}I", 4 * len(array), *array) + bytes(blob)
+
+
+_REGEX_OK = re.compile(r"^(?:[^\\\[\](){}.*+?|^$]|\\[^pPsSwWdDbBAzZ0-9]|\{\d+(?:,\d*)?\}|[*+?])+$")
+
+
+class Normalizer:
+    """A ``tokenizer.json`` normalizer of the kinds the port supports."""
+
+    def __init__(self, spec: Optional[dict]):
+        self.steps = []
+        self._add(spec or {"type": "Sequence", "normalizers": []})
+
+    def _add(self, spec: dict) -> None:
+        kind = spec.get("type")
+        if kind == "Sequence":
+            for sub in spec.get("normalizers", []):
+                self._add(sub)
+        elif kind == "Replace":
+            pattern, content = spec["pattern"], spec["content"]
+            if "String" in pattern:
+                old = pattern["String"]
+                self.steps.append(lambda s, old=old, new=content: s.replace(old, new))
+            else:
+                regex = pattern["Regex"]
+                if not _REGEX_OK.match(regex):
+                    raise ValueError(f"the Replace regex {regex!r} is not supported "
+                                     "(only literals and repetition)")
+                compiled = re.compile(regex)
+                self.steps.append(lambda s, r=compiled, new=content: r.sub(
+                    lambda m: new, s))
+        elif kind == "NFKC":
+            self.steps.append(lambda s: unicodedata.normalize("NFKC", s))
+        elif kind == "Strip":
+            left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+            def strip(s, left=left, right=right):
+                i, j = 0, len(s)
+                while left and i < j and s[i] in _WHITESPACE:
+                    i += 1
+                while right and j > i and s[j - 1] in _WHITESPACE:
+                    j -= 1
+                return s[i:j]
+
+            self.steps.append(strip)
+        elif kind == "Lowercase":
+            self.steps.append(lambda s: "".join([_LOWER.get(ch) or ch.lower() for ch in s]))
+        elif kind == "Precompiled":
+            charsmap = spec.get("precompiled_charsmap")
+            if charsmap:
+                self.steps.append(Precompiled(base64.b64decode(charsmap)))
+        else:
+            raise ValueError(f"the normalizer {kind!r} is not supported (supported: "
+                             "Sequence, Replace, NFKC, Strip, Lowercase, Precompiled)")
+
+    def __call__(self, text: str) -> str:
+        for step in self.steps:
+            text = step(text)
+        return text
+
+
+class UnigramTokenizer(TemplateTokenizer):
+    """``XLMRobertaTokenizerFast`` on its own: ``__call__`` returns numpy
+    ``input_ids`` and ``attention_mask`` [B, L] int64."""
+
+    def __init__(self, pieces: Sequence[Tuple[str, float]], *, unk_id: int, added,
+                 cls_id: int, sep_id: int, pad_id: int,
+                 normalizer: Optional[dict] = None, replacement: str = "▁",
+                 prepend_scheme: str = "always", split: bool = True):
+        super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id)
+        if not 0 <= unk_id < len(pieces):
+            raise ValueError(f"unk_id {unk_id} is not a piece of the vocabulary")
+        if prepend_scheme not in ("always", "first", "never"):
+            raise ValueError(f"prepend_scheme {prepend_scheme!r} is not supported")
+        self.pieces: Dict[str, Tuple[int, float]] = {}
+        for i, (piece, score) in enumerate(pieces):
+            # a piece given twice takes its last id, as the crate's map does
+            self.pieces[piece] = (i, float(score))
+        self.max_piece = max((len(p) for p in self.pieces), default=1)
+        self.unk_id = unk_id
+        self.unk_score = min(float(s) for _, s in pieces) - 10.0
+        self.normalizer = Normalizer(normalizer)
+        self.replacement = replacement
+        self.prepend_scheme = prepend_scheme
+        self.split = split
+        self._words: Dict[str, Tuple[int, ...]] = {}
+
+    @classmethod
+    def from_pretrained(cls, path) -> "UnigramTokenizer":
+        path = checkpoint_dir(path)
+        if not (path / "tokenizer.json").exists():
+            if (path / "sentencepiece.bpe.model").exists():
+                raise ValueError(
+                    f"{path} holds sentencepiece.bpe.model and no tokenizer.json: "
+                    "the port reads XLM-RoBERTa's tokenizer.json (transformers "
+                    "converts the .model file only where sentencepiece is installed)")
+            raise FileNotFoundError(f"{path} has no tokenizer.json")
+        cfg = read_tokenizer_config(path)
+        tj = read_json(path / "tokenizer.json")
+        model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
+        if model.get("type") != "Unigram" or pre.get("type") != "Metaspace":
+            raise ValueError(f"{path}/tokenizer.json is not a Unigram tokenizer "
+                             f"(model {model.get('type')}, pre-tokenizer {pre.get('type')})")
+        if model.get("byte_fallback"):
+            raise ValueError(f"{path}/tokenizer.json: Unigram byte_fallback is "
+                             "not supported")
+        pieces = [(p, s) for p, s in model["vocab"]]
+        vocab = {p: i for i, (p, _) in enumerate(pieces)}
+        added = added_tokens(tj.get("added_tokens", []), cfg, vocab)
+        cls_id, sep_id = roberta_template(tj.get("post_processor") or {})
+        if pre.get("add_prefix_space") is False and "prepend_scheme" not in pre:
+            # the older form; the crate reads only add_prefix_space true
+            raise ValueError(f"{path}/tokenizer.json: Metaspace add_prefix_space "
+                             "false is not supported")
+        if model.get("unk_id") is None:
+            raise ValueError(f"{path}/tokenizer.json: a Unigram model without "
+                             "unk_id is not supported")
+        return cls(pieces, unk_id=int(model["unk_id"]), added=added, cls_id=cls_id,
+                   sep_id=sep_id, pad_id=special_id(cfg, "pad_token", added),
+                   normalizer=tj.get("normalizer"),
+                   replacement=pre.get("replacement", "▁"),
+                   prepend_scheme=pre.get("prepend_scheme", "always"),
+                   split=bool(pre.get("split", True)))
+
+    def normalize(self, text: str) -> str:
+        return self.normalizer(text)
+
+    def pre_tokenize(self, text: str, first: bool) -> List[str]:
+        """``Metaspace`` on one normalized piece."""
+        if not text:
+            return []
+        rep = self.replacement
+        text = text.replace(" ", rep)
+        if not text.startswith(rep) and (self.prepend_scheme == "always" or (
+                self.prepend_scheme == "first" and first)):
+            text = rep + text
+        if not self.split:
+            return [text]
+        # each run of the replacement starts a word, merged with what follows
+        words, start, i, n = [], 0, 0, len(text)
+        while i < n:
+            if text[i] == rep and (i == 0 or text[i - 1] != rep) and i > start:
+                words.append(text[start:i])
+                start = i
+            i += 1
+        words.append(text[start:])
+        return words
+
+    def _viterbi(self, word: str) -> Tuple[int, ...]:
+        """The crate's ``encode_optimized`` and the ids of its tokens."""
+        n = len(word)
+        score = [0.0] * (n + 1)
+        back: List[Optional[Tuple[int, int]]] = [None] * (n + 1)
+        pieces, top = self.pieces, self.max_piece
+        for start in range(n):
+            base = score[start]
+            single = False
+            for end in range(start + 1, min(n, start + top) + 1):
+                hit = pieces.get(word[start:end])
+                if hit is None:
+                    continue
+                cand = hit[1] + base
+                if back[end] is None or cand > score[end]:
+                    score[end], back[end] = cand, (start, hit[0])
+                single = single or end == start + 1
+            if not single:
+                cand = self.unk_score + base
+                if back[start + 1] is None or cand > score[start + 1]:
+                    score[start + 1], back[start + 1] = cand, (start, self.unk_id)
+        # back from the end: consecutive unknowns fuse into one string,
+        # which takes its piece's id if it is one, else unk's
+        tokens: List[str] = []
+        end, unk_end = n, None
+        while end > 0:
+            start, tid = back[end]
+            if tid == self.unk_id:
+                unk_end = end if unk_end is None else unk_end
+            else:
+                if unk_end is not None:
+                    tokens.append(word[end:unk_end])
+                    unk_end = None
+                tokens.append(word[start:end])
+            end = start
+        if unk_end is not None:
+            tokens.append(word[0:unk_end])
+        return tuple(pieces[t][0] if t in pieces else self.unk_id
+                     for t in reversed(tokens))
+
+    def encode_piece(self, text: str, first: bool) -> List[int]:
+        out: List[int] = []
+        for word in self.pre_tokenize(text, first):
+            ids = self._words.get(word)
+            if ids is None:
+                ids = self._viterbi(word)
+                if len(self._words) >= 1 << 18:
+                    self._words.clear()
+                self._words[word] = ids
+            out.extend(ids)
+        return out
+
+
+__all__ = ["Normalizer", "Precompiled", "UnigramTokenizer", "build_precompiled",
+           "grapheme_class", "graphemes"]

@@ -179,7 +179,16 @@ Phases, each printing its elapsed seconds:
    a 200 with finite, reranked scores; then, after /admin/warmup puts the
    latency budgets in force, 8 clients again, the answers shed past the
    budgets counted; K1 and K3 launched (then held against their plain
-   versions on the manager's tensors); peak memory.
+   versions on the manager's tensors); (e) the other families at
+   published geometries (HF_FAMILIES: a RoBERTa embedder with a
+   vocab.json + merges.txt made here, an ELECTRA reranker, an XLM-R
+   reranker with a 250,002-piece Unigram tokenizer.json, a DistilBERT
+   embedder), each on the card against the CPU on HF_FAMILY_TEXTS texts
+   or pairs (f32 within HF_TOL) and timed at HF_BATCH rows of each of
+   HF_FAMILY_LENGTHS tokens, f32 and bf16; (f) HF_FAMILY_CHUNKS chunks on
+   a RoBERTa embedder's bf16-tier manager, and the app with
+   RAG_RERANKER=hf: on the ELECTRA reranker answering HF_FAMILY_REQUESTS
+   /retrieve requests from 1 client, as (c); peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -4612,37 +4621,58 @@ def write_safetensors(path, state):
             f.write(b)
 
 
-def write_hf_checkpoint(path, head: bool, seed: int):
-    """An HF BERT checkpoint at HF_GEOMETRY: config.json, vocab.txt,
-    tokenizer_config.json and model.safetensors with weights drawn from a
-    seeded torch.Generator (N(0, 0.02); LayerNorm scales 1 + N(0, 0.05)).
-    ``head``: BertForSequenceClassification with one label, else BertModel
-    (with its pooler, as all-MiniLM-L6-v2 ships)."""
+def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
+    """An HF checkpoint with weights drawn from a seeded torch.Generator
+    (N(0, 0.02); LayerNorm scales 1 + N(0, 0.05)) in model.safetensors,
+    beside config.json and the family's tokenizer files.  "bert": at
+    HF_GEOMETRY with vocab.txt, ``head``: BertForSequenceClassification
+    with one label, else BertModel (with its pooler, as all-MiniLM-L6-v2
+    ships).  Another family: at its HF_FAMILIES geometry, a sequence
+    classifier with one label or a trunk as HF_FAMILIES says, with
+    RoBERTa's vocab.json + merges.txt, XLM-R's Unigram tokenizer.json, or
+    ELECTRA's / DistilBERT's vocab.txt (phase 13's WordPiece vocabulary)."""
     import torch
 
-    from advanced_rag_tpu_torch.models.hf_bert import (BertForSequenceClassification,
-                                                       BertModel)
-    from advanced_rag_tpu_torch.models.hf_checkpoint import BertConfig
+    from advanced_rag_tpu_torch.models.hf_bert import BertModel
+    from advanced_rag_tpu_torch.models.hf_checkpoint import read_config
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import build_classifier
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
 
     path.mkdir(parents=True, exist_ok=True)
-    (path / "vocab.txt").write_text("\n".join(hf_vocab()) + "\n")
-    (path / "tokenizer_config.json").write_text(json.dumps(
-        {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}))
-    cfg = dict(model_type="bert", hidden_act="gelu", layer_norm_eps=1e-12,
-               position_embedding_type="absolute", pad_token_id=0,
-               architectures=["BertForSequenceClassification" if head else "BertModel"],
-               **HF_GEOMETRY)
+    if family == "bert":
+        (path / "vocab.txt").write_text("\n".join(hf_vocab()) + "\n")
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}))
+        cfg = dict(model_type="bert", hidden_act="gelu", layer_norm_eps=1e-12,
+                   position_embedding_type="absolute", pad_token_id=0,
+                   architectures=["BertForSequenceClassification" if head else "BertModel"],
+                   **HF_GEOMETRY)
+    else:
+        cfg = dict(HF_FAMILIES[family]["config"])
+        if family == "roberta":
+            roberta_tokenizer_files(path, cfg["vocab_size"])
+        elif family == "xlm-roberta":
+            xlmr_tokenizer_files(path, cfg["vocab_size"])
+        else:
+            (path / "vocab.txt").write_text("\n".join(hf_vocab()) + "\n")
+            (path / "tokenizer_config.json").write_text(json.dumps(
+                {"do_lower_case": True,
+                 "tokenizer_class": {"electra": "ElectraTokenizer",
+                                     "distilbert": "DistilBertTokenizer"}[family]}))
     if head:
         cfg["id2label"] = {"0": "LABEL_0"}
     (path / "config.json").write_text(json.dumps(cfg, indent=2))
-    config = BertConfig(**HF_GEOMETRY, num_labels=1)
-    names = (BertForSequenceClassification(config) if head
-             else BertModel(config)).state_dict()
+    config = read_config(path)
+    with torch.device("meta"):                # names and shapes, no storage
+        module = (build_classifier(config, torch.float32) if head
+                  else BertModel(config) if family == "bert"
+                  else build_trunk(config, torch.float32))
     gen = torch.Generator().manual_seed(seed)
     state = {}
-    for name, p in names.items():
+    for name, p in module.state_dict().items():
         n = torch.randn(p.shape, generator=gen)
-        state[name] = 1.0 + 0.05 * n if name.endswith("LayerNorm.weight") else 0.02 * n
+        state[name] = (1.0 + 0.05 * n if name.endswith(("LayerNorm.weight", "layer_norm.weight"))
+                       else 0.02 * n)
     write_safetensors(path / "model.safetensors", state)
 
 
@@ -4728,18 +4758,21 @@ def hf_throughput(root, texts, queries, dev):
     return rec
 
 
-def hf_service(root, texts, queries, dev):
-    """(c): a bf16-tier manager with the HF embedder ingests HF_CHUNKS of
-    phase 4's chunks; the port's app, RAG_RERANKER=hf: wiring the HF
-    cross-encoder into that pipeline, answers HF_REQUESTS /retrieve
-    requests from each of HF_CLIENTS clients, where every answer must be a
-    200 with finite reranked scores.  Then /admin/warmup puts the service's
-    latency budgets in force (the retriever's degrade-to-empty, the
-    endpoint's timeout) and the last level runs again as "warm-8": answers
-    past the budgets are shed (an empty 200, a 504, a 503 once the breaker
-    opens, a 429) and counted, not failed.  K1 and K3 must run (counters
-    zeroed just before the ingest, read after the load) and then match
-    their plain versions on the manager's own tensors."""
+def hf_service(root, texts, queries, dev, emb_dir=None, ce_dir=None, chunks=None,
+               clients=None, requests=None, warm=True, db="service_hf.db"):
+    """(c): a bf16-tier manager with the HF embedder of ``emb_dir`` (else
+    ``root/emb``) ingests ``chunks`` (HF_CHUNKS) of phase 4's chunks; the
+    port's app, RAG_RERANKER=hf: wiring the HF cross-encoder of ``ce_dir``
+    (else ``root/ce``) into that pipeline, answers ``requests``
+    (HF_REQUESTS) /retrieve requests from each of ``clients`` (HF_CLIENTS)
+    clients, where every answer must be a 200 with finite reranked scores.
+    With ``warm``, /admin/warmup then puts the service's latency budgets in
+    force (the retriever's degrade-to-empty, the endpoint's timeout) and
+    the last level runs again as "warm-8": answers past the budgets are
+    shed (an empty 200, a 504, a 503 once the breaker opens, a 429) and
+    counted, not failed.  K1 and K3 must run (counters zeroed just before
+    the ingest, read after the load) and then match their plain versions
+    on the manager's own tensors."""
     import numpy as np
 
     from advanced_rag_tpu_torch.config import PipelineConfig
@@ -4750,21 +4783,24 @@ def hf_service(root, texts, queries, dev):
     from advanced_rag_tpu_torch.utils.db_pool import DatabasePool
 
     cfg = PipelineConfig(semantic_dtype="bfloat16")
-    emb = HFEmbedder(root / "emb", device=dev)
+    emb_dir, ce_dir = emb_dir or root / "emb", ce_dir or root / "ce"
+    chunks, clients = chunks or HF_CHUNKS, clients or HF_CLIENTS
+    requests = requests or HF_REQUESTS
+    emb = HFEmbedder(emb_dir, device=dev)
     cfg.semantic_dim = emb.dim
     mgr = MultiIndexManager(cfg, embedder=emb, device=dev)
     pipe = AdvancedRAGPipeline(cfg, index_manager=mgr, device=dev)
     rec = {}
     reset_counters()
     t = time.perf_counter()
-    ingest_all(mgr, texts[:HF_CHUNKS])
+    ingest_all(mgr, texts[:chunks])
     sync(dev)
     rec["ingest_s"] = time.perf_counter() - t
     rec["chunks"] = mgr.store.n_valid()
     log(f"hf: {rec['chunks']} chunks through index_chunks with the HF embedder in "
         f"{rec['ingest_s']:.2f}s")
     saved = {k: os.environ.get(k) for k in (*SERVICE_ENV, "API_KEY", "RAG_RERANKER")}
-    os.environ.update(SERVICE_ENV, RAG_RERANKER=f"hf:{root / 'ce'}")
+    os.environ.update(SERVICE_ENV, RAG_RERANKER=f"hf:{ce_dir}")
     os.environ.pop("API_KEY", None)
 
     async def go():
@@ -4773,7 +4809,7 @@ def hf_service(root, texts, queries, dev):
         from advanced_rag_tpu_torch.service import create_app
 
         client = TestClient(TestServer(create_app(
-            cfg, pipeline=pipe, db=DatabasePool(sqlite_path=str(BUILD_DIR / "service_hf.db")))))
+            cfg, pipeline=pipe, db=DatabasePool(sqlite_path=str(BUILD_DIR / db)))))
         await client.start_server()
         try:
             if not isinstance(pipe.retriever.reranker, HFCrossEncoder):
@@ -4803,7 +4839,7 @@ def hf_service(root, texts, queries, dev):
                 return [await one(q, shed_ok) for q in qs]
 
             async def level(name, conc, qs, shed_ok=False):
-                per = HF_REQUESTS // conc
+                per = requests // conc
                 before = {k: len(v) for k, v in pipe._stage_latencies.items()}
                 before["retrieve"] = len(pipe._retrieve_latencies)
                 t0 = time.perf_counter()
@@ -4836,17 +4872,18 @@ def hf_service(root, texts, queries, dev):
             for q in queries[:8]:                      # warm-up
                 await one(q, False)
             out, qi = {}, 8
-            for conc in HF_CLIENTS:
-                out[conc] = await level("cold", conc, queries[qi:qi + HF_REQUESTS])
-                qi += HF_REQUESTS
-            resp = await client.post("/admin/warmup", json={"top_k": [SERVICE_TOP_K]})
-            if resp.status != 200:
-                raise AssertionError(f"/admin/warmup answered {resp.status}")
-            if not pipe.is_warm(queries[qi], SERVICE_TOP_K):
-                raise AssertionError("the HF app is not warm after /admin/warmup")
-            out[f"warm-{HF_CLIENTS[-1]}"] = await level(
-                "warm", HF_CLIENTS[-1], queries[qi:qi + HF_REQUESTS], shed_ok=True)
-            qi += HF_REQUESTS
+            for conc in clients:
+                out[conc] = await level("cold", conc, queries[qi:qi + requests])
+                qi += requests
+            if warm:
+                resp = await client.post("/admin/warmup", json={"top_k": [SERVICE_TOP_K]})
+                if resp.status != 200:
+                    raise AssertionError(f"/admin/warmup answered {resp.status}")
+                if not pipe.is_warm(queries[qi], SERVICE_TOP_K):
+                    raise AssertionError("the HF app is not warm after /admin/warmup")
+                out[f"warm-{clients[-1]}"] = await level(
+                    "warm", clients[-1], queries[qi:qi + requests], shed_ok=True)
+                qi += requests
             sync(dev)
             launches = read_counters()
             if launches["K1"] == 0 or launches["K3"] == 0:
@@ -4870,13 +4907,228 @@ def hf_service(root, texts, queries, dev):
     return rec, launches
 
 
+# -- phase 13 (e), (f): the other HF encoder families ---------------------------
+
+#: the published geometries the other families run at (config.json as
+#: transformers writes it), each with its source and whether it is a
+#: sequence classifier (a reranker) or a trunk (an embedder)
+HF_FAMILIES = {
+    "roberta": dict(
+        source="sentence-transformers/all-distilroberta-v1", head=False,
+        config=dict(model_type="roberta", architectures=["RobertaModel"],
+                    vocab_size=50265, hidden_size=768, num_hidden_layers=6,
+                    num_attention_heads=12, intermediate_size=3072,
+                    max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+                    pad_token_id=1, hidden_act="gelu", position_embedding_type="absolute")),
+    "electra": dict(
+        source="cross-encoder/ms-marco-electra-base", head=True,
+        config=dict(model_type="electra", architectures=["ElectraForSequenceClassification"],
+                    vocab_size=30522, embedding_size=768, hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+                    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+                    pad_token_id=0, hidden_act="gelu", position_embedding_type="absolute")),
+    "xlm-roberta": dict(
+        source="BAAI/bge-reranker-base", head=True,
+        config=dict(model_type="xlm-roberta",
+                    architectures=["XLMRobertaForSequenceClassification"],
+                    vocab_size=250002, hidden_size=768, num_hidden_layers=12,
+                    num_attention_heads=12, intermediate_size=3072,
+                    max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+                    pad_token_id=1, hidden_act="gelu", position_embedding_type="absolute")),
+    "distilbert": dict(
+        source="sentence-transformers/msmarco-distilbert-base-v4", head=False,
+        config=dict(model_type="distilbert", architectures=["DistilBertModel"],
+                    vocab_size=30522, dim=768, hidden_dim=3072, n_layers=6, n_heads=12,
+                    max_position_embeddings=512, activation="gelu",
+                    sinusoidal_pos_embds=False, pad_token_id=0)),
+}
+HF_FAMILY_TEXTS = 16                 # texts or pairs, card vs CPU
+HF_FAMILY_LENGTHS = (128, 256)       # tokens a row of the throughput batches
+HF_FAMILY_CHUNKS = 5_000             # the RoBERTa + ELECTRA service level
+HF_FAMILY_REQUESTS = 32
+
+
+def roberta_tokenizer_files(path, size):
+    """RoBERTa's vocab.json + merges.txt at ``size`` entries: the specials,
+    GPT-2's 256 byte symbols, then, for phase 4's corpus words by
+    frequency, the merges that build "Ġword" left to right (greedy, each
+    merge once) while there is room, filler, and <mask> last."""
+    import numpy as np
+
+    from advanced_rag_tpu_torch.models.hf_bpe import bytes_to_unicode
+
+    words, _ = zipf_vocab(np.random.default_rng(11))
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for ch in bytes_to_unicode().values():
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    for w in words.tolist():
+        cur = "Ġ"
+        for ch in w:
+            if cur + ch not in vocab:
+                if len(vocab) == size - 1:
+                    break
+                vocab[cur + ch] = len(vocab)
+                merges.append(f"{cur} {ch}")
+            cur += ch
+    while len(vocab) < size - 1:
+        vocab[f"<unused{len(vocab)}>"] = len(vocab)
+    vocab["<mask>"] = size - 1
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "RobertaTokenizer", "add_prefix_space": False}))
+
+
+def xlmr_tokenizer_files(path, size):
+    """XLM-R's tokenizer.json at ``size`` pieces: a Unigram model scored
+    from phase 4's corpus (each word "▁word" at log of its Zipf weight, the
+    letters at log of their frequency less 8, so known words stay whole),
+    PUA filler, <mask> last; XLM-R's normalizer (a Precompiled charsmap of
+    the full-width forms, then " {2,}" to one space), Metaspace and
+    template."""
+    import base64
+    import math
+
+    import numpy as np
+
+    from advanced_rag_tpu_torch.models.hf_unigram import build_precompiled
+
+    words, p = zipf_vocab(np.random.default_rng(11))
+    letters = {}
+    for w, pw in zip(words.tolist(), p.tolist()):
+        for ch in w:
+            letters[ch] = letters.get(ch, 0.0) + pw * len(w)
+    total = sum(letters.values())
+    pieces = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["▁", -4.0]]
+    pieces += [[ch, math.log(n / total) - 8.0] for ch, n in sorted(letters.items())]
+    seen = set()
+    for w, pw in zip(words.tolist(), p.tolist()):
+        if w not in seen:
+            seen.add(w)
+            pieces.append([f"▁{w}", math.log(pw)])
+    if len(pieces) > size - 1:
+        raise AssertionError(f"{len(pieces)} pieces do not fit a vocabulary of {size}")
+    pieces += [[f"\U000F0000{i}", -40.0] for i in range(size - 1 - len(pieces))]
+    pieces.append(["<mask>", 0.0])
+    rules = {chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}
+    rules.update({"　": " ", "…": "..."})
+
+    def added(i, tok, lstrip=False):
+        return {"id": i, "content": tok, "single_word": False, "lstrip": lstrip,
+                "rstrip": False, "normalized": False, "special": True}
+
+    def special(tok):
+        return {"SpecialToken": {"id": tok, "type_id": 0}}
+
+    seq = [{"Sequence": {"id": "A", "type_id": 0}}, {"Sequence": {"id": "B", "type_id": 0}}]
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [added(i, t) for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])]
+        + [added(size - 1, "<mask>", lstrip=True)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap":
+             base64.b64encode(build_precompiled(rules)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [special("<s>"), seq[0], special("</s>")],
+            "pair": [special("<s>"), seq[0], special("</s>"), special("</s>"), seq[1],
+                     special("</s>")],
+            "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                               for t, i in (("<s>", 0), ("</s>", 2))}},
+        "decoder": None,
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False},
+    }
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "XLMRobertaTokenizer"}))
+
+
+def hf_family(path, family, texts, queries, dev):
+    """(e), one family: the model on the card against the same module on
+    the CPU over HF_FAMILY_TEXTS texts or pairs (f32 within HF_TOL, the
+    bf16 distance from the CPU's f32 recorded), then encode or rerank
+    throughput at 64 rows of each of HF_FAMILY_LENGTHS tokens, f32 and
+    bf16: the whole call on the host clock and the forward alone in CUDA
+    events, after warm-up."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    head = HF_FAMILIES[family]["head"]
+    cls = HFCrossEncoder if head else HFEmbedder
+    docs, qs = texts[:HF_FAMILY_TEXTS], queries[:HF_FAMILY_TEXTS]
+
+    def run(model, d, q):
+        return model.score_pairs(q, d) if head else model.encode(d)
+
+    rec = {"source": HF_FAMILIES[family]["source"], "kind": "rerank" if head else "encode"}
+    t = time.perf_counter()
+    want = run(cls(path, max_len=256, device="cpu"), docs, qs)
+    rec["cpu_s"] = time.perf_counter() - t
+    rec["scale"] = float(np.abs(want).max())
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = cls(path, max_len=256, dtype=dtype, device=dev)
+        got = run(model, docs, qs)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"hf {family} {name}: shape {got.shape} or non-finite values")
+        rec[f"{name}_max_abs_err"] = float(np.abs(got - want).max())
+        if name == "float32" and rec[f"{name}_max_abs_err"] > HF_TOL:
+            raise AssertionError(f"hf {family}: the card's f32 differs from the CPU's by "
+                                 f"{rec[f'{name}_max_abs_err']} > {HF_TOL}")
+        for length in HF_FAMILY_LENGTHS:
+            model.max_len = length
+            k = length // 64                    # chunks that fill ``length`` tokens
+            rows = [" ".join(texts[i:i + k]) for i in range(1, k * HF_BATCH, k)]
+            batch = [torch.from_numpy(a).to(dev) for a in (
+                model._tokenize(queries[:HF_BATCH], rows, HF_BATCH) if head
+                else model._tokenize(rows, HF_BATCH))]
+            if not bool(batch[1].all()):
+                raise AssertionError(f"hf {family} throughput rows are not {length} tokens")
+            if not head:
+                batch.append(torch.full_like(batch[0], model.type_id))
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model.model(*batch))
+            call = ((lambda: model.score_pairs(queries[:HF_BATCH], rows)) if head
+                    else (lambda: model.encode_device(rows)))
+            call()
+            sync(dev)
+            t = time.perf_counter()
+            for _ in range(10):
+                call()
+            sync(dev)
+            whole = (time.perf_counter() - t) / 10 * 1e3
+            rec[f"{name}_{length}"] = dict(ms=whole, rows_per_s=HF_BATCH / whole * 1e3,
+                                           forward_ms=fwd)
+        del model
+    log(f"hf[{family}]: card vs CPU on {HF_FAMILY_TEXTS} {'pairs' if head else 'texts'} "
+        f"f32 {rec['float32_max_abs_err']:.3g}, bf16 {rec['bfloat16_max_abs_err']:.3g} "
+        f"(scale {rec['scale']:.3g}); " + "; ".join(
+            f"{n} x {L} {rec[f'{n}_{L}']['ms']:.2f} ms ({rec[f'{n}_{L}']['rows_per_s']:.0f}"
+            f"/s, forward {rec[f'{n}_{L}']['forward_ms']:.2f})"
+            for n in ("float32", "bfloat16") for L in HF_FAMILY_LENGTHS))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_hf(texts, dev="cuda"):
-    """Phase 13: the HF checkpoint models on the card at MiniLM-L6's width.
-    (a) an embedder (BertModel) and a reranker (BertForSequenceClassification,
-    one label) written in HF format from seeded generators; (b) each on the
-    card against the CPU; (d) encode and rerank throughput; (c) ingest and
-    /retrieve through the port's app with RAG_RERANKER=hf:.  Returns the
-    record and (c)'s launches."""
+    """Phase 13: the HF checkpoint models on the card.  At MiniLM-L6's
+    width: (a) an embedder (BertModel) and a reranker
+    (BertForSequenceClassification, one label) written in HF format from
+    seeded generators; (b) each on the card against the CPU; (d) encode
+    and rerank throughput; (c) ingest and /retrieve through the port's app
+    with RAG_RERANKER=hf:.  The other families at their published
+    geometries (HF_FAMILIES): (e) each written, on the card against the
+    CPU and timed; (f) a RoBERTa embedder's bf16-tier manager ingests
+    HF_FAMILY_CHUNKS chunks and the app with RAG_RERANKER=hf: on the
+    ELECTRA reranker answers HF_FAMILY_REQUESTS /retrieve requests from
+    one client.  Returns the record and the launches of (c) and (f)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -4898,6 +5150,24 @@ def phase_hf(texts, dev="cuda"):
         rec["parity"] = hf_parity(root, docs, queries[:HF_PARITY_TEXTS], dev)
         rec["throughput"] = hf_throughput(root, texts, queries, dev)
         rec["service"], launches = hf_service(root, texts, queries[HF_PARITY_TEXTS:], dev)
+        t = time.perf_counter()
+        for i, (family, spec) in enumerate(HF_FAMILIES.items()):
+            write_hf_checkpoint(root / family, head=spec["head"], seed=51 + 2 * i,
+                                family=family)
+        fam = {"write_s": time.perf_counter() - t}
+        log(f"hf: {', '.join(HF_FAMILIES)} checkpoints written in {fam['write_s']:.2f}s (" + ", ".join(
+            f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_FAMILIES)
+            + " MB)")
+        fam_queries = snippet_queries(rng, texts[:HF_FAMILY_CHUNKS], HF_BATCH + 8
+                                      + HF_FAMILY_REQUESTS + 32)
+        for family in HF_FAMILIES:
+            fam[family] = hf_family(root / family, family, texts, fam_queries, dev)
+        fam["service"], fam_launches = hf_service(
+            root, texts, fam_queries[HF_BATCH:], dev, emb_dir=root / "roberta",
+            ce_dir=root / "electra", chunks=HF_FAMILY_CHUNKS, clients=(1,),
+            requests=HF_FAMILY_REQUESTS, warm=False, db="service_hf_families.db")
+        rec["families"] = fam
+        launches = {k: v + fam_launches[k] for k, v in launches.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None

@@ -8,7 +8,9 @@ orbax checkpoints): it loads the Flax weights with transformers' Flax class,
 copies them into the matching PyTorch class and writes its state dict as
 ``model.safetensors`` in the same directory, leaving every other file as it
 was.  A config whose ``architectures`` name a sequence-classification head
-loads as ``AutoModelForSequenceClassification``, any other as ``AutoModel``.
+loads as ``AutoModelForSequenceClassification``, any other as ``AutoModel``,
+so every family the port reads converts (``bert``, ``roberta``,
+``xlm-roberta``, ``electra``, ``distilbert``).
 
     python scripts/torch_export_hf.py <checkpoint dir> [<dir> ...]
 """

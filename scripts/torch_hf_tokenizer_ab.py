@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""The WordPiece tokenizer's ASCII fast path (``models/hf_tokenizer.py``)
-against its general per-character path, in one process on one card's host.
+"""The HF tokenizers' ASCII fast paths against their general
+per-character paths, in one process on one card's host: WordPiece's
+(``models/hf_tokenizer.py``), the byte-level BPE split's (``hf_bpe.py``)
+and XLM-R's ``Precompiled`` charsmap's (``hf_unigram.py``).
 
     python3 scripts/torch_hf_tokenizer_ab.py [--out chiprun_out/hf_tokenizer_ab.json]
 
-Both paths give the same ids (``tests/test_torch_hf_tokenizer.py``); the
-general one is forced by replacing ``normalize`` and ``pre_tokenize`` with
-``normalize_any`` and ``pre_tokenize_any``.  The script writes
-``chip_smoke.py`` phase 13's two MiniLM-L6 checkpoints, then:
+Each pair of paths gives the same ids (``tests/test_torch_hf_tokenizer.py``,
+``test_torch_hf_bpe.py``, ``test_torch_hf_unigram.py``); the general ones
+are forced by replacing ``normalize`` / ``pre_tokenize`` with
+``normalize_any`` / ``pre_tokenize_any``, ``hf_bpe.pre_tokenize`` with
+``hf_bpe.pre_tokenize_any`` and ``Precompiled.__call__`` with
+``Precompiled.normalize_any``.  The script writes ``chip_smoke.py`` phase
+13's two MiniLM-L6 checkpoints and its RoBERTa and ELECTRA ones (and
+XLM-R's tokenizer files), then, in the order on, off, off, on, each with
+fresh tokenizers:
 
-1. in the order on, off, off, on, each with fresh tokenizers: the
-   tokenization of phase 13's 20,000 chunks at 128 tokens in batches of
-   64, and of one rerank batch of 64 pairs at 256 tokens (the mean of 10);
-2. in the same order: phase 13's service run (``hf_service``), which
-   gives the ingest seconds of the 20,000 chunks and /retrieve p50 / p99
-   from 1 and 8 clients, cold and warmed.
+1. "tokenize": phase 13's 20,000 chunks at 128 tokens in batches of 64
+   and one rerank batch of 64 pairs at 256 tokens (the mean of 10),
+   WordPiece; "tokenize-bpe": the same chunks through RoBERTa's
+   tokenizer; "tokenize-unigram": the rerank batch through XLM-R's;
+2. "service": phase 13's service run (``hf_service``): the ingest seconds
+   of the 20,000 chunks and /retrieve p50 / p99 from 1 and 8 clients,
+   cold and warmed; "service-families": its RoBERTa + ELECTRA level, 5,000
+   chunks and 32 requests from 1 client.
 
 It prints one line ``AB {json}`` for each run, the card's name and power
 limit, and writes every run to ``--out``.  Needs one CUDA card (the service
@@ -39,17 +48,22 @@ HERE = Path(__file__).resolve().parent.parent
 
 @contextlib.contextmanager
 def fast_path(on: bool):
-    """The ASCII fast path as it ships (``on``) or forced off."""
+    """The ASCII fast paths as they ship (``on``) or forced off."""
+    from advanced_rag_tpu_torch.models import hf_bpe
     from advanced_rag_tpu_torch.models.hf_tokenizer import WordPieceTokenizer as W
+    from advanced_rag_tpu_torch.models.hf_unigram import Precompiled as P
 
-    saved = W.__dict__["normalize"], W.__dict__["pre_tokenize"]
+    saved = (W.__dict__["normalize"], W.__dict__["pre_tokenize"], hf_bpe.pre_tokenize,
+             P.__dict__["__call__"])
     if not on:
         W.normalize = W.normalize_any
         W.pre_tokenize = staticmethod(W.pre_tokenize_any)
+        hf_bpe.pre_tokenize = hf_bpe.pre_tokenize_any
+        P.__call__ = P.normalize_any
     try:
         yield
     finally:
-        W.normalize, W.pre_tokenize = saved
+        W.normalize, W.pre_tokenize, hf_bpe.pre_tokenize, P.__call__ = saved
 
 
 def tokenize_run(cs, root, texts, queries):
@@ -69,9 +83,24 @@ def tokenize_run(cs, root, texts, queries):
     return dict(chunks_s=chunks_s, rerank_batch_ms=(time.perf_counter() - t) / 10 * 1e3)
 
 
-def service_run(cs, root, texts, queries, dev):
+def family_tokenize_run(cs, root, texts, queries, family):
+    from advanced_rag_tpu_torch.models.hf_tokenizer import load_tokenizer
+
+    tok = load_tokenizer(root / family)
+    t = time.perf_counter()
+    if family == "roberta":
+        for s in range(0, cs.HF_CHUNKS, cs.HF_BATCH):
+            tok(texts[s:s + cs.HF_BATCH], max_length=128)
+        return dict(chunks_s=time.perf_counter() - t)
+    docs = [" ".join(texts[i:i + 3]) for i in range(1, 3 * cs.HF_BATCH, 3)]
+    for _ in range(10):
+        tok(queries[:cs.HF_BATCH], docs, max_length=256)
+    return dict(rerank_batch_ms=(time.perf_counter() - t) / 10 * 1e3)
+
+
+def service_run(cs, root, texts, queries, dev, **level):
     thresholds = gc.get_threshold()
-    rec, _ = cs.hf_service(root, texts, queries, dev)
+    rec, _ = cs.hf_service(root, texts, queries, dev, **level)
     # /admin/warmup froze the heap and raised gc's thresholds: undo it, so
     # the next run starts as this one did
     gc.unfreeze()
@@ -104,14 +133,32 @@ def main() -> None:
     try:
         cs.write_hf_checkpoint(root / "emb", head=False, seed=41)
         cs.write_hf_checkpoint(root / "ce", head=True, seed=43)
+        for i, family in enumerate(("roberta", "electra")):
+            cs.write_hf_checkpoint(root / family, head=family == "electra",
+                                   seed=51 + 2 * i, family=family)
+        (root / "xlm-roberta").mkdir()
+        cs.xlmr_tokenizer_files(root / "xlm-roberta",
+                                cs.HF_FAMILIES["xlm-roberta"]["config"]["vocab_size"])
         rng = np.random.default_rng(47)
         queries = cs.snippet_queries(rng, texts, 8 + (len(cs.HF_CLIENTS) + 1)
                                      * cs.HF_REQUESTS + 32)
-        for kind in ("tokenize", "service"):
+        families = dict(emb_dir=root / "roberta", ce_dir=root / "electra",
+                        chunks=cs.HF_FAMILY_CHUNKS, clients=(1,),
+                        requests=cs.HF_FAMILY_REQUESTS, warm=False,
+                        db="service_hf_families.db")
+        kinds = {
+            "tokenize": lambda: tokenize_run(cs, root, texts, queries),
+            "tokenize-bpe": lambda: family_tokenize_run(cs, root, texts, queries, "roberta"),
+            "tokenize-unigram": lambda: family_tokenize_run(cs, root, texts, queries,
+                                                            "xlm-roberta"),
+            "service": lambda: service_run(cs, root, texts, queries, args.device),
+            "service-families": lambda: service_run(cs, root, texts, queries, args.device,
+                                                    **families),
+        }
+        for kind, run in kinds.items():
             for on in (True, False, False, True):
                 with fast_path(on):
-                    rec = (tokenize_run(cs, root, texts, queries) if kind == "tokenize"
-                           else service_run(cs, root, texts, queries, args.device))
+                    rec = run()
                 rec.update(kind=kind, fast_path=on)
                 runs.append(rec)
                 print("AB " + json.dumps(rec), flush=True)

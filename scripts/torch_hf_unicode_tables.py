@@ -1,21 +1,29 @@
-"""Print the Unicode tables of ``advanced_rag_tpu_torch/models/hf_tokenizer.py``.
+"""Print the Unicode tables of the port's HF tokenizers
+(``advanced_rag_tpu_torch/models/hf_tokenizer.py``, ``hf_bpe.py``,
+``hf_unigram.py``).
 
-The ``tokenizers`` crate that ``BertTokenizerFast`` runs classifies
-characters with its own Unicode tables, which are older than Python's
-``unicodedata`` in some places (categories) and newer in others (Rust's
-lowercase mapping).  This script finds, over every code point, where the
-port's rules built on ``unicodedata`` and the crate's BERT normalizer and
-pre-tokenizer disagree, and prints the code points where the crate's
-answer has to be taken instead, as the ``_CRATE_*`` literals that
-``hf_tokenizer.py`` carries.
+The ``tokenizers`` crate classifies characters with its own Unicode
+tables, which are older than Python's ``unicodedata`` in some places
+(categories) and newer in others (Rust's lowercase mapping, Oniguruma's
+letters and numbers, the grapheme clusters of ``unicode-segmentation``).
+This script finds, over every code point, where the port's rules built on
+``unicodedata`` and the crate disagree, and prints the code points where
+the crate's answer has to be taken instead, as the ``_CRATE_*`` literals
+that the modules carry:
+
+- ``hf_tokenizer.py``: the BERT normalizer and pre-tokenizer;
+- ``hf_bpe.py``: ``\\p{L}``, ``\\p{N}`` and ``\\s`` of GPT-2's split;
+- ``hf_unigram.py``: the grapheme cluster classes that ``Precompiled``
+  normalizes by, probed through ``Precompiled`` itself.
 
 It needs ``tokenizers`` (installed beside ``transformers``), so it runs on
 a machine with the JAX package's dependencies, never on the card's:
 
     python scripts/torch_hf_unicode_tables.py
 
-``tests/test_torch_hf_tokenizer.py::test_every_code_point_matches_the_crate``
-holds the tables against the crate over every code point.
+``tests/test_torch_hf_tokenizer.py::test_every_code_point_matches_the_crate``,
+``tests/test_torch_hf_bpe.py`` and ``tests/test_torch_hf_unigram.py`` hold
+the tables against the crate.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import Dict, Iterable, List, Tuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from tokenizers import normalizers, pre_tokenizers  # noqa: E402
+from tokenizers import Regex, normalizers, pre_tokenizers  # noqa: E402
 
 CODE_POINTS = [c for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
 
@@ -112,6 +120,77 @@ def crate_tables() -> Dict[str, object]:
     }
 
 
+#: Unicode's White_Space property, the port's base for \s
+WHITE_SPACE = {0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680,
+               *range(0x2000, 0x200B), 0x2028, 0x2029, 0x202F, 0x205F, 0x3000}
+
+
+def crate_class(cls: str) -> set:
+    """The code points the crate's Oniguruma puts in ``[cls]``."""
+    split = pre_tokenizers.Split(Regex(f"[^{cls}]+"), behavior="removed")
+    out = set()
+    for _, (a, b) in split.pre_tokenize_str("".join(map(chr, CODE_POINTS))):
+        out.update(CODE_POINTS[a:b])
+    return out
+
+
+def bpe_tables() -> Dict[str, object]:
+    """The classes of GPT-2's split against unicodedata's."""
+    py = {"LETTER": {c for c in CODE_POINTS if unicodedata.category(chr(c))[0] == "L"},
+          "NUMBER": {c for c in CODE_POINTS if unicodedata.category(chr(c))[0] == "N"},
+          "SPACE": WHITE_SPACE}
+    out = {}
+    for name, cls in (("LETTER", r"\p{L}"), ("NUMBER", r"\p{N}"), ("SPACE", r"\s")):
+        crate = crate_class(cls)
+        out[f"_CRATE_{name}"] = ranges(crate - py[name])
+        out[f"_CRATE_NOT_{name}"] = ranges(py[name] - crate)
+    return out
+
+
+def grapheme_tables() -> Dict[str, object]:
+    """The grapheme cluster classes the crate's ``Precompiled`` shows,
+    against ``hf_unigram.base_class``.  Each probe is one charsmap and one
+    text of many short probes, each ended by a line feed (a cluster
+    break): a cluster of fewer than 6 bytes whose first character has a
+    rule takes that rule whole, so the output says whether the probe's
+    characters joined.
+
+    - attach (all code points): ``a`` + c, with a rule for ``a`` only;
+    - control (the BMP; c + U+0301 stays under 6 bytes): c + U+0301, with a
+      rule for every c;
+    - prepend (planes 0-3, where every assigned Prepend lies): c + ``a``,
+      with a rule for every c."""
+    from advanced_rag_tpu_torch.models.hf_unigram import (ATTACH, CONTROL,
+                                                          base_class,
+                                                          build_precompiled)
+
+    def probe(rules, cps, fmt):
+        text = "".join(fmt(chr(c)) + "\n" for c in cps)
+        out = normalizers.Precompiled(build_precompiled(rules)).normalize_str(text)
+        res = out.split("\n")[:-1]
+        assert len(res) == len(cps)
+        return {c for c, r in zip(cps, res) if r == "#"}
+
+    skip = {0x00, 0x0A, 0x0D, 0x61, 0x301}
+    every = [c for c in CODE_POINTS if c not in skip]
+    bmp = [c for c in every if c <= 0xFFFF]
+    planes = [c for c in every if c < 0x40000]
+    attach = probe({"a": "#"}, every, lambda ch: "a" + ch)
+    joins = probe({chr(c): "#" for c in bmp}, bmp, lambda ch: ch + "\u0301")
+    prepend = probe({chr(c): "#" for c in planes}, planes, lambda ch: ch + "a")
+    base = {c: base_class(chr(c)) for c in every}
+    control = {c for c in bmp if c not in joins}
+    return {
+        "_CRATE_ATTACH": ranges(c for c in attach if base[c] != ATTACH),
+        "_CRATE_NOT_ATTACH": ranges(c for c in every
+                                    if base[c] == ATTACH and c not in attach),
+        "_CRATE_CONTROL": ranges(c for c in control if base[c] != CONTROL),
+        "_CRATE_NOT_CONTROL": ranges(c for c in bmp
+                                     if base[c] == CONTROL and c not in control),
+        "_CRATE_PREPEND": ranges(prepend),
+    }
+
+
 def literal(name: str, runs) -> str:
     """``name = (...)`` as hf_tokenizer.py holds it, 79 columns wide."""
     items = ["(" + ", ".join(f"{v:#x}" if i < 2 else str(v)
@@ -130,8 +209,11 @@ def literal(name: str, runs) -> str:
 
 def main() -> None:
     print(f"# unicodedata {unicodedata.unidata_version}")
-    for name, runs in crate_tables().items():
-        print(literal(name, runs))
+    for module, tables in (("hf_tokenizer.py", crate_tables), ("hf_bpe.py", bpe_tables),
+                           ("hf_unigram.py", grapheme_tables)):
+        print(f"# {module}")
+        for name, runs in tables().items():
+            print(literal(name, runs))
 
 
 if __name__ == "__main__":

@@ -120,8 +120,10 @@ def test_safetensors_dtypes_and_malformed_files(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"model_type": "roberta"}, "model_type 'roberta'"),
-    ({"model_type": "xlm-roberta"}, "model_type 'xlm-roberta'"),
+    # the families the port reads name themselves in what they refuse
+    ({"model_type": "roberta", "position_embedding_type": "relative_key"},
+     "model_type 'roberta'"),
+    ({"model_type": "xlm-roberta", "is_decoder": True}, "model_type 'xlm-roberta'"),
     ({"hidden_act": "silu"}, "hidden_act 'silu'"),
     ({"position_embedding_type": "relative_key"}, "relative_key"),
     ({"is_decoder": True}, "decoder"),
@@ -188,3 +190,158 @@ def test_missing_weights_raise(tmp_path):
     torch.save(state, tmp_path / "pytorch_model.bin")
     with pytest.raises(RuntimeError, match="encoder.layer.1"):
         HFEmbedder(tmp_path, max_len=16, device="cpu")
+
+
+# -- the other families -----------------------------------------------------------
+
+def family_model(family, head, **extra):
+    """A tiny transformers PyTorch model of ``family``: the trunk, or with
+    ``head`` its sequence classifier, or with ``head="pretraining"`` the
+    pretraining model whose head from_pretrained drops."""
+    import transformers as tf
+
+    geo = dict(vocab_size=64, max_position_embeddings=40, num_labels=1)
+    kinds = {
+        "roberta": (tf.RobertaConfig, tf.RobertaModel, tf.RobertaForSequenceClassification,
+                    tf.RobertaForMaskedLM, dict(pad_token_id=1, type_vocab_size=1)),
+        "xlm-roberta": (tf.XLMRobertaConfig, tf.XLMRobertaModel,
+                        tf.XLMRobertaForSequenceClassification, tf.XLMRobertaForMaskedLM,
+                        dict(pad_token_id=1, type_vocab_size=1)),
+        "electra": (tf.ElectraConfig, tf.ElectraModel, tf.ElectraForSequenceClassification,
+                    tf.ElectraForPreTraining, dict(embedding_size=8)),
+        "distilbert": (tf.DistilBertConfig, tf.DistilBertModel,
+                       tf.DistilBertForSequenceClassification, tf.DistilBertForMaskedLM,
+                       dict(dim=16, hidden_dim=32, n_layers=2, n_heads=2)),
+    }
+    cfg_cls, base, cls_head, pre, fam = kinds[family]
+    if family != "distilbert":
+        fam = dict(fam, hidden_size=16, num_hidden_layers=2, num_attention_heads=2,
+                   intermediate_size=32)
+    cfg = cfg_cls(**geo, **fam, **extra)
+    model_cls = {False: base, True: cls_head, "pretraining": pre}[head]
+    return perturbed(model_cls, cfg)
+
+
+def port_module(config, head):
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import build_classifier
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    return build_classifier(config, torch.float32) if head else \
+        build_trunk(config, torch.float32)
+
+
+PREFIX = {"roberta": "roberta.", "xlm-roberta": "roberta.", "electra": "electra.",
+          "distilbert": "distilbert."}
+CASES = [(f, h) for f in ("roberta", "xlm-roberta", "electra", "distilbert")
+         for h in (False, True, "pretraining") if not (f == "distilbert" and h is True)]
+
+
+@pytest.mark.parametrize("family,head", CASES, ids=[f"{f}-{h}" for f, h in CASES])
+def test_family_renamer(tmp_path, family, head):
+    """Each family's checkpoint read under the port's names: the trunk of
+    a base, classifier or pretraining model without its prefix, the pooler
+    and the MLM / discriminator heads left out; a classifier whole, with
+    its dense / out_proj head.  The port's module takes the state exactly
+    (load_state_dict is strict)."""
+    model = family_model(family, head)
+    model.save_pretrained(tmp_path)
+    want = model.state_dict()
+    if head is not True:
+        pre = PREFIX[family]
+        want = {k.removeprefix(pre): v for k, v in want.items()}
+        want = {k: v for k, v in want.items()
+                if k.startswith(("embeddings.", "embeddings_project.", "encoder.",
+                                 "transformer."))
+                and not k.endswith("position_ids")}
+    else:
+        want = {k: v for k, v in want.items() if not k.endswith("position_ids")}
+    config, got = load_checkpoint(tmp_path, head=head is True, pooler=False)
+    assert config.model_type == family
+    assert_states_equal(got, want)
+    port_module(config, head is True).load_state_dict(got)
+
+
+@pytest.mark.parametrize("family", ["roberta", "xlm-roberta", "electra", "distilbert"])
+def test_family_forward_matches_transformers(tmp_path, family):
+    """The port's trunk against transformers' PyTorch model, f32, within
+    1e-5, with padding (RoBERTa's pad positions) and token types."""
+    model = family_model(family, False)
+    model.save_pretrained(tmp_path)
+    config, state = load_checkpoint(tmp_path, head=False, pooler=False)
+    port = port_module(config, False)
+    port.load_state_dict(state)
+    ids = torch.randint(5, 64, (3, 12))
+    mask = torch.ones(3, 12, dtype=torch.long)
+    mask[1, 7:] = 0
+    pad = 1 if "roberta" in family else 0
+    ids[1, 7:] = pad
+    types = torch.zeros_like(ids)
+    if family == "electra":
+        types[:, 6:] = 1
+    kw = {} if family == "distilbert" else {"token_type_ids": types}
+    with torch.no_grad():
+        want = model(input_ids=ids, attention_mask=mask, **kw).last_hidden_state
+        got, _ = port(ids, mask, types)
+    keep = mask.bool()
+    torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=1e-5)
+
+
+def test_family_configs_read_as_transformers_reads_them(tmp_path):
+    """DistilBERT's own names, ELECTRA's embedding_size, RoBERTa's pad id
+    and position offset, and a family's class defaults where the file
+    leaves a key out."""
+    import transformers as tf
+
+    tf.DistilBertConfig(dim=24, hidden_dim=40, n_layers=3, n_heads=4,
+                        activation="relu", sinusoidal_pos_embds=True).save_pretrained(tmp_path)
+    c = read_config(tmp_path)
+    assert (c.hidden_size, c.intermediate_size, c.num_hidden_layers,
+            c.num_attention_heads, c.hidden_act, c.sinusoidal_pos_embds,
+            c.layer_norm_eps, c.position_offset) == (24, 40, 3, 4, "relu", True, 1e-12, 0)
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "electra"}))
+    c = read_config(tmp_path)
+    d = tf.ElectraConfig()
+    assert (c.embedding_size, c.hidden_size, c.num_attention_heads, c.intermediate_size) \
+        == (d.embedding_size, d.hidden_size, d.num_attention_heads, d.intermediate_size)
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "xlm-roberta", "layer_norm_eps": 1e-5}))
+    c = read_config(tmp_path)
+    assert (c.pad_token_id, c.position_offset, c.layer_norm_eps) == (1, 2, 1e-5)
+
+
+@pytest.mark.parametrize("model_type", ["albert", "roberta-prelayernorm", "big_bird",
+                                        "roformer", None])
+def test_other_families_raise_naming_them(tmp_path, model_type):
+    tiny_config().save_pretrained(tmp_path)
+    cfg = json.loads((tmp_path / "config.json").read_text())
+    cfg["model_type"] = model_type
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match=f"model_type {model_type!r} is not supported"):
+        read_config(tmp_path)
+
+
+def test_distilbert_reranker_and_spm_model_refused(tmp_path):
+    """A DistilBERT classifier as HFCrossEncoder (the JAX reference raises
+    TypeError at its first score) and an XLM-R directory with only
+    sentencepiece.bpe.model each raise ValueError naming what is missing."""
+    from transformers import DistilBertTokenizerFast
+
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    # a DistilBERT classifier serves as an embedder: its trunk, without
+    # pre_classifier and classifier (load_state_dict is strict)
+    family_model("distilbert", True).save_pretrained(tmp_path / "d")
+    (tmp_path / "d" / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(59)]))
+    DistilBertTokenizerFast(vocab_file=str(tmp_path / "d" / "vocab.txt")).save_pretrained(
+        tmp_path / "d")
+    HFEmbedder(tmp_path / "d", max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="DistilBERT checkpoint does not serve as a "
+                                         "cross-encoder"):
+        HFCrossEncoder(tmp_path / "d", max_len=16, device="cpu")
+    family_model("xlm-roberta", True).save_pretrained(tmp_path / "x")
+    (tmp_path / "x" / "sentencepiece.bpe.model").write_bytes(b"\x00" * 16)
+    for cls in (HFEmbedder, HFCrossEncoder):
+        with pytest.raises(ValueError, match="no tokenizer.json"):
+            cls(tmp_path / "x", max_len=16, device="cpu")

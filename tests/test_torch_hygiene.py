@@ -59,9 +59,10 @@ CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py",
 
 
 #: top-level packages the port, chip_smoke.py and the card's scripts never
-#: import: the JAX stack, and the HF libraries the card's machine lacks
+#: import: the JAX stack, and the HF libraries and ``regex`` the card's
+#: machine lacks
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "advanced_rag_tpu", "transformers",
-             "tokenizers", "safetensors", "huggingface_hub")
+             "tokenizers", "safetensors", "huggingface_hub", "regex")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -244,3 +245,18 @@ def test_host_native_code_and_timers_are_modules_of_the_port():
     for name in ("encode_documents", "encode_queries", "DocumentDiagnostics", "HNSWBaseline",
                  "scanned_ms", "chained_ms", "fetch_ms", "device_trace"):
         assert name in smoke, name
+
+
+def test_hf_modules_are_the_ports_and_the_export_script_is_not():
+    """The HF families' modules are modules of the port (so the checks
+    above cover them); scripts/torch_export_hf.py, which runs where
+    transformers and Flax are installed, imports transformers and is no
+    card script."""
+    mods = set(port_modules())
+    for name in ("hf_checkpoint", "hf_tokenizer", "hf_bpe", "hf_unigram", "hf_bert",
+                 "hf_roberta", "hf_electra", "hf_distilbert", "hf_embedder",
+                 "hf_cross_encoder"):
+        assert f"advanced_rag_tpu_torch.models.{name}" in mods, name
+    export = REPO / "scripts" / "torch_export_hf.py"
+    assert export not in CARD_SCRIPTS
+    assert re.search(r"^\s*from transformers import", export.read_text(), re.M)
