@@ -1,12 +1,16 @@
-"""Build and load the port's CUDA kernels: one nvcc call, a plain C ABI,
-ctypes.
+"""Build and load the port's CUDA kernels: one nvcc compile per source,
+all started together, and one link; a plain C ABI, ctypes.
 
-``csrc/*.cu`` include CUDA headers only, so a single command compiles them
-in seconds into ``build/kernels/libart_kernels_<srchash>.so`` at the root of
-the checkout (``build/`` is git-ignored):
+``csrc/*.cu`` include CUDA headers only, so each compiles in seconds; the
+compiles run at once (a single nvcc call over every source compiles them
+one after another) and one link writes
+``build/kernels/libart_kernels_<srchash>.so`` at the root of the checkout
+(``build/`` is git-ignored):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/libart_kernels_<srchash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <objects>/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libart_kernels_<srchash>.so <objects>/*.o
 
 The library is built on first use and named by a hash of the sources, so an
 edited source rebuilds and an unchanged one loads the cached file.  The
@@ -25,7 +29,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -33,7 +37,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: seconds the nvcc call of this process took (None when the library for
+#: seconds the nvcc calls of this process took (None when the library for
 #: these sources was already built); chip_smoke.py prints it
 last_build_seconds: Optional[float] = None
 
@@ -71,10 +75,22 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", str(out),
-            *[str(s) for s in sources()]]
+def nvcc_commands(nvcc: str, out: Path, obj_dir: Path
+                  ) -> Tuple[List[List[str]], List[str]]:
+    """The compile of each source into ``obj_dir`` and the link of their
+    objects into ``out``."""
+    objects = [obj_dir / f"{src.stem}.o" for src in sources()]
+    compiles = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-c", "-o", str(obj), str(src)] for src, obj in zip(sources(), objects)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objects)]
+    return compiles, link
+
+
+def _check(cmd: List[str], proc) -> None:
+    out, err = proc.communicate() if isinstance(proc, subprocess.Popen) else (
+        proc.stdout, proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}{out}")
 
 
 def build() -> Path:
@@ -87,16 +103,24 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".tmp.so",
                                dir=BUILD_DIR)
     os.close(fd)
-    cmd = nvcc_command(find_nvcc(), Path(tmp))
+    obj_dir = Path(tempfile.mkdtemp(prefix=out.stem + ".", dir=BUILD_DIR))
+    compiles, link = nvcc_commands(find_nvcc(), Path(tmp), obj_dir)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in compiles]
+        try:
+            for cmd, proc in zip(compiles, procs):
+                _check(cmd, proc)
+        finally:
+            for proc in procs:      # a failed compile leaves no other running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        _check(link, subprocess.run(link, capture_output=True, text=True))
         os.replace(tmp, out)
     finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
         if os.path.exists(tmp):
             os.unlink(tmp)
     last_build_seconds = time.perf_counter() - t0
@@ -110,7 +134,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.art_dense_scores.argtypes = [p, p, i, p, p, i, i, i, i, p]
+            lib.art_dense_scores.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p]
             lib.art_dense_scores.restype = i
             lib.art_sq8_scores.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.art_sq8_scores.restype = i
@@ -129,5 +153,5 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-__all__ = ["build", "load", "nvcc_command", "find_nvcc", "sources",
+__all__ = ["build", "load", "nvcc_commands", "find_nvcc", "sources",
            "library_path", "BUILD_DIR", "CSRC"]

@@ -58,6 +58,16 @@
 //   rows whose base or stride is not 16-byte aligned are staged by element
 //   copies instead of cp.async.
 //
+// - Wide rows.  The queries of a launch live in shared memory whole, so
+//   past some width (bf16: 8 queries above D = 3264; f32: above 4960) they
+//   do not fit next to the ring.  Such a row is scanned in slices of D
+//   (ops/dense_kernels.py:scan_width): one launch per slice, each on its
+//   columns of the rows and queries (`ld` apart), the first writing its
+//   scores plus the mask and the later ones adding theirs into the output
+//   (`add`).  The rows are still read once; each later slice reads and
+//   writes the [Q, N] output once more (16 MB at Q = 32, N = 131072,
+//   against 1 GB of bf16 rows at D = 4096).
+//
 // f32 rows use the same staged ring and stay on CUDA-core FMAs in f32 (an
 // f32 dot at 67 TFLOP/s: 0.037 ms at N = 100k, Q = 32, under its 0.046 ms
 // byte time): each thread keeps a TR x 4 (rows x queries) register tile and
@@ -191,7 +201,8 @@ __host__ __device__ __forceinline__ int tile_rows(int kind, int qc, int d) {
 // bytes [128 * (i % nk), + 128) of each of its BM rows.
 template <int KIND, int BM>
 __device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* rows, int n,
-                                           int row_bytes, int nk, int i, int vec) {
+                                           int row_bytes, size_t row_pitch, int nk, int i,
+                                           int vec) {
   using T = typename Kind<KIND>::T;
   constexpr int kItem = Kind<KIND>::kItem;
   const size_t tile = (size_t)blockIdx.x + (size_t)(i / nk) * gridDim.x;
@@ -203,10 +214,10 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* rows, 
     uint8_t* dst = stage + r * ART_STAGE_ROW + (c & 7) * 16;
     const bool ok = row < (size_t)n && b0 < row_bytes;
     if (vec) {  // row_bytes % 16 == 0 and a 16-byte aligned base
-      cp_async16(smem_addr(dst), ok ? rows + row * row_bytes + b0 : rows, ok ? 16 : 0);
+      cp_async16(smem_addr(dst), ok ? rows + row * row_pitch + b0 : rows, ok ? 16 : 0);
     } else {
       T* dt = (T*)dst;
-      const T* src = (const T*)(rows + (ok ? row * row_bytes : 0));
+      const T* src = (const T*)(rows + (ok ? row * row_pitch : 0));
 #pragma unroll
       for (int e = 0; e < 16 / kItem; ++e) {
         const int b = b0 + e * kItem;
@@ -216,15 +227,16 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* rows, 
   }
 }
 
-// 16 bytes of query row j at element k (4 f32 or 16 int8 values), zero past
-// nq and D; one vector load when the row is 16-byte aligned there.
+// 16 bytes of query row j (rows ld elements apart) at element k (4 f32 or
+// 16 int8 values), zero past nq and D; one vector load when the row is
+// 16-byte aligned there.
 template <typename T>
 __device__ __forceinline__ uint4 load_query_chunk(const T* q, int j, int k, int nq, int d,
-                                                  bool vec) {
+                                                  int ld, bool vec) {
   constexpr int kPer = 16 / sizeof(T);
   uint4 v = make_uint4(0, 0, 0, 0);
   if (j >= nq) return v;
-  const T* src = q + (size_t)j * d + k;
+  const T* src = q + (size_t)j * ld + k;
   if (vec && k + kPer <= d) return __ldg((const uint4*)src);
   T* e = (T*)&v;
 #pragma unroll
@@ -237,10 +249,11 @@ __device__ __forceinline__ uint4 load_query_chunk(const T* q, int j, int k, int 
 // of them, so the prologue costs a few L2 round trips, not one per value;
 // the first stages' row copies are in flight meanwhile.
 template <int KIND, int QC, int kThreads>
-__device__ __forceinline__ void load_queries(uint8_t* qs, const void* q, int nq, int d) {
+__device__ __forceinline__ void load_queries(uint8_t* qs, const void* q, int nq, int d,
+                                             int ld) {
   constexpr int kBatch = 8;
   const int q_item = KIND == KIND_INT8 ? 1 : 4;  // int8 codes or f32 values
-  const bool vec = ((uintptr_t)q & 15) == 0 && (d * q_item) % 16 == 0;
+  const bool vec = ((uintptr_t)q & 15) == 0 && (ld * q_item) % 16 == 0;
   if (KIND == KIND_INT8) {
     const int dpad = round_up(d, 128), pitch = query_pitch(KIND, d);
     const int per_row = dpad / 16, total = QC * per_row;
@@ -250,7 +263,7 @@ __device__ __forceinline__ void load_queries(uint8_t* qs, const void* q, int nq,
       for (int u = 0; u < kBatch; ++u) {
         const int c = c0 + u * kThreads;
         v[u] = c < total ? load_query_chunk((const int8_t*)q, c / per_row, (c % per_row) * 16,
-                                            nq, d, vec)
+                                            nq, d, ld, vec)
                          : make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
@@ -269,7 +282,7 @@ __device__ __forceinline__ void load_queries(uint8_t* qs, const void* q, int nq,
     for (int u = 0; u < kBatch; ++u) {
       const int c = c0 + u * kThreads;
       v[u] = c < total ? load_query_chunk((const float*)q, c / per_row, (c % per_row) * 4, nq,
-                                          d, vec)
+                                          d, ld, vec)
                        : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
@@ -429,9 +442,11 @@ __device__ __forceinline__ void compute_stage(Acc<KIND, QC, BM>& acc, const uint
 }
 
 // The tile's scores: each thread writes its accumulators (scaled and
-// masked) into the tile's consumed stage as [QC][BM + 4] f32, then the
-// block writes each query's BM contiguous scores with 16-byte stores, so
-// the [Q, N] output goes out in whole 128-byte lines.  `ot` is the stage
+// masked; no mask where `mask` is null) into the tile's consumed stage as
+// [QC][BM + 4] f32, then the block writes each query's BM contiguous
+// scores with 16-byte stores, so the [Q, N] output goes out in whole
+// 128-byte lines, or, with `add`, adds them to what the output holds (a
+// later slice of a wide row).  `ot` is the stage
 // the tile's last product read; the caller synchronises before and after.
 template <int KIND, int QC, int BM>
 __device__ __forceinline__ void stage_scores(const Acc<KIND, QC, BM>& acc, float* ot,
@@ -445,7 +460,7 @@ __device__ __forceinline__ void stage_scores(const Acc<KIND, QC, BM>& acc, float
 #pragma unroll
     for (int i = 0; i < L::TR; ++i) {
       const int rr = warp * 16 + lr + L::LR * i;
-      const float m = base + rr < (size_t)n ? __ldg(mask + base + rr) : 0.0f;
+      const float m = mask != nullptr && base + rr < (size_t)n ? __ldg(mask + base + rr) : 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) ot[(lq * 4 + j) * OTP + rr] = __fadd_rn(acc.v[i * 4 + j], m);
     }
@@ -459,7 +474,7 @@ __device__ __forceinline__ void stage_scores(const Acc<KIND, QC, BM>& acc, float
       for (int h = 0; h < 2; ++h) {
         const int rr = wm * L::MT * 16 + mt * 16 + g + 8 * h;
         const bool live = base + rr < (size_t)n;
-        const float m = live ? __ldg(mask + base + rr) : 0.0f;
+        const float m = live && mask != nullptr ? __ldg(mask + base + rr) : 0.0f;
         const float s = KIND == KIND_INT8 && live ? __ldg(scale + base + rr) : 0.0f;
 #pragma unroll
         for (int nt = 0; nt < L::NT; ++nt) {
@@ -478,7 +493,7 @@ __device__ __forceinline__ void stage_scores(const Acc<KIND, QC, BM>& acc, float
 
 template <int QC, int BM>
 __device__ __forceinline__ void write_scores(const float* ot, size_t base,
-                                             float* __restrict__ out, int nq, int n) {
+                                             float* __restrict__ out, int nq, int n, int add) {
   constexpr int OTP = BM + 4;
   const bool vec = (n & 3) == 0 && ((uintptr_t)out & 15) == 0;
   for (int c = threadIdx.x; c < QC * (BM / 4); c += Tile<BM>::kThreads) {
@@ -486,29 +501,37 @@ __device__ __forceinline__ void write_scores(const float* ot, size_t base,
     if (j >= nq) break;  // c grows with j
     const size_t r = base + r4;
     if (r >= (size_t)n) continue;
-    const float4 v = *(const float4*)(ot + j * OTP + r4);
+    float4 v = *(const float4*)(ot + j * OTP + r4);
     float* dst = out + (size_t)j * n + r;
     if (vec && r + 4 <= (size_t)n) {
+      if (add) {
+        const float4 o = *(const float4*)dst;
+        v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y), __fadd_rn(o.z, v.z),
+                        __fadd_rn(o.w, v.w));
+      }
       *(float4*)dst = v;
     } else {
       const float e[4] = {v.x, v.y, v.z, v.w};
-      for (int i = 0; i < 4 && r + i < (size_t)n; ++i) dst[i] = e[i];
+      for (int i = 0; i < 4 && r + i < (size_t)n; ++i) dst[i] = add ? __fadd_rn(dst[i], e[i]) : e[i];
     }
   }
 }
 
-// The block's whole run: the persistent walk over its tiles.
+// The block's whole run: the persistent walk over its tiles.  `d` values
+// of each row and query, whose rows lie `ld` elements apart (ld > d: one
+// slice of a wide row; `add` then adds into the output).
 template <int KIND, int QC, int BM>
 __device__ __forceinline__ void scan_block(const void* __restrict__ q,
                                            const uint8_t* __restrict__ rows,
                                            const float* __restrict__ scale,
                                            const float* __restrict__ mask,
                                            float* __restrict__ out, int nq, int n, int d,
-                                           int vec) {
+                                           int ld, int add, int vec) {
   constexpr int kStage = Tile<BM>::kStageBytes;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* qs = smem + ART_NSTAGE * kStage;
   const int row_bytes = d * Kind<KIND>::kItem;
+  const size_t row_pitch = (size_t)ld * Kind<KIND>::kItem;
   const int nk = (row_bytes + 127) / 128;
   const int ntiles = (n + BM - 1) / BM;
   const int total = ((ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * nk;
@@ -516,10 +539,11 @@ __device__ __forceinline__ void scan_block(const void* __restrict__ q,
   // the first stages' copies go out before the queries are staged
 #pragma unroll
   for (int s = 0; s < ART_NSTAGE - 1; ++s) {
-    if (s < total) load_stage<KIND, BM>(smem + s * kStage, rows, n, row_bytes, nk, s, vec);
+    if (s < total)
+      load_stage<KIND, BM>(smem + s * kStage, rows, n, row_bytes, row_pitch, nk, s, vec);
     cp_async_commit();
   }
-  load_queries<KIND, QC, Tile<BM>::kThreads>(qs, q, nq, d);
+  load_queries<KIND, QC, Tile<BM>::kThreads>(qs, q, nq, d, ld);
 
   Acc<KIND, QC, BM> acc;
 #pragma unroll
@@ -530,7 +554,8 @@ __device__ __forceinline__ void scan_block(const void* __restrict__ q,
     __syncthreads();  // stage `it` has landed; stage it - 1 is free again
     const int nx = it + ART_NSTAGE - 1;
     if (nx < total) {
-      load_stage<KIND, BM>(smem + (nx % ART_NSTAGE) * kStage, rows, n, row_bytes, nk, nx, vec);
+      load_stage<KIND, BM>(smem + (nx % ART_NSTAGE) * kStage, rows, n, row_bytes, row_pitch,
+                           nk, nx, vec);
     }
     cp_async_commit();
     const int kc = it % nk;
@@ -541,7 +566,7 @@ __device__ __forceinline__ void scan_block(const void* __restrict__ q,
       __syncthreads();  // every warp is done with this stage's rows
       stage_scores<KIND, QC, BM>(acc, (float*)stage, base, scale, mask, n);
       __syncthreads();
-      write_scores<QC, BM>((const float*)stage, base, out, nq, n);
+      write_scores<QC, BM>((const float*)stage, base, out, nq, n, add);
 #pragma unroll
       for (int i = 0; i < Acc<KIND, QC, BM>::N; ++i) acc.v[i] = 0;
     }
@@ -553,25 +578,27 @@ template <int QC, bool BF16, int BM>
 __global__ void __launch_bounds__(2 * BM)
 dense_scores_kernel(const void* __restrict__ q, const uint8_t* __restrict__ rows,
                     const float* __restrict__ scale, const float* __restrict__ mask,
-                    float* __restrict__ out, int nq, int n, int d, int vec) {
-  scan_block<BF16 ? KIND_BF16 : KIND_F32, QC, BM>(q, rows, scale, mask, out, nq, n, d, vec);
+                    float* __restrict__ out, int nq, int n, int d, int ld, int add,
+                    int vec) {
+  scan_block<BF16 ? KIND_BF16 : KIND_F32, QC, BM>(q, rows, scale, mask, out, nq, n, d, ld, add,
+                                                   vec);
 }
 
 template <int QC, int BM>
 __global__ void __launch_bounds__(2 * BM)
 sq8_scores_kernel(const void* __restrict__ q, const uint8_t* __restrict__ rows,
                   const float* __restrict__ scale, const float* __restrict__ mask,
-                  float* __restrict__ out, int nq, int n, int d, int vec) {
-  scan_block<KIND_INT8, QC, BM>(q, rows, scale, mask, out, nq, n, d, vec);
+                  float* __restrict__ out, int nq, int n, int d, int ld, int add, int vec) {
+  scan_block<KIND_INT8, QC, BM>(q, rows, scale, mask, out, nq, n, d, ld, add, vec);
 }
 
 template <int KIND, int QC, int BM>
 int launch_scan(const void* q, const void* rows, const void* scale, const void* mask,
-                void* out, int nq, int n, int d, int vec, cudaStream_t st) {
+                void* out, int nq, int n, int d, int ld, int add, int vec, cudaStream_t st) {
   const size_t smem = scan_smem_bytes(KIND, QC, d, BM);
   if (smem > ART_SMEM_MAX) return (int)cudaErrorInvalidValue;
   void (*kern)(const void*, const uint8_t*, const float*, const float*, float*, int, int, int,
-               int);
+               int, int, int);
   if constexpr (KIND == KIND_INT8) {
     kern = sq8_scores_kernel<QC, BM>;
   } else {
@@ -602,36 +629,43 @@ int launch_scan(const void* q, const void* rows, const void* scale, const void* 
   const int ntiles = (n + BM - 1) / BM;
   const int grid = ntiles < resident ? ntiles : resident;
   kern<<<grid, 2 * BM, smem, st>>>(q, (const uint8_t*)rows, (const float*)scale,
-                                   (const float*)mask, (float*)out, nq, n, d, vec);
+                                   (const float*)mask, (float*)out, nq, n, d, ld, add, vec);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
 int dispatch_scan(const void* q, const void* rows, const void* scale, const void* mask,
-                  void* out, int nq, int n, int d, int vec, cudaStream_t st) {
-  if (nq <= 8) return launch_scan<KIND, 8, 128>(q, rows, scale, mask, out, nq, n, d, vec, st);
-  if (nq <= 16) return launch_scan<KIND, 16, 128>(q, rows, scale, mask, out, nq, n, d, vec, st);
+                  void* out, int nq, int n, int d, int ld, int add, int vec, cudaStream_t st) {
+  if (nq <= 8)
+    return launch_scan<KIND, 8, 128>(q, rows, scale, mask, out, nq, n, d, ld, add, vec, st);
+  if (nq <= 16)
+    return launch_scan<KIND, 16, 128>(q, rows, scale, mask, out, nq, n, d, ld, add, vec, st);
   if (tile_rows(KIND, 32, d) == 256) {
     if constexpr (KIND != KIND_INT8)
-      return launch_scan<KIND, 32, 256>(q, rows, scale, mask, out, nq, n, d, vec, st);
+      return launch_scan<KIND, 32, 256>(q, rows, scale, mask, out, nq, n, d, ld, add, vec, st);
   }
-  return launch_scan<KIND, 32, 128>(q, rows, scale, mask, out, nq, n, d, vec, st);
+  return launch_scan<KIND, 32, 128>(q, rows, scale, mask, out, nq, n, d, ld, add, vec, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1.  q: f32 [nq, d]; rows: [n, d], row_dtype 0 = float32, 1 = bfloat16;
-// mask: f32 [n]; out: f32 [nq, n].  vec: d * itemsize % 16 == 0 and a
+// K1.  q: f32 [nq, ld]; rows: [n, ld], row_dtype 0 = float32, 1 = bfloat16;
+// mask: f32 [n] or null (no mask); out: f32 [nq, n].  The scan takes the
+// first d values of each row and query: the whole row where d == ld, one
+// slice of a row too wide for the queries' shared memory otherwise (the
+// caller offsets q and rows to the slice); add: add the slice's scores to
+// out instead of writing them.  vec: d and ld * itemsize % 16 == 0 and a
 // 16-byte aligned rows base (else rows are staged by element copies).
 int art_dense_scores(const void* q, const void* rows, int row_dtype, const void* mask,
-                     void* out, int nq, int n, int d, int vec, void* stream) {
-  if (nq < 1 || nq > 32 || n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+                     void* out, int nq, int n, int d, int ld, int add, int vec,
+                     void* stream) {
+  if (nq < 1 || nq > 32 || n < 1 || d < 1 || ld < d) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return row_dtype == 1
-             ? dispatch_scan<KIND_BF16>(q, rows, nullptr, mask, out, nq, n, d, vec, st)
-             : dispatch_scan<KIND_F32>(q, rows, nullptr, mask, out, nq, n, d, vec, st);
+             ? dispatch_scan<KIND_BF16>(q, rows, nullptr, mask, out, nq, n, d, ld, add, vec, st)
+             : dispatch_scan<KIND_F32>(q, rows, nullptr, mask, out, nq, n, d, ld, add, vec, st);
 }
 
 // K2.  qcodes: int8 [nq, d], d % 4 == 0; codes: int8 [n, d]; scale, mask:
@@ -640,7 +674,7 @@ int art_sq8_scores(const void* qcodes, const void* codes, const void* scale,
                    const void* mask, void* out, int nq, int n, int d, int vec,
                    void* stream) {
   if (nq < 1 || nq > 32 || n < 1 || d < 4 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-  return dispatch_scan<KIND_INT8>(qcodes, codes, scale, mask, out, nq, n, d, vec,
+  return dispatch_scan<KIND_INT8>(qcodes, codes, scale, mask, out, nq, n, d, d, 0, vec,
                                   (cudaStream_t)stream);
 }
 

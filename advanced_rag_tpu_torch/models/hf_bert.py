@@ -53,6 +53,8 @@ def activation(name: str):
         return partial(F.gelu, approximate="tanh")
     if name == "relu":
         return F.relu
+    if name in ("silu", "swish"):
+        return F.silu
     raise ValueError(f"hidden_act {name!r} is not supported")
 
 

@@ -173,6 +173,44 @@ def bytes_to_unicode() -> Dict[int, str]:
 _BYTE_TABLE = bytes_to_unicode()
 
 
+def merge_ids(ids: List[int], merges: Dict[Tuple[int, int], Tuple[int, int]]
+              ) -> Tuple[int, ...]:
+    """The crate's ``Word::merge_all`` on a word's symbol ids: the pair of
+    lowest rank first and, among equal ranks, the leftmost; ``merges``
+    maps a pair of ids to (rank, merged id)."""
+    ids = list(ids)
+    n = len(ids)
+    nxt, prv, alive = list(range(1, n + 1)), list(range(-1, n - 1)), [True] * n
+    heap = []
+    for i in range(n - 1):
+        m = merges.get((ids[i], ids[i + 1]))
+        if m is not None:
+            heap.append((m[0], i, m[1]))
+    heapq.heapify(heap)
+    while heap:
+        _, pos, new_id = heapq.heappop(heap)
+        if not alive[pos] or nxt[pos] >= n:
+            continue
+        right = nxt[pos]
+        m = merges.get((ids[pos], ids[right]))
+        if m is None or m[1] != new_id:
+            continue                       # an entry the merges outdated
+        ids[pos] = new_id
+        alive[right] = False
+        nxt[pos] = nxt[right]
+        if nxt[pos] < n:
+            prv[nxt[pos]] = pos
+        if prv[pos] >= 0:
+            m = merges.get((ids[prv[pos]], new_id))
+            if m is not None:
+                heapq.heappush(heap, (m[0], prv[pos], m[1]))
+        if nxt[pos] < n:
+            m = merges.get((new_id, ids[nxt[pos]]))
+            if m is not None:
+                heapq.heappush(heap, (m[0], pos, m[1]))
+    return tuple(t for t, a in zip(ids, alive) if a)
+
+
 class ByteLevelBPETokenizer(TemplateTokenizer):
     """``RobertaTokenizerFast`` on its own: ``__call__`` returns numpy
     ``input_ids`` and ``attention_mask`` [B, L] int64."""
@@ -235,37 +273,7 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
     def _merge(self, word: str) -> Tuple[int, ...]:
         """The crate's ``merge_word`` + ``merge_all`` on one mapped word."""
         # a character outside the vocabulary is dropped (no unk token)
-        ids = [self.vocab[ch] for ch in word if ch in self.vocab]
-        n = len(ids)
-        nxt, prv, alive = list(range(1, n + 1)), list(range(-1, n - 1)), [True] * n
-        heap = []
-        for i in range(n - 1):
-            m = self.merges.get((ids[i], ids[i + 1]))
-            if m is not None:
-                heap.append((m[0], i, m[1]))
-        heapq.heapify(heap)
-        while heap:
-            _, pos, new_id = heapq.heappop(heap)
-            if not alive[pos] or nxt[pos] >= n:
-                continue
-            right = nxt[pos]
-            m = self.merges.get((ids[pos], ids[right]))
-            if m is None or m[1] != new_id:
-                continue                       # an entry the merges outdated
-            ids[pos] = new_id
-            alive[right] = False
-            nxt[pos] = nxt[right]
-            if nxt[pos] < n:
-                prv[nxt[pos]] = pos
-            if prv[pos] >= 0:
-                m = self.merges.get((ids[prv[pos]], new_id))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], prv[pos], m[1]))
-            if nxt[pos] < n:
-                m = self.merges.get((new_id, ids[nxt[pos]]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], pos, m[1]))
-        return tuple(t for t, a in zip(ids, alive) if a)
+        return merge_ids([self.vocab[ch] for ch in word if ch in self.vocab], self.merges)
 
     def encode_piece(self, text: str, first: bool) -> List[int]:
         if self.add_prefix_space and text and not text.startswith(" "):
@@ -283,5 +291,5 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
         return out
 
 
-__all__ = ["ByteLevelBPETokenizer", "bytes_to_unicode", "char_class", "pre_tokenize",
-           "pre_tokenize_any"]
+__all__ = ["ByteLevelBPETokenizer", "bytes_to_unicode", "char_class", "merge_ids",
+           "pre_tokenize", "pre_tokenize_any"]

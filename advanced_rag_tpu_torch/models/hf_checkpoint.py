@@ -11,6 +11,18 @@ load for a RAG deployment:
   (erf), ``gelu_new`` / ``gelu_pytorch_tanh`` (tanh) or ``relu``,
   ``position_embedding_type`` ``absolute``; anything else raises
   ``ValueError`` naming it;
+- the decoder families ``llama``, ``mistral`` and ``gemma`` (``DECODERS``),
+  with their grouped-query heads, ``head_dim``, ``rms_norm_eps``,
+  ``hidden_act`` (``silu``; Gemma's ``hidden_activation``, whose None is
+  the tanh GELU), ``attention_bias`` and Mistral's ``sliding_window``.
+  Where Flax's modules compute another model than the checkpoint's,
+  ``read_config`` raises naming the field: ``rope_theta`` other than
+  10000 and any ``rope_scaling`` (Flax hard-codes theta 10000 and no
+  scaling), Mistral's ``sliding_window: null`` (Flax then lets each token
+  see only itself), a Llama / Mistral ``head_dim`` other than hidden /
+  heads (Flax ignores it), ``mlp_bias`` (Flax's MLP has none), and
+  ``max_position_embeddings`` under twice the head width (Flax cuts its
+  sin/cos table to that many columns);
 - the weights: ``model.safetensors`` (a hand parser: an 8-byte header
   length, a JSON header, raw little-endian F32/F16/BF16/I64 bytes read
   with ``torch.frombuffer``), else ``pytorch_model.bin``
@@ -20,9 +32,11 @@ load for a RAG deployment:
 - the names (``family_state``): legacy ``LayerNorm.gamma`` / ``beta``
   become ``weight`` / ``bias``, the ``position_ids`` buffer is dropped, the
   family's prefix (``bert.``, ``roberta.`` for RoBERTa and XLM-R,
-  ``electra.``, ``distilbert.``) is added or removed to fit the module, and
-  the weights of heads the module does not run (MLM, LM, discriminator)
-  are left out, as ``from_pretrained`` leaves them.
+  ``electra.``, ``distilbert.``; ``model.`` for the decoders) is added or
+  removed to fit the module, the decoders' ``rotary_emb.inv_freq`` buffers
+  are dropped, and the weights of heads the module does not run (MLM, LM,
+  discriminator, a decoder's ``lm_head``) are left out, as
+  ``from_pretrained`` leaves them.
 """
 
 from __future__ import annotations
@@ -37,7 +51,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 ACTIVATIONS = ("gelu", "gelu_new", "gelu_pytorch_tanh", "relu")
-FAMILIES = ("bert", "roberta", "xlm-roberta", "electra", "distilbert")
+#: the decoders' MLP gates: their own SiLU besides the encoders' activations
+DECODER_ACTIVATIONS = ACTIVATIONS + ("silu", "swish")
+#: the decoder-only families (hf_llama.py); the JAX cross-encoder's class
+#: has no sequence classifier for them
+DECODERS = ("llama", "mistral", "gemma")
+FAMILIES = ("bert", "roberta", "xlm-roberta", "electra", "distilbert") + DECODERS
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
            "BF16": torch.bfloat16, "I64": torch.int64}
 _EXPORT_HINT = ("convert it with scripts/torch_export_hf.py (where "
@@ -46,12 +65,14 @@ _EXPORT_HINT = ("convert it with scripts/torch_export_hf.py (where "
 #: each family's weight prefix in a model with a head, and the top-level
 #: modules of its trunk
 _PREFIX = {"bert": "bert.", "roberta": "roberta.", "xlm-roberta": "roberta.",
-           "electra": "electra.", "distilbert": "distilbert."}
+           "electra": "electra.", "distilbert": "distilbert.",
+           **{f: "model." for f in DECODERS}}
 _TRUNK = {"bert": ("embeddings.", "encoder."),
           "roberta": ("embeddings.", "encoder."),
           "xlm-roberta": ("embeddings.", "encoder."),
           "electra": ("embeddings.", "embeddings_project.", "encoder."),
-          "distilbert": ("embeddings.", "transformer.")}
+          "distilbert": ("embeddings.", "transformer."),
+          **{f: ("embed_tokens.", "layers.", "norm.") for f in DECODERS}}
 #: the classification head's weights (DistilBERT serves as an embedder
 #: only, so its ``pre_classifier`` / ``classifier`` are always left out)
 _HEAD = {"bert": ("classifier.",),
@@ -62,7 +83,18 @@ _HEAD = {"bert": ("classifier.",),
 # BertConfig's (DistilBERT's names are read in read_config)
 _DEFAULTS = {"roberta": dict(pad_token_id=1), "xlm-roberta": dict(pad_token_id=1),
              "electra": dict(hidden_size=256, num_attention_heads=4,
-                             intermediate_size=1024, embedding_size=128)}
+                             intermediate_size=1024, embedding_size=128),
+             "llama": dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                           num_hidden_layers=32, num_attention_heads=32,
+                           max_position_embeddings=2048, hidden_act="silu"),
+             "mistral": dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                             num_hidden_layers=32, num_attention_heads=32,
+                             num_key_value_heads=8, max_position_embeddings=131072,
+                             hidden_act="silu", sliding_window=4096),
+             "gemma": dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+                           num_hidden_layers=28, num_attention_heads=16,
+                           num_key_value_heads=16, head_dim=256,
+                           max_position_embeddings=8192, tie_word_embeddings=True)}
 
 
 @dataclass(frozen=True)
@@ -84,6 +116,17 @@ class HFConfig:
     embedding_size: Optional[int] = None
     #: DistilBERT: Flax's fixed sinusoidal table instead of the learned one
     sinusoidal_pos_embds: bool = False
+    #: the decoders: KV heads, the head width Flax takes (Gemma's
+    #: ``head_dim``, else hidden / heads), RMSNorm's eps, biases on the
+    #: attention's projections, Mistral's window (keys up to this many
+    #: positions back), and whether the (unused) LM head shares the
+    #: embeddings
+    num_key_value_heads: int = 0
+    head_dim: Optional[int] = None
+    rms_norm_eps: float = 1e-6
+    attention_bias: bool = False
+    sliding_window: Optional[int] = None
+    tie_word_embeddings: bool = False
 
     @property
     def position_offset(self) -> int:
@@ -115,6 +158,8 @@ def read_config(path) -> HFConfig:
             f"{path}: model_type {model_type!r} is not supported; the port "
             f"reads {', '.join(map(repr, FAMILIES))} checkpoints")
     what = f"{path}: model_type {model_type!r}:"
+    if model_type in DECODERS:
+        return _decoder_config(cfg, model_type, what)
     if model_type == "distilbert":
         cfg = dict(cfg, hidden_size=cfg.get("dim", 768),
                    intermediate_size=cfg.get("hidden_dim", 3072),
@@ -151,6 +196,67 @@ def read_config(path) -> HFConfig:
         embedding_size=(int(cfg.get("embedding_size", hidden))
                         if model_type == "electra" else None),
         sinusoidal_pos_embds=bool(cfg.get("sinusoidal_pos_embds", False)))
+
+
+def _decoder_config(cfg: dict, model_type: str, what: str) -> HFConfig:
+    """The config of a Llama, Mistral or Gemma checkpoint; the fields that
+    Flax's module would compute another model from raise."""
+    cfg = {**_DEFAULTS[model_type], **cfg}
+    if model_type == "gemma":
+        # FlaxGemmaMLP: hidden_activation, else the tanh GELU (hidden_act unread)
+        act = cfg.get("hidden_activation") or "gelu_pytorch_tanh"
+    else:
+        act = cfg.get("hidden_act", "silu")
+    if act not in DECODER_ACTIVATIONS:
+        raise ValueError(f"{what} hidden_act {act!r} is not supported "
+                         f"(supported: {', '.join(DECODER_ACTIVATIONS)})")
+    theta = float(cfg.get("rope_theta", 10000.0))
+    if theta != 10000.0:
+        raise ValueError(f"{what} rope_theta {theta:g} is not supported: the JAX "
+                         "reference's Flax module hard-codes 10000")
+    if cfg.get("rope_scaling") is not None:
+        raise ValueError(f"{what} rope_scaling {cfg['rope_scaling']!r} is not "
+                         "supported: the JAX reference's Flax module ignores it")
+    if cfg.get("mlp_bias"):
+        raise ValueError(f"{what} mlp_bias is not supported: the JAX reference's "
+                         "Flax MLP has no biases")
+    hidden, heads = int(cfg["hidden_size"]), int(cfg["num_attention_heads"])
+    kv = int(cfg.get("num_key_value_heads") or heads)
+    if heads % kv:
+        raise ValueError(f"{what} num_key_value_heads {kv} does not divide the "
+                         f"{heads} attention heads")
+    window = cfg.get("sliding_window")
+    if model_type == "gemma":
+        dim = int(cfg["head_dim"])
+    else:
+        if hidden % heads:
+            raise ValueError(f"{what} num_attention_heads {heads} does not divide "
+                             f"hidden_size {hidden}")
+        dim = hidden // heads
+        if cfg.get("head_dim") not in (None, dim):
+            raise ValueError(f"{what} head_dim {cfg['head_dim']} is not supported: "
+                             f"the JAX reference's Flax module takes hidden_size / "
+                             f"num_attention_heads = {dim}")
+        if model_type == "mistral" and window is None:
+            raise ValueError(f"{what} sliding_window null is not supported: the JAX "
+                             "reference's Flax Mistral then lets each token attend "
+                             "only to itself")
+    positions = int(cfg["max_position_embeddings"])
+    if positions < 2 * dim:
+        raise ValueError(f"{what} max_position_embeddings {positions} is under twice "
+                         f"the head width {dim}: the JAX reference's Flax module cuts "
+                         "its sin/cos table to that many columns")
+    return HFConfig(
+        vocab_size=int(cfg["vocab_size"]), hidden_size=hidden,
+        num_hidden_layers=int(cfg["num_hidden_layers"]), num_attention_heads=heads,
+        intermediate_size=int(cfg["intermediate_size"]),
+        max_position_embeddings=positions, type_vocab_size=0, hidden_act=act,
+        model_type=model_type, pad_token_id=int(cfg.get("pad_token_id") or 0),
+        num_key_value_heads=kv, head_dim=dim,
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+        attention_bias=bool(cfg.get("attention_bias") or False),
+        sliding_window=None if window is None else int(window),
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)))
 
 
 def read_safetensors(file) -> Dict[str, torch.Tensor]:
@@ -225,7 +331,7 @@ def read_state_dict(path) -> Dict[str, torch.Tensor]:
             "(nor their .index.json shards)")
     out: Dict[str, torch.Tensor] = {}
     for name, t in raw.items():
-        if name.endswith("embeddings.position_ids"):
+        if name.endswith(("embeddings.position_ids", "rotary_emb.inv_freq")):
             continue
         if name.endswith("LayerNorm.gamma"):
             name = name[: -len("gamma")] + "weight"
@@ -271,6 +377,6 @@ def load_checkpoint(path, *, head: bool, pooler: bool = True
                                 pooler=pooler)
 
 
-__all__ = ["ACTIVATIONS", "FAMILIES", "HFConfig", "checkpoint_dir",
+__all__ = ["ACTIVATIONS", "DECODERS", "FAMILIES", "HFConfig", "checkpoint_dir",
            "family_state", "load_checkpoint", "read_config", "read_json",
            "read_safetensors", "read_state_dict"]

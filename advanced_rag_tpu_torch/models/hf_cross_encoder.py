@@ -16,7 +16,9 @@ heads).
 A DistilBERT checkpoint raises ``ValueError`` here: JAX's class passes
 ``token_type_ids=`` to ``FlaxDistilBertForSequenceClassification``, which
 takes none, so the reference raises ``TypeError`` at its first score, and
-the port serves no reranker the reference cannot.
+the port serves no reranker the reference cannot.  So does a Llama,
+Mistral or Gemma one: ``FlaxAutoModelForSequenceClassification`` has no
+class for those model types.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from .hf_bert import BertForSequenceClassification
-from .hf_checkpoint import HFConfig, load_checkpoint, read_config
+from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint, read_config
 from .hf_electra import ElectraForSequenceClassification
 from .hf_embedder import _bucket, check_max_len
 from .hf_roberta import RobertaForSequenceClassification
@@ -51,11 +53,17 @@ class HFCrossEncoder:
     def __init__(self, path, *, max_len: int = 256, max_batch: int = 64,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if read_config(path).model_type == "distilbert":
+        model_type = read_config(path).model_type
+        if model_type == "distilbert":
             raise ValueError(
                 f"{path}: a DistilBERT checkpoint does not serve as a "
                 "cross-encoder: the JAX reference passes token_type_ids, which "
                 "FlaxDistilBertForSequenceClassification does not take")
+        if model_type in DECODERS:
+            raise ValueError(
+                f"{path}: model_type {model_type!r} does not serve as a "
+                "cross-encoder: the JAX reference's "
+                "FlaxAutoModelForSequenceClassification has no class for it")
         self.tokenizer = load_tokenizer(path)
         config, state = load_checkpoint(path, head=True)
         check_max_len(max_len, config, path)

@@ -2,17 +2,25 @@
 ``advanced_rag_tpu/models/hf_embedder.py``.
 
 A local encoder checkpoint (e.g. a MiniLM, all-distilroberta or
-msmarco-distilbert sentence-transformer, an XLM-R multilingual-e5) as a
+msmarco-distilbert sentence-transformer, an XLM-R multilingual-e5) or a
+decoder-only one (an e5-mistral-7b-instruct, an LLM2Vec Llama) as a
 mean-pooled, L2-normalised embedder on the card, under the ``Embedder``
 interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
 nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
-directory (``model_type`` bert, roberta, xlm-roberta, electra or
-distilbert), ``hf_tokenizer.load_tokenizer`` tokenizes as the family's
-fast tokenizer does and ``hf_bert.py`` / ``hf_roberta.py`` /
-``hf_electra.py`` / ``hf_distilbert.py`` run the encoder.
+directory (``model_type`` bert, roberta, xlm-roberta, electra,
+distilbert, llama, mistral or gemma), ``hf_tokenizer.load_tokenizer``
+tokenizes as the family's fast tokenizer does and ``hf_bert.py`` /
+``hf_roberta.py`` / ``hf_electra.py`` / ``hf_distilbert.py`` /
+``hf_llama.py`` run the model.
 
 The token types fed to the trunk are what ``FlaxAutoModel`` fills in when
-JAX's class passes none: zeros, except ELECTRA's ones.
+JAX's class passes none: zeros, except ELECTRA's ones.  A decoder's
+tokenizer pads on the side its ``tokenizer_config.json`` names (left by
+default, as ``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` do), and
+the model's positions run over the padded row, as JAX's do.  A
+tokenizer without a pad token (Llama's and Mistral's ship none) raises
+``ValueError`` here, at construction; JAX's class raises at its first
+encode ("Asking to pad but the tokenizer does not have a padding token").
 """
 
 from __future__ import annotations
@@ -25,9 +33,10 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from .hf_bert import BertModel
-from .hf_checkpoint import HFConfig, load_checkpoint
+from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint
 from .hf_distilbert import DistilBertModel
 from .hf_electra import ElectraModel
+from .hf_llama import DecoderModel
 from .hf_roberta import RobertaModel
 from .hf_tokenizer import load_tokenizer
 
@@ -52,6 +61,8 @@ def check_max_len(max_len: int, config: HFConfig, path) -> None:
 
 def build_trunk(config: HFConfig, dtype: torch.dtype):
     """The family's trunk module, without a pooler."""
+    if config.model_type in DECODERS:
+        return DecoderModel(config, dtype=dtype)
     if config.model_type in ("roberta", "xlm-roberta"):
         return RobertaModel(config, dtype=dtype)
     if config.model_type == "electra":
@@ -69,9 +80,20 @@ class HFEmbedder:
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.tokenizer = load_tokenizer(path)
+        if self.tokenizer.pad_id is None:
+            raise ValueError(f"{path}: the tokenizer has no pad_token, and the "
+                             "embedder pads every batch to max_len")
         config, state = load_checkpoint(path, head=False, pooler=False)
         check_max_len(max_len, config, path)
-        model = build_trunk(config, dtype)
+        if config.model_type in DECODERS:
+            # billions of weights skip their random init: the module is
+            # built without storage and filled from the checkpoint on the
+            # device (a decoder holds no buffer to initialize)
+            with torch.device("meta"):
+                model = build_trunk(config, dtype)
+            model = model.to_empty(device=self.device)
+        else:
+            model = build_trunk(config, dtype)
         model.load_state_dict(state)
         # FlaxElectraModel fills absent token types with ones
         self.type_id = 1 if config.model_type == "electra" else 0

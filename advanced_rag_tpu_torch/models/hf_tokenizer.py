@@ -34,7 +34,8 @@ true) override those in ``tokenizer.json``.
 ``tokenizer_config.json``'s ``tokenizer_class`` first, else
 ``config.json``'s ``model_type``.  BERT, ELECTRA and DistilBERT take
 ``WordPieceTokenizer``; RoBERTa takes ``hf_bpe.ByteLevelBPETokenizer``;
-XLM-RoBERTa takes ``hf_unigram.UnigramTokenizer``.  Each tokenizer carries
+XLM-RoBERTa takes ``hf_unigram.UnigramTokenizer``; Llama, Mistral and
+Gemma take ``hf_spbpe.SentencePieceBPETokenizer``.  Each tokenizer carries
 the ``model_input_names`` of its transformers class: only BERT's and
 ELECTRA's return ``token_type_ids``.  ``TemplateTokenizer`` is what the
 BPE and Unigram tokenizers share: added tokens split out of the text as
@@ -482,14 +483,18 @@ ROBERTA_SPECIALS = dict(bos_token="<s>", eos_token="</s>", sep_token="</s>",
 
 
 def added_tokens(json_tokens: Sequence[dict], cfg: dict,
-                 vocab: Dict[str, int]) -> List[AddedToken]:
+                 vocab: Dict[str, int], specials: Optional[Dict[str, str]] = None
+                 ) -> List[AddedToken]:
     """The added vocabulary ``PreTrainedTokenizerFast.__init__`` leaves for
-    RoBERTa's and XLM-R's classes: ``tokenizer.json``'s ``added_tokens``,
-    then ``tokenizer_config.json``'s ``added_tokens_decoder``, then the
-    class's special tokens (``ROBERTA_SPECIALS`` where the config names
-    none; a ``<mask>`` given as a string takes ``lstrip``, as the classes
+    RoBERTa's and XLM-R's classes (or another class whose default special
+    tokens are ``specials``): ``tokenizer.json``'s ``added_tokens``, then
+    ``tokenizer_config.json``'s ``added_tokens_decoder``, then the class's
+    special tokens (``ROBERTA_SPECIALS`` where the config names none; a
+    RoBERTa ``<mask>`` given as a string takes ``lstrip``, as the classes
     make it), each once, by content; a special token is matched in the
     raw text (not normalized)."""
+    roberta = specials is None
+    specials = ROBERTA_SPECIALS if roberta else specials
     out: Dict[str, AddedToken] = {}
 
     def add(content, tid, flags):
@@ -514,11 +519,11 @@ def added_tokens(json_tokens: Sequence[dict], cfg: dict,
         add(t["content"], int(tid), t)
     names = [f"{k}_token" for k in ("bos", "eos", "unk", "sep", "pad", "cls", "mask")]
     for name in names + ["additional_special_tokens"]:
-        toks = cfg.get(name, ROBERTA_SPECIALS.get(name))
+        toks = cfg.get(name, specials.get(name))
         for tok in (toks if isinstance(toks, list) else [toks]):
             if tok is None:
                 continue
-            flags = tok if isinstance(tok, dict) else {"lstrip": name == "mask_token"}
+            flags = tok if isinstance(tok, dict) else {"lstrip": roberta and name == "mask_token"}
             add(_token_content(tok), None, {"special": True, "normalized": False, **flags})
     return list(out.values())
 
@@ -678,9 +683,16 @@ def load_tokenizer(path):
         from .hf_unigram import UnigramTokenizer
 
         return UnigramTokenizer.from_pretrained(path)
+    if family in ("llama", "mistral", "gemma"):
+        from .hf_spbpe import SentencePieceBPETokenizer
+
+        # Mistral's checkpoints take LlamaTokenizerFast
+        return SentencePieceBPETokenizer.from_pretrained(
+            path, "gemma" if family == "gemma" else "llama")
     raise ValueError(f"{path}: tokenizer {cls_name or family!r} is not supported; "
                      "the port reads the BERT, ELECTRA, DistilBERT (WordPiece), "
-                     "RoBERTa (byte-level BPE) and XLM-RoBERTa (Unigram) tokenizers")
+                     "RoBERTa (byte-level BPE), XLM-RoBERTa (Unigram) and Llama, "
+                     "Mistral, Gemma (SentencePiece BPE) tokenizers")
 
 
 __all__ = ["ROBERTA_SPECIALS", "AddedToken", "TemplateTokenizer", "WordPieceTokenizer",

@@ -328,6 +328,9 @@ class Normalizer:
                 compiled = re.compile(regex)
                 self.steps.append(lambda s, r=compiled, new=content: r.sub(
                     lambda m: new, s))
+        elif kind == "Prepend":
+            # the crate prepends to a non-empty piece only
+            self.steps.append(lambda s, p=spec["prepend"]: p + s if s else s)
         elif kind == "NFKC":
             self.steps.append(lambda s: unicodedata.normalize("NFKC", s))
         elif kind == "Strip":
@@ -350,12 +353,38 @@ class Normalizer:
                 self.steps.append(Precompiled(base64.b64decode(charsmap)))
         else:
             raise ValueError(f"the normalizer {kind!r} is not supported (supported: "
-                             "Sequence, Replace, NFKC, Strip, Lowercase, Precompiled)")
+                             "Sequence, Replace, Prepend, NFKC, Strip, Lowercase, "
+                             "Precompiled)")
 
     def __call__(self, text: str) -> str:
         for step in self.steps:
             text = step(text)
         return text
+
+
+def metaspace(text: str, rep: str, prepend_scheme: str, split: bool,
+              first: bool) -> List[str]:
+    """The crate's ``Metaspace`` pre-tokenizer on one normalized piece:
+    spaces become ``rep``, one is put in front as ``prepend_scheme`` says
+    (``first``: only for the piece that starts the text), and with
+    ``split`` each run of ``rep`` starts a word, merged with what
+    follows."""
+    if not text:
+        return []
+    text = text.replace(" ", rep)
+    if not text.startswith(rep) and (prepend_scheme == "always" or (
+            prepend_scheme == "first" and first)):
+        text = rep + text
+    if not split:
+        return [text]
+    words, start, i, n = [], 0, 0, len(text)
+    while i < n:
+        if text[i] == rep and (i == 0 or text[i - 1] != rep) and i > start:
+            words.append(text[start:i])
+            start = i
+        i += 1
+    words.append(text[start:])
+    return words
 
 
 class UnigramTokenizer(TemplateTokenizer):
@@ -426,24 +455,7 @@ class UnigramTokenizer(TemplateTokenizer):
 
     def pre_tokenize(self, text: str, first: bool) -> List[str]:
         """``Metaspace`` on one normalized piece."""
-        if not text:
-            return []
-        rep = self.replacement
-        text = text.replace(" ", rep)
-        if not text.startswith(rep) and (self.prepend_scheme == "always" or (
-                self.prepend_scheme == "first" and first)):
-            text = rep + text
-        if not self.split:
-            return [text]
-        # each run of the replacement starts a word, merged with what follows
-        words, start, i, n = [], 0, 0, len(text)
-        while i < n:
-            if text[i] == rep and (i == 0 or text[i - 1] != rep) and i > start:
-                words.append(text[start:i])
-                start = i
-            i += 1
-        words.append(text[start:])
-        return words
+        return metaspace(text, self.replacement, self.prepend_scheme, self.split, first)
 
     def _viterbi(self, word: str) -> Tuple[int, ...]:
         """The crate's ``encode_optimized`` and the ids of its tokens."""
@@ -499,4 +511,4 @@ class UnigramTokenizer(TemplateTokenizer):
 
 
 __all__ = ["Normalizer", "Precompiled", "UnigramTokenizer", "build_precompiled",
-           "grapheme_class", "graphemes"]
+           "grapheme_class", "graphemes", "metaspace"]

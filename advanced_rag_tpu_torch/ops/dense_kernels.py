@@ -21,7 +21,7 @@ more.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -64,13 +64,51 @@ def scan_plan(kind: str, qc: int, d: int) -> Tuple[int, int]:
 def scan_chunk(kind: str, d: int) -> int:
     """Queries per dense-scan launch: the largest of 32, 16, 8 whose shared
     memory fits SCAN_SMEM_MAX (a launch of fewer queries rounds up to the
-    next of these)."""
+    next of these).  Where not even 8 bf16 or f32 queries fit, 32: such
+    rows are scanned in slices of D (``scan_width``), so the rows are read
+    once for up to 32 queries.  The SQ8 scan (int8) takes no slices."""
     for qc in (QMAX, 16, 8):
         if scan_plan(kind, qc, d)[1] <= SCAN_SMEM_MAX:
             return qc
+    if kind in ("bf16", "f32"):
+        return QMAX
     raise ValueError(f"D={d} is too wide for the {kind} dense scan: 8 queries "
                      f"need {scan_plan(kind, 8, d)[1]} bytes of shared "
                      f"memory, more than {SCAN_SMEM_MAX}")
+
+
+def launch_qc(nq: int) -> int:
+    """The query block a launch of ``nq`` queries compiles for (8, 16, 32:
+    ``dispatch_scan`` in dense_scan.cu)."""
+    return 8 if nq <= 8 else 16 if nq <= 16 else QMAX
+
+
+def scan_width(kind: str, qc: int, d: int) -> int:
+    """Values of each row one launch of a ``qc`` block scans: ``d`` where
+    the whole row's queries fit SCAN_SMEM_MAX, else the width of the
+    fewest equal slices (whole 128-byte stage rows, 64 bf16 or 32 f32
+    values) that fit; the last slice takes the rest."""
+    if scan_plan(kind, qc, d)[1] <= SCAN_SMEM_MAX:
+        return d
+    align = {"bf16": 64, "f32": 32}[kind]
+    widest = d // align * align
+    while widest > align and scan_plan(kind, qc, widest)[1] > SCAN_SMEM_MAX:
+        widest -= align
+    slices = -(-d // widest)
+    return _round_up(-(-d // slices), align)
+
+
+def scan_launches(kind: str, nq: int, d: int) -> List[Tuple[int, int, int, int]]:
+    """The launches of one K1 call, in order: (first query, queries, first
+    value, values) of each; the first launch of a query chunk writes its
+    scores plus the mask, a later slice of it adds into them."""
+    chunk = scan_chunk(kind, d)
+    out = []
+    for q0 in range(0, nq, chunk):
+        nc = min(chunk, nq - q0)
+        width = scan_width(kind, launch_qc(nc), d)
+        out += [(q0, nc, k0, min(width, d - k0)) for k0 in range(0, d, width)]
+    return out
 
 
 def aligned_rows(rows: torch.Tensor) -> int:
@@ -138,14 +176,16 @@ def dense_scores(q: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
     bf16 = rows.dtype == torch.bfloat16
     vec = aligned_rows(rows)
-    chunk = scan_chunk("bf16" if bf16 else "f32", d)
+    item = rows.element_size()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        for q0 in range(0, nq, chunk):
-            nc = min(chunk, nq - q0)
+        for q0, nc, k0, kw in scan_launches("bf16" if bf16 else "f32", nq, d):
+            # a slice starts on a whole stage row, so it keeps the rows'
+            # 16-byte alignment
             rc = lib.art_dense_scores(
-                q[q0].data_ptr(), rows.data_ptr(), int(bf16), mask_add.data_ptr(),
-                out[q0].data_ptr(), nc, n, d, vec, stream)
+                q[q0].data_ptr() + 4 * k0, rows.data_ptr() + item * k0, int(bf16),
+                mask_add.data_ptr() if k0 == 0 else None, out[q0].data_ptr(), nc, n,
+                kw, d, int(k0 > 0), vec, stream)
             raise_on_error(rc, "dense_scores (K1)")
             dense_scores.launches += 1
     return out
@@ -264,7 +304,10 @@ __all__ = [
     "sq8_scores",
     "sq8_scores_plain",
     "dense_topk_sq8_kernel",
+    "launch_qc",
     "scan_chunk",
+    "scan_launches",
     "scan_plan",
+    "scan_width",
     "split_query_bf16",
 ]

@@ -8,10 +8,13 @@ Phases, each printing its elapsed seconds:
 
 1. device: the card's name, the device count and the nvidia-smi name and
    power limit; no CUDA device -> exit with an error, no result printed;
-2. build: the one nvcc call that builds csrc/*.cu (plain C ABI, ctypes);
+2. build: one nvcc compile per csrc/*.cu source, all started together,
+   and one link (plain C ABI, ctypes);
 3. kernels: K1 (dense scan, bf16 and f32 rows), K2 (SQ8 scan), K3 (BM25)
    and K3-ip, each against its plain PyTorch version at the main path's
-   shapes (N = MAIN_N, Q = 1, 8 and 32; K1 and K2 also at N = 1M): scores
+   shapes (N = MAIN_N, Q = 1, 8 and 32; K1 and K2 also at N = 1M, and at
+   N = MAIN_N with D = 4096, phase 13 (g)'s width, which K1 scans in
+   slices of D): scores
    (f32, max |err| <= 1e-5 of the largest live score; K2's integer dot is
    exact, <= 1e-6) and tie-aware top-k ids; each kernel's time (device
    time: CUDA events around one CUDA-graph replay of 20 captured wrapper
@@ -28,7 +31,7 @@ Phases, each printing its elapsed seconds:
 4. main path, once on the bf16 tier and once on the SQ8 tier: a manager
    with fused_rerank at the shipped models' full geometry (6 x 256, 8
    heads, MLP 1024, 384-wide embeddings, random weights from a seeded
-   torch.Generator) ingests 100,000 seeded synthetic chunks through
+   torch.Generator) ingests N_CHUNKS (70,000) seeded synthetic chunks through
    index_chunks (every 1000th one a short probe chunk), then serves
    batches of Q = 1, 8 and 32 queries through fused_retrieve_batch_sync
    with the repo's measured serving knobs;
@@ -60,14 +63,14 @@ Phases, each printing its elapsed seconds:
    in-process through aiohttp's test server and client on a localhost
    socket; the phase fails if aiohttp is not installed) in both
    configurations the service starts in.  Fused: a bf16 manager of its
-   own restored from that checkpoint (the same 100k chunks and embedder)
+   own restored from that checkpoint (the same 70k chunks and embedder)
    and phase 4's cross-encoder; POST /ingest of SERVICE_DOCS seeded documents
    (diagnostics, chunking, enrichment, index_chunks, compliance), long
    enough that chunking splits each, then POST /retrieve from 1, 8 and 32
    concurrent clients (the orchestrator micro-batches them into
    fused_retrieve_batch_sync) and 8 probes, each a one-sentence
    document's text, which must come back in its top 10; K1 and K3 must
-   run.  Default: a HashingEmbedder manager over the same 100k chunks,
+   run.  Default: a HashingEmbedder manager over the same 70k chunks,
    HybridRetriever micro-batching into hybrid_search_batch_sync; the same
    requests; K1 must run.  Every answer must be a 200 with results.
    Printed: /retrieve p50/p99 per concurrency against the 80 ms SLA,
@@ -88,8 +91,9 @@ Phases, each printing its elapsed seconds:
    / RAG_RERANKER=ckpt: of (a)'s files), whose probes must answer with the
    saving app's chunk ids, its launches counted apart from phase 8's;
    (c) last, a default manager (HashingEmbedder,
-   1536 wide) with the domain family (768 wide) over 200,000 chunks (phase
-   4's and LIFECYCLE_MORE more of its generator): hybrid search with
+   1536 wide) with the domain family (768 wide) over 115,000 chunks (phase
+   4's and LIFECYCLE_MORE more of its generator; the IVF threshold lowered
+   to their count for 9 (c) and (e)): hybrid search with
    domain_weight 0.2 at Q = 1 and 32, maintenance_tick's first IVF build
    with its recall guardrail, LIFECYCLE_TAIL more chunks and the rebuild,
    15% deleted and the postings compaction, each tick's actions and
@@ -188,7 +192,22 @@ Phases, each printing its elapsed seconds:
    HF_FAMILY_LENGTHS tokens, f32 and bf16; (f) HF_FAMILY_CHUNKS chunks on
    a RoBERTa embedder's bf16-tier manager, and the app with
    RAG_RERANKER=hf: on the ELECTRA reranker answering HF_FAMILY_REQUESTS
-   /retrieve requests from 1 client, as (c); peak memory.
+   /retrieve requests from 1 client, as (c); peak memory; (g) the
+   decoder-only embedders (phase_hf_decoders) at
+   e5-mistral-7b-instruct's geometry (HF_DECODER: 4096 wide, FFN 14336,
+   32 heads, 8 KV heads, window 4096): (i) a checkpoint of its width at
+   HF_DECODER_WRITTEN layers with a 32,000-piece byte-fallback
+   tokenizer.json made here, HFEmbedder on the card against the CPU (f32
+   within HF_TOL, bf16 recorded); (ii) the 32-layer model built on the
+   card from a seeded generator, bf16 (f32 at HF_DECODER_F32_LAYERS
+   layers), forward and encode_device at HF_BATCH x 128 tokens and one
+   query's encode; (iii) that bf16 embedder's manager ingests
+   HF_DECODER_CHUNKS chunks and the app with RAG_RERANKER=hf: on (e)'s
+   ELECTRA reranker answers HF_DECODER_REQUESTS /retrieve requests from 1
+   client, as (c), K1 at D = 4096 (two slices a query batch) and K3
+   launched and held against their plain versions; (iv) gemma-2b's width
+   (HF_GEMMA: MQA, head_dim 256, 256,000 pieces) at HF_DECODER_WRITTEN
+   layers, card against CPU; (v) the peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -238,7 +257,9 @@ F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # int8 tensor-core peak
 
-N_CHUNKS = 100_000
+#: phase 4's corpus (100,000 until phase 13 (g) came, cut to keep the
+#: script within its 1200-second limit; still past 65,536, so MAIN_N holds)
+N_CHUNKS = 70_000
 #: the store's capacity once N_CHUNKS are ingested (power-of-two growth):
 #: the N of every [Q, N] score matrix the main path computes
 MAIN_N = 131_072
@@ -250,16 +271,17 @@ PROBE_EVERY = 1000
 PROBE_WORDS = 24
 BATCHES = (1, 8, 32)
 #: IVF geometry (nlist, cap, nprobe): the 1M-row tier (auto_nlist(1M) = 1000,
-#: cap = 2 * N / nlist) and the manager phase's tier over N_CHUNKS rows
+#: cap = 2 * N / nlist rounded up to 8) and the manager phase's tier over
+#: N_CHUNKS rows (auto_nlist(70,000) = 264)
 IVF_1M = (1000, 2000, 32)
-IVF_MANAGER = (312, 648, 32)
+IVF_MANAGER = (264, 536, 32)
 #: (nprobe, Q) that phase 3 runs through both K5 routes at the 1M geometry,
 #: for the route rule: phase 6 serves at its tuned nprobe (8)
 CROSS_1M = ((32, 8), (32, 16), (32, 32), (8, 16), (8, 32), (8, 64))
 N_TIER = 1_000_000             # phase 6: rows of the 1M-row tiers
 N_CENTRES = 2000
 PQ_M = 96
-#: (N, m) of phase 9 (e)'s PQ codes: the capacity of its 260,000 rows and
+#: (N, m) of phase 9 (e)'s PQ codes: the capacity of its 150,000 rows and
 #: auto_pq_m(1536), the default embedder's width at bits 4
 PQ_WIDE = (262_144, 384)
 REPEATS = 12                   # first 2 are warm-up, 10 timed
@@ -389,7 +411,9 @@ def phase_build():
     t = time.perf_counter()
     path = _build.build()
     _build.load()
-    log(f"build: {' '.join(_build.nvcc_command(_build.find_nvcc(), path))}")
+    compiles, link = _build.nvcc_commands(_build.find_nvcc(), path, path.parent / "obj")
+    for cmd in compiles + [link]:
+        log(f"build: {' '.join(cmd)}")
     nvcc_s = _build.last_build_seconds
     log(f"build: nvcc {'not run (library cached)' if nvcc_s is None else f'{nvcc_s:.2f}s'}, "
         f"{time.perf_counter() - t:.2f}s with loading")
@@ -433,11 +457,12 @@ def phase_kernels():
         log_case(key, case)
 
     # K1: bf16 rows at the main path's N and at N = 1M, f32 rows at
-    # N = 100k; D = 384
-    d = 384
-    for dtype, n, batches in ((torch.bfloat16, MAIN_N, BATCHES),
-                              (torch.bfloat16, 1_000_000, (1, 32)),
-                              (torch.float32, 100_000, (1, 32))):
+    # N = 100k; D = 384; and bf16 rows at the main path's N and D = 4096
+    # (a 7B decoder embedder's width, scanned in slices of D)
+    for dtype, n, batches, d in ((torch.bfloat16, MAIN_N, BATCHES, 384),
+                                 (torch.bfloat16, 1_000_000, (1, 32), 384),
+                                 (torch.float32, 100_000, (1, 32), 384),
+                                 (torch.bfloat16, MAIN_N, BATCHES, HF_DECODER_D)):
         rows = l2_normalize(torch.randn(n, d, generator=gen, device=dev)).to(dtype)
         m = third_masked(n)
         for nq in batches:
@@ -461,14 +486,18 @@ def phase_kernels():
             b_ms, b_by = bound(n * d * rows.element_size() + nq * d * 4 + n * 4
                                + nq * n * 4, ops, rate)
             record("K1", dict(shape=f"{str(dtype)[6:]} rows N={n} D={d} Q={nq}",
-                              main=dtype == torch.bfloat16 and (n, nq) == (MAIN_N, 32),
+                              main=dtype == torch.bfloat16 and (n, nq, d) == (MAIN_N, 32, 384),
+                              launches_per_call=len(dk.scan_launches(
+                                  "bf16" if dtype == torch.bfloat16 else "f32", nq, d)),
                               max_abs_err=err, rel_err=rel, tie_swaps=swaps,
                               ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                               library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by))
         del rows
 
-    # K2: SQ8 codes at the main path's N and at N = 1M, D = 384
-    for n, batches in ((MAIN_N, BATCHES), (1_000_000, (1, 32))):
+    # K2: SQ8 codes at the main path's N and at N = 1M, D = 384, and at the
+    # main path's N at D = 4096 (32 queries a launch fit whole)
+    for n, batches, d in ((MAIN_N, BATCHES, 384), (1_000_000, (1, 32), 384),
+                          (MAIN_N, (1, 32), HF_DECODER_D)):
         codes, scale = sq8_quantize(l2_normalize(torch.randn(n, d, generator=gen,
                                                              device=dev)))
         m = third_masked(n)
@@ -492,7 +521,7 @@ def phase_kernels():
             b_ms, b_by = bound(n * d + nq * d + n * 8 + nq * n * 4,
                                2.0 * nq * n * d, INT8_OPS_PER_S)
             record("K2", dict(shape=f"int8 codes N={n} D={d} Q={nq}",
-                              main=(n, nq) == (MAIN_N, 32), max_abs_err=err,
+                              main=(n, nq, d) == (MAIN_N, 32, 384), max_abs_err=err,
                               rel_err=rel, tie_swaps=swaps, ms=ms, call_ms=call_ms,
                               plain_ms=plain_ms, library_ms=lib_ms,
                               library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by))
@@ -1839,13 +1868,13 @@ def phase_service(embedder, reranker, texts, work):
     the app's shutdown closes.
 
     - fused: a bf16 manager restored from phase 4's bf16 checkpoint
-      (phase 9 (b), under ``work``: the same 100k chunks and embedder)
+      (phase 9 (b), under ``work``: the same 70k chunks and embedder)
       and, on the retriever, phase 4's cross-encoder; POST /ingest of
       SERVICE_DOCS documents (diagnostics, chunking, enrichment,
       index_chunks, compliance), then /retrieve from 1, 8 and 32
       concurrent clients (the orchestrator's micro-batcher forms the
       batches) and 8 probes; K1 and K3 must run;
-    - default: a HashingEmbedder manager over the same 100k texts (built
+    - default: a HashingEmbedder manager over the same 70k texts (built
       through index_chunks), HybridRetriever micro-batching into
       hybrid_search_batch_sync, the host passthrough rerank; the same
       requests; K1 must run.
@@ -2018,13 +2047,18 @@ def phase_service_reference():
 
 
 #: phase 9 (the index lifecycle): the default manager's corpus is phase
-#: 4's 100k chunks plus LIFECYCLE_MORE of the same generator, the first
-#: size at which maintenance_tick builds IVF by itself
-#: (IndexConstants.IVF_AUTO_THRESHOLD); LIFECYCLE_TAIL more then make an
-#: appended tail above 0.2 of the rows, and LIFECYCLE_DEAD of the chunk_index
-#: residues (1 in LIFECYCLE_GROUPS each) are deleted for the compaction
-LIFECYCLE_MORE = 100_000
-LIFECYCLE_TAIL = 60_000
+#: 4's 70k chunks plus LIFECYCLE_MORE of the same generator, the size at
+#: which maintenance_tick builds IVF by itself while 9 (c) and (e) run
+#: (IndexConstants.IVF_AUTO_THRESHOLD, 200,000 in service, lowered to
+#: LIFECYCLE_IVF_THRESHOLD there, so the phase ingests 150,000 chunks, not
+#: 260,000, and the script stays within its 1200-second limit with phase
+#: 13 (g)); LIFECYCLE_TAIL more then make an appended tail above 0.2 of the
+#: rows, past 131,072 (so the capacity, and PQ_WIDE, stay 262,144), and
+#: LIFECYCLE_DEAD of the chunk_index residues (1 in LIFECYCLE_GROUPS each)
+#: are deleted for the compaction
+LIFECYCLE_IVF_THRESHOLD = 115_000
+LIFECYCLE_MORE = LIFECYCLE_IVF_THRESHOLD - N_CHUNKS
+LIFECYCLE_TAIL = 35_000
 LIFECYCLE_GROUPS = 20
 LIFECYCLE_DEAD = (0, 1, 2)
 
@@ -2219,7 +2253,7 @@ def served_k1_cases(mgr, queries):
 
 def phase_lifecycle(texts, root):
     """Phase 9 (c): a default-configuration manager (HashingEmbedder, bf16,
-    postings BM25) with enable_domain=True over 200,000 chunks; the domain
+    postings BM25) with enable_domain=True over 115,000 chunks; the domain
     rung of hybrid_search_batch_sync (domain_weight 0.2) at Q = 1 and 32;
     maintenance_tick's first IVF build behind its recall guardrail;
     LIFECYCLE_TAIL more chunks and the IVF rebuild; 15% deleted and the
@@ -2274,9 +2308,9 @@ def phase_lifecycle(texts, root):
             f"{mgr.semantic.config.nprobe}")
         return dict(actions=actions, seconds=s, nprobe=mgr.semantic.config.nprobe)
 
-    rec["first_build"] = tick("first build at 200k rows")
+    rec["first_build"] = tick(f"first build at {n1} rows")
     if not rec["first_build"]["actions"].get("ivf_rebuilt"):
-        raise AssertionError("maintenance_tick built no IVF at 200,000 rows")
+        raise AssertionError(f"maintenance_tick built no IVF at {n1} rows")
     rec["hybrid_ivf"] = time_calls(hybrid, (1, 32))
     t = time.perf_counter()
     ingest_range(mgr, corpus, n1, len(corpus))
@@ -2382,7 +2416,7 @@ def phase_lifecycle(texts, root):
     return rec, cases, proj
 
 
-#: phase 9 (e): chunks appended to the restored PQ managers (the 260,000
+#: phase 9 (e): chunks appended to the restored PQ managers (the 150,000
 #: rows stay within the 262,144 capacity, so the codes keep phase 3's shape)
 #: and the rebuild fraction that makes their tick re-pack the IVF-PQ tier
 PQ_LIFECYCLE_TAIL = 2048
@@ -2392,9 +2426,9 @@ PQ_LIFECYCLE_REPACK = 0.005
 def phase_pq_lifecycle(root, proj):
     """Phase 9 (e): the PQ tier's lifecycle at the default width (1536, m =
     384).  For a semantic_dtype="pq" manager and a semantic_opq=True one,
-    each restored from phase 9 (c)'s checkpoint under ``root`` (its 260,000
-    rows, 39,000 of them deleted; without the sparse family, whose postings
-    build over 260k rows takes seconds of host time a manager and whose
+    each restored from phase 9 (c)'s checkpoint under ``root`` (its 150,000
+    rows, 22,500 of them deleted; without the sparse family, whose postings
+    build over 150k rows takes seconds of host time a manager and whose
     lifecycle is 9 (c)'s): maintenance_tick's first build (PQ + IVF-PQ
     behind the recall guardrail; with OPQ the rotated flat codes only,
     unguarded), and the guardrail's sweep run on to nprobe = nlist, the
@@ -4568,8 +4602,9 @@ def phase_host_native(texts, embedder, reranker, dev="cuda"):
 HF_GEOMETRY = dict(vocab_size=30522, hidden_size=384, num_hidden_layers=6,
                    num_attention_heads=12, intermediate_size=1536,
                    max_position_embeddings=512, type_vocab_size=2)
-HF_CHUNKS = 20_000
-HF_PARITY_TEXTS = 256
+#: (c)'s chunks and (b)'s texts, cut from 20,000 and 256 with phase 13 (g)
+HF_CHUNKS = 10_000
+HF_PARITY_TEXTS = 64
 HF_BATCH = 64
 HF_REQUESTS = 64
 HF_CLIENTS = (1, 8)
@@ -4600,15 +4635,19 @@ def hf_vocab():
                                                  - len(out))]
 
 
-def write_safetensors(path, state):
-    """``state`` (f32 tensors) as one safetensors file: an 8-byte header
-    length, the JSON header, the raw little-endian bytes."""
+def write_safetensors(path, state, bf16=False):
+    """``state`` as one safetensors file of f32 (or, with ``bf16``, BF16)
+    tensors: an 8-byte header length, the JSON header, the raw
+    little-endian bytes."""
     import struct
+
+    import torch
 
     header, blobs, off = {}, [], 0
     for name, t in state.items():
-        b = t.detach().float().contiguous().cpu().numpy().tobytes()
-        header[name] = {"dtype": "F32", "shape": list(t.shape),
+        t = t.detach().to(torch.bfloat16 if bf16 else torch.float32).contiguous().cpu()
+        b = (t.view(torch.int16) if bf16 else t).numpy().tobytes()
+        header[name] = {"dtype": "BF16" if bf16 else "F32", "shape": list(t.shape),
                         "data_offsets": [off, off + len(b)]}
         blobs.append(b)
         off += len(b)
@@ -4759,9 +4798,10 @@ def hf_throughput(root, texts, queries, dev):
 
 
 def hf_service(root, texts, queries, dev, emb_dir=None, ce_dir=None, chunks=None,
-               clients=None, requests=None, warm=True, db="service_hf.db"):
+               clients=None, requests=None, warm=True, db="service_hf.db", embedder=None):
     """(c): a bf16-tier manager with the HF embedder of ``emb_dir`` (else
-    ``root/emb``) ingests ``chunks`` (HF_CHUNKS) of phase 4's chunks; the
+    ``root/emb``; or ``embedder``, built by the caller) ingests ``chunks``
+    (HF_CHUNKS) of phase 4's chunks; the
     port's app, RAG_RERANKER=hf: wiring the HF cross-encoder of ``ce_dir``
     (else ``root/ce``) into that pipeline, answers ``requests``
     (HF_REQUESTS) /retrieve requests from each of ``clients`` (HF_CLIENTS)
@@ -4786,7 +4826,7 @@ def hf_service(root, texts, queries, dev, emb_dir=None, ce_dir=None, chunks=None
     emb_dir, ce_dir = emb_dir or root / "emb", ce_dir or root / "ce"
     chunks, clients = chunks or HF_CHUNKS, clients or HF_CLIENTS
     requests = requests or HF_REQUESTS
-    emb = HFEmbedder(emb_dir, device=dev)
+    emb = embedder or HFEmbedder(emb_dir, device=dev)
     cfg.semantic_dim = emb.dim
     mgr = MultiIndexManager(cfg, embedder=emb, device=dev)
     pipe = AdvancedRAGPipeline(cfg, index_manager=mgr, device=dev)
@@ -4943,7 +4983,8 @@ HF_FAMILIES = {
                     sinusoidal_pos_embds=False, pad_token_id=0)),
 }
 HF_FAMILY_TEXTS = 16                 # texts or pairs, card vs CPU
-HF_FAMILY_LENGTHS = (128, 256)       # tokens a row of the throughput batches
+#: tokens a row of the throughput batches (256 too until phase 13 (g))
+HF_FAMILY_LENGTHS = (128,)
 HF_FAMILY_CHUNKS = 5_000             # the RoBERTa + ELECTRA service level
 HF_FAMILY_REQUESTS = 32
 
@@ -5117,6 +5158,264 @@ def hf_family(path, family, texts, queries, dev):
     return rec
 
 
+# -- phase 13 (g): the decoder-only embedders (models/hf_llama.py) ----------
+
+#: intfloat/e5-mistral-7b-instruct's config.json: Mistral-7B-v0.1's geometry
+HF_DECODER = dict(model_type="mistral", architectures=["MistralModel"], vocab_size=32000,
+                  hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+                  num_attention_heads=32, num_key_value_heads=8,
+                  max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=10000.0,
+                  sliding_window=4096, hidden_act="silu", tie_word_embeddings=False,
+                  bos_token_id=1, eos_token_id=2, pad_token_id=2)
+HF_DECODER_D = HF_DECODER["hidden_size"]
+#: google/gemma-2b's config.json (MQA, head_dim 256, a 256,000-piece vocab)
+HF_GEMMA = dict(model_type="gemma", architectures=["GemmaForCausalLM"], vocab_size=256000,
+                hidden_size=2048, intermediate_size=16384, num_hidden_layers=18,
+                num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+                max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+                hidden_act="gelu", hidden_activation="gelu_pytorch_tanh",
+                tie_word_embeddings=True, bos_token_id=2, eos_token_id=1, pad_token_id=0)
+HF_DECODER_WRITTEN = 2        # layers of the checkpoints written to disk ((i), (iv))
+HF_DECODER_TEXTS = 8          # texts, card vs CPU
+HF_DECODER_F32_LAYERS = 4     # (ii): f32 at a cut depth
+HF_DECODER_CHUNKS = 2048      # (iii): chunks the 32-layer embedder ingests
+HF_DECODER_REQUESTS = 32
+
+
+def spbpe_tokenizer_files(path, size, family):
+    """A SentencePiece BPE tokenizer.json at ``size`` pieces: the
+    specials, the 256 byte pieces <0x00>-<0xFF>, "▁" and the letters, then,
+    for phase 4's corpus words by frequency, the merges that build "▁word"
+    left to right while there is room, filler pieces last; Mistral's
+    legacy layout (Prepend + Replace, byte_fallback, fuse_unk) or Gemma's
+    (Replace alone), and the class's tokenizer_config.json."""
+    import numpy as np
+
+    words, _ = zipf_vocab(np.random.default_rng(11))
+    gemma = family == "gemma"
+    specials = ["<pad>", "<eos>", "<bos>", "<unk>"] if gemma else ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials + [f"<0x{b:02X}>" for b in range(256)])}
+    for ch in ["▁"] + sorted({c for w in words.tolist() for c in w}):
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    for w in words.tolist():
+        cur = "▁"
+        for ch in w:
+            if cur + ch not in vocab:
+                if len(vocab) == size:
+                    break
+                vocab[cur + ch] = len(vocab)
+                merges.append([cur, ch])
+            cur += ch
+    while len(vocab) < size:
+        vocab[f"<unused{len(vocab)}>"] = len(vocab)
+    replace = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False, "normalized": False,
+                          "special": True} for t in specials],
+        "normalizer": replace if gemma else {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"}, replace]},
+        "pre_tokenizer": None, "post_processor": None, "decoder": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "GemmaTokenizer"} if gemma else
+        {"tokenizer_class": "LlamaTokenizer", "pad_token": "</s>", "add_bos_token": True,
+         "add_eos_token": False}))
+
+
+def decoder_weights(module, gen, dev=None):
+    """Fill ``module``'s parameters from ``gen``: N(0, 0.02), RMSNorm
+    scales 1 + N(0, 0.05) (Gemma's, which scale by 1 + w, N(0, 0.05));
+    drawn in f32 on the generator's device and cast to each parameter's
+    dtype."""
+    import torch
+
+    gemma = module.config.model_type == "gemma"
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            n = torch.randn(p.shape, generator=gen, device=gen.device)
+            if name.endswith("norm.weight"):
+                n = (0.0 if gemma else 1.0) + 0.05 * n
+            else:
+                n = 0.02 * n
+            p.copy_(n.to(p.device))
+    return module
+
+
+def write_decoder_checkpoint(path, geometry, seed, dev, layers=HF_DECODER_WRITTEN):
+    """A decoder checkpoint at ``geometry``'s width and ``layers`` layers:
+    config.json, the SentencePiece BPE tokenizer files and a BF16
+    model.safetensors (published decoders ship half precision) drawn from a
+    seeded torch.Generator on ``dev`` (the card draws them fastest);
+    Mistral under MistralModel's names (as e5-mistral-7b-instruct ships),
+    Gemma under GemmaForCausalLM's ("model." prefix, as gemma-2b ships)."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_checkpoint import read_config
+    from advanced_rag_tpu_torch.models.hf_llama import DecoderModel
+
+    path.mkdir(parents=True, exist_ok=True)
+    family = geometry["model_type"]
+    spbpe_tokenizer_files(path, geometry["vocab_size"], family)
+    (path / "config.json").write_text(json.dumps(dict(geometry, num_hidden_layers=layers),
+                                                 indent=2))
+    with torch.device("meta"):
+        module = DecoderModel(read_config(path))
+    module = decoder_weights(module.to_empty(device=dev),
+                             torch.Generator(device=dev).manual_seed(seed))
+    prefix = "model." if family == "gemma" else ""
+    write_safetensors(path / "model.safetensors",
+                      {prefix + k: v for k, v in module.state_dict().items()}, bf16=True)
+
+
+def full_depth_decoder(config, dtype, dev, seed, layers):
+    """The decoder at ``layers`` layers built on the card, its weights
+    drawn there from a seeded generator (no checkpoint of 7B parameters is
+    written)."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_llama import DecoderModel
+
+    with torch.device("meta"):
+        module = DecoderModel(dataclasses.replace(config, num_hidden_layers=layers),
+                          dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return decoder_weights(module.to_empty(device=dev), gen).eval()
+
+
+def hf_decoder_parity(path, texts, dev):
+    """(i), (iv): HFEmbedder on the card against device="cpu" over
+    HF_DECODER_TEXTS texts at 128 tokens: f32 within HF_TOL, the bf16
+    distance recorded."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    t = time.perf_counter()
+    cpu = HFEmbedder(path, device="cpu")
+    want = cpu.encode(texts)
+    rec = {"cpu_s": time.perf_counter() - t, "scale": float(np.abs(want).max())}
+    del cpu
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = HFEmbedder(path, dtype=dtype, device=dev)
+        got = model.encode(texts)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"hf decoder {name}: shape {got.shape} or non-finite values")
+        rec[f"{name}_max_abs_err"] = float(np.abs(got - want).max())
+        norms = np.linalg.norm(got, axis=1)
+        if not np.allclose(norms, 1.0, atol=1e-3):
+            raise AssertionError(f"hf decoder {name}: embeddings are not unit vectors: {norms}")
+        del model
+    if rec["float32_max_abs_err"] > HF_TOL:
+        raise AssertionError(f"hf decoder {path.name}: the card's f32 differs from the CPU's "
+                             f"by {rec['float32_max_abs_err']} > {HF_TOL}")
+    return rec
+
+
+def hf_decoder_throughput(emb, texts, queries, dev):
+    """(ii): the embedder at 64 rows x 128 tokens, the model's forward alone
+    in CUDA events and the whole encode_device call (tokenization, forward,
+    pooling) on the host clock, after warm-up, and one query's whole call
+    (the /retrieve path's query encoding)."""
+    import torch
+
+    rows = [f"{texts[i]} {texts[i + 1]}" for i in range(1, 2 * HF_BATCH, 2)]
+    batch = [torch.from_numpy(a).to(dev) for a in emb._tokenize(rows, HF_BATCH)]
+    if not bool(batch[1].all()):
+        raise AssertionError("hf decoder throughput rows are not 128 tokens")
+    reps = 20 if emb.model.dtype == torch.bfloat16 else 5
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: emb.model(*batch), reps=reps, warmup=2)
+    rec = {"forward_ms": fwd}
+    for key, call, n in (("encode", lambda: emb.encode_device(rows), 5),
+                         ("query", lambda: emb.encode_device(queries[:1]), 20)):
+        call()
+        sync(dev)
+        t = time.perf_counter()
+        for _ in range(n):
+            call()
+        sync(dev)
+        rec[f"{key}_ms"] = (time.perf_counter() - t) / n * 1e3
+    rec["texts_per_s"] = HF_BATCH / rec["encode_ms"] * 1e3
+    return rec
+
+
+def phase_hf_decoders(root, texts, queries, dev):
+    """(g): e5-mistral-7b-instruct's geometry (HF_DECODER).  (i) a
+    checkpoint of its full width at HF_DECODER_WRITTEN layers (a 32,000-piece
+    byte-fallback tokenizer.json) through HFEmbedder, card against CPU;
+    (ii) the 32-layer model built on the card (bf16; f32 at
+    HF_DECODER_F32_LAYERS layers) timed at HF_BATCH x 128 tokens; (iii)
+    that bf16 embedder's manager ingests HF_DECODER_CHUNKS chunks and the
+    app with RAG_RERANKER=hf: on (e)'s ELECTRA reranker answers
+    HF_DECODER_REQUESTS /retrieve requests from 1 client, K1 at D = 4096
+    and K3 launched and held against their plain versions; (iv) gemma-2b's
+    width (HF_GEMMA) at HF_DECODER_WRITTEN layers, card against CPU; (v)
+    the peak device memory."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    t_phase = time.perf_counter()
+    base = memory_mark() if dev == "cuda" else 0
+    rec = {"source": "intfloat/e5-mistral-7b-instruct config.json (Mistral-7B-v0.1)"}
+    t = time.perf_counter()
+    write_decoder_checkpoint(root / "mistral", HF_DECODER, seed=61, dev=dev)
+    rec["write_s"] = time.perf_counter() - t
+    log(f"hf[mistral]: {HF_DECODER_WRITTEN} layers at e5-mistral-7b-instruct's width "
+        f"written in {rec['write_s']:.2f}s "
+        f"({(root / 'mistral' / 'model.safetensors').stat().st_size / 1e9:.2f} GB)")
+    rec["parity"] = hf_decoder_parity(root / "mistral", texts[1:1 + HF_DECODER_TEXTS], dev)
+    log(f"hf[mistral]: card vs CPU on {HF_DECODER_TEXTS} texts at {HF_DECODER_WRITTEN} "
+        "layers: " + ", ".join(f"{k} {v:.3g}" for k, v in rec["parity"].items()))
+    runs = {}
+    for name, dtype, layers in (("float32", torch.float32, HF_DECODER_F32_LAYERS),
+                                ("bfloat16", torch.bfloat16, HF_DECODER["num_hidden_layers"])):
+        emb = HFEmbedder(root / "mistral", dtype=dtype, device=dev)
+        emb.model = full_depth_decoder(emb.model.config, dtype, dev, seed=63, layers=layers)
+        runs[name] = dict(layers=layers, **hf_decoder_throughput(emb, texts, queries, dev))
+        log(f"hf[mistral][{name}] at {layers} layers: forward {HF_BATCH} x {emb.max_len} "
+            f"tokens {runs[name]['forward_ms']:.2f} ms; encode_device "
+            f"{runs[name]['encode_ms']:.2f} ms ({runs[name]['texts_per_s']:.0f} texts/s); "
+            f"one query {runs[name]['query_ms']:.2f} ms")
+        if name == "float32":
+            del emb
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    rec["throughput"] = runs
+    svc_queries = queries[HF_BATCH:]
+    rec["service"], launches = hf_service(
+        root, texts, svc_queries, dev, ce_dir=root / "electra", chunks=HF_DECODER_CHUNKS,
+        clients=(1,), requests=HF_DECODER_REQUESTS, warm=False,
+        db="service_hf_decoder.db", embedder=emb)
+    rec["service"]["embedder_layers"] = HF_DECODER["num_hidden_layers"]
+    del emb
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    write_decoder_checkpoint(root / "gemma", HF_GEMMA, seed=65, dev=dev)
+    rec["gemma"] = {"source": "google/gemma-2b config.json",
+                    "write_s": time.perf_counter() - t,
+                    **hf_decoder_parity(root / "gemma", texts[1:1 + HF_DECODER_TEXTS], dev)}
+    log(f"hf[gemma]: card vs CPU on {HF_DECODER_TEXTS} texts at {HF_DECODER_WRITTEN} layers "
+        "of gemma-2b's width: " + ", ".join(f"{k} {v:.3g}" for k, v in rec["gemma"].items()
+                                            if k != "source"))
+    rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"hf: (g) took {rec['seconds']:.2f}s; peak device memory {rec['peak_gb']} GB")
+    return rec, launches
+
+
 def phase_hf(texts, dev="cuda"):
     """Phase 13: the HF checkpoint models on the card.  At MiniLM-L6's
     width: (a) an embedder (BertModel) and a reranker
@@ -5128,7 +5427,8 @@ def phase_hf(texts, dev="cuda"):
     CPU and timed; (f) a RoBERTa embedder's bf16-tier manager ingests
     HF_FAMILY_CHUNKS chunks and the app with RAG_RERANKER=hf: on the
     ELECTRA reranker answers HF_FAMILY_REQUESTS /retrieve requests from
-    one client.  Returns the record and the launches of (c) and (f)."""
+    one client; (g) the decoder embedders (phase_hf_decoders).  Returns
+    the record and the launches of (c), (f) and (g)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -5168,6 +5468,10 @@ def phase_hf(texts, dev="cuda"):
             requests=HF_FAMILY_REQUESTS, warm=False, db="service_hf_families.db")
         rec["families"] = fam
         launches = {k: v + fam_launches[k] for k, v in launches.items()}
+        dec_queries = snippet_queries(rng, texts[:HF_DECODER_CHUNKS], HF_BATCH + 8
+                                      + HF_DECODER_REQUESTS + 32)
+        rec["decoders"], dec_launches = phase_hf_decoders(root, texts, dec_queries, dev)
+        launches = {k: v + dec_launches[k] for k, v in launches.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
@@ -5204,11 +5508,16 @@ def main() -> None:
     service["reference"] = phase_service_reference()
     tiers_1m = phase_tiers_1m()
     phase_tier_reference()
+    from advanced_rag_tpu_torch.utils.constants import IndexConstants
+
     root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=BUILD_DIR))
+    threshold = IndexConstants.IVF_AUTO_THRESHOLD
+    IndexConstants.IVF_AUTO_THRESHOLD = LIFECYCLE_IVF_THRESHOLD
     try:
         lifecycle, lifecycle_cases, proj = phase_lifecycle(texts, root)
         lifecycle["pq"] = phase_pq_lifecycle(root, proj)
     finally:
+        IndexConstants.IVF_AUTO_THRESHOLD = threshold
         shutil.rmtree(root, ignore_errors=True)
     lifecycle["encoders"] = encoders
     root = Path(tempfile.mkdtemp(prefix="train-", dir=BUILD_DIR))

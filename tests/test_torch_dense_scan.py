@@ -70,9 +70,11 @@ def test_scan_plan_matches_the_kernels_shared_memory():
     assert dk.scan_chunk("int8", 1024) == dk.scan_chunk("f32", 1024) == 32
     assert dk.scan_chunk("bf16", 2048) == 8
     assert dk.scan_chunk("f32", 2048) == 16
-    for kind, d in (("bf16", 4096), ("f32", 8192)):
-        with pytest.raises(ValueError, match="too wide"):
-            dk.scan_chunk(kind, d)
+    # bf16 rows past 3264 and f32 rows past 4960 wide take 32 queries a
+    # launch, scanned in slices of D (scan_width); SQ8 rows take no slices
+    assert dk.scan_chunk("bf16", 4096) == dk.scan_chunk("f32", 8192) == 32
+    with pytest.raises(ValueError, match="too wide"):
+        dk.scan_chunk("int8", 32768)
     for kind in ("bf16", "int8", "f32"):
         for d in (384, 1536, 2048):
             assert dk.scan_plan(kind, dk.scan_chunk(kind, d), d)[1] <= dk.SCAN_SMEM_MAX
@@ -104,3 +106,71 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(dk.sq8_scores(qc, codes, torch.ones(50), m),
                        dk.sq8_scores_plain(qc, codes, torch.ones(50), m))
     assert (dk.dense_scores.launches, dk.sq8_scores.launches) == (k1, k2)
+
+
+# (rows per tile, shared-memory bytes) of each launch block (8, 16, 32
+# queries) at the widths that fitted whole before wide rows were sliced
+_PLANS = {
+    ("bf16", 384): (32, {8: (128, 92544), 16: (128, 111360), 32: (256, 222720)}),
+    ("bf16", 768): (32, {8: (128, 110976), 16: (128, 148224), 32: (128, 222720)}),
+    ("bf16", 1536): (16, {8: (128, 147840), 16: (128, 221952)}),
+    ("bf16", 3072): (8, {8: (128, 221568)}),
+    ("f32", 384): (32, {8: (128, 86016), 16: (128, 98304), 32: (256, 196608)}),
+    ("f32", 768): (32, {8: (128, 98304), 16: (128, 122880), 32: (128, 172032)}),
+    ("f32", 1536): (16, {8: (128, 122880), 16: (128, 172032)}),
+    ("f32", 3072): (8, {8: (128, 172032)}),
+    ("f32", 4096): (8, {8: (128, 204800)}),
+    ("int8", 384): (32, {8: (128, 76928), 16: (128, 80128), 32: (128, 86528)}),
+    ("int8", 4096): (32, {32: (128, 205312)}),
+}
+
+
+@pytest.mark.parametrize("kind,d", sorted(_PLANS))
+def test_scan_plans_of_rows_that_fit_whole_are_unchanged(kind, d):
+    chunk, plans = _PLANS[(kind, d)]
+    assert dk.scan_chunk(kind, d) == chunk
+    for qc, plan in plans.items():
+        assert dk.scan_plan(kind, qc, d) == plan
+        if kind != "int8":
+            assert dk.scan_width(kind, qc, d) == d
+    for nq in (1, 8, 9, 32, 33):
+        launches = dk.scan_launches(kind, nq, d) if kind != "int8" else []
+        assert all(k0 == 0 and kw == d for _, _, k0, kw in launches)
+
+
+@pytest.mark.parametrize("kind,d", [("bf16", 4096), ("bf16", 8192), ("bf16", 4100),
+                                    ("f32", 8192), ("f32", 6000)])
+@pytest.mark.parametrize("nq", [1, 8, 16, 32, 40])
+def test_wide_rows_scan_in_slices_that_fit(kind, d, nq):
+    align = 64 if kind == "bf16" else 32
+    launches = dk.scan_launches(kind, nq, d)
+    seen = {}
+    for q0, nc, k0, kw in launches:
+        qc = dk.launch_qc(nc)
+        assert dk.scan_plan(kind, qc, kw)[1] <= dk.SCAN_SMEM_MAX
+        assert k0 % align == 0 and 0 < kw <= d - k0
+        seen.setdefault((q0, nc), []).append((k0, kw))
+    # every query once, every value of its rows once, slices in order
+    assert sorted(q0 for q0, _ in seen) == list(range(0, nq, 32))
+    for (q0, nc), slices in seen.items():
+        assert nc == min(32, nq - q0)
+        assert [k0 for k0, _ in slices] == sorted(k0 for k0, _ in slices)
+        assert sum(kw for _, kw in slices) == d
+        assert all(a + wa == b for (a, wa), (b, _) in zip(slices, slices[1:]))
+    # the slices' plain partial products, the first with the mask, add up
+    # to the plain scan
+    rng = np.random.default_rng(d + nq)
+    rows = torch.from_numpy(rng.standard_normal((64, d), np.float32))
+    if kind == "bf16":
+        rows = rows.to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((nq, d), np.float32))
+    m = mask_additive(torch.from_numpy(rng.random(64) > 0.3), 64, torch.device("cpu"))
+    got = torch.empty((nq, 64))
+    for q0, nc, k0, kw in launches:
+        part = dk.dense_scores_plain(q[q0:q0 + nc, k0:k0 + kw], rows[:, k0:k0 + kw],
+                                     m if k0 == 0 else torch.zeros(64))
+        got[q0:q0 + nc] = part if k0 == 0 else got[q0:q0 + nc] + part
+    want = dk.dense_scores_plain(q, rows, m)
+    live = want > NEG_INF / 2
+    assert torch.equal(got[~live], want[~live])
+    assert float((got[live] - want[live]).abs().max()) <= 1e-5 * float(want[live].abs().max())

@@ -201,12 +201,19 @@ def test_entry_points_run_on_cpu_when_asked(no_card, tmp_path, monkeypatch):
 
 
 def test_build_is_one_nvcc_call_for_sm_90a(tmp_path):
-    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-std=c++17" in cmd
+    """One nvcc compile for sm_90a per source (run together) and one link
+    of their objects into the one library."""
+    compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so", tmp_path / "obj")
     srcs = _build.sources()
-    assert srcs and all(str(s) in cmd for s in srcs)
+    assert srcs and len(compiles) == len(srcs)
+    for cmd, src in zip(compiles, srcs):
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and "-std=c++17" in cmd and "-fPIC" in cmd
+        assert "-shared" not in cmd
+    assert link[0] == "nvcc" and "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    assert link[-len(srcs):] == [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert _build.library_path().parent == REPO / "build" / "kernels"
     assert _build.library_path().name.startswith("libart_kernels_")
 
@@ -254,8 +261,8 @@ def test_hf_modules_are_the_ports_and_the_export_script_is_not():
     card script."""
     mods = set(port_modules())
     for name in ("hf_checkpoint", "hf_tokenizer", "hf_bpe", "hf_unigram", "hf_bert",
-                 "hf_roberta", "hf_electra", "hf_distilbert", "hf_embedder",
-                 "hf_cross_encoder"):
+                 "hf_roberta", "hf_electra", "hf_distilbert", "hf_llama", "hf_spbpe",
+                 "hf_embedder", "hf_cross_encoder"):
         assert f"advanced_rag_tpu_torch.models.{name}" in mods, name
     export = REPO / "scripts" / "torch_export_hf.py"
     assert export not in CARD_SCRIPTS

@@ -95,6 +95,37 @@ def test_k2_is_bit_identical_to_plain(cuda, nq, n, d):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq", [1, 8, 9, 32, 40])
+@pytest.mark.parametrize("n,d", [(5000, 4096), (1000, 8192), (777, 4100)])
+def test_k1_scans_wide_rows_in_slices(cuda, dtype, nq, n, d):
+    """Rows too wide for the queries' shared memory (a 7B decoder's 4096,
+    8192; 4100 stages by element copies) are scanned slice by slice."""
+    rng = np.random.default_rng(nq * 7 + n + d)
+    rows = torch.from_numpy(rng.standard_normal((n, d), np.float32)).to(cuda).to(dtype)
+    q = torch.from_numpy(rng.standard_normal((nq, d), np.float32)).to(cuda)
+    m = _mask(n, rng, cuda)
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    before = dk.dense_scores.launches
+    got = dk.dense_scores(q, rows, m)
+    torch.cuda.synchronize()
+    assert dk.dense_scores.launches - before == len(dk.scan_launches(kind, nq, d))
+    assert_rel_close(got, dk.dense_scores_plain(q, rows, m))
+
+
+@pytest.mark.parametrize("nq", [1, 32, 33])
+@pytest.mark.parametrize("d", [4096, 8192])
+def test_k2_at_wide_rows_is_bit_identical_to_plain(cuda, nq, d):
+    rng = np.random.default_rng(nq + d)
+    codes, scale = sq8_quantize(torch.from_numpy(
+        rng.standard_normal((3000, d), np.float32)).to(cuda))
+    q_codes, _ = sq8_quantize(torch.from_numpy(
+        rng.standard_normal((nq, d), np.float32)).to(cuda))
+    m = _mask(3000, rng, cuda)
+    got = dk.sq8_scores(q_codes, codes, scale, m)
+    assert torch.equal(got, dk.sq8_scores_plain(q_codes, codes, scale, m))
+
+
 EDGE_N = (9, 777, 4097, 131073)            # ragged to the 128-row tile
 EDGE_Q = (1, 8, 9, 17, 32, 33, 40)          # across the 8/16/32 query tiles
 
