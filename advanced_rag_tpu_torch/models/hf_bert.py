@@ -86,14 +86,14 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, config: HFConfig):
+    def __init__(self, config: HFConfig, bias: bool = True):
         super().__init__()
         h = config.hidden_size
         self.heads = config.num_attention_heads
         self.head_dim = h // self.heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = nn.Linear(h, h, bias=bias)
+        self.key = nn.Linear(h, h, bias=bias)
+        self.value = nn.Linear(h, h, bias=bias)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:

@@ -5,12 +5,17 @@ that JAX's ``FlaxAutoModel`` / ``FlaxAutoModelForSequenceClassification``
 load for a RAG deployment:
 
 - ``config.json``: ``model_type`` ``bert``, ``roberta``, ``xlm-roberta``,
-  ``electra`` or ``distilbert`` (``HFConfig``, one dataclass with the
+  ``electra``, ``distilbert``, ``roberta-prelayernorm``, ``albert``,
+  ``big_bird`` or ``roformer`` (``HFConfig``, one dataclass with the
   families' fields; a key the file leaves out takes the default of
   transformers' config class for the family), ``hidden_act`` ``gelu``
   (erf), ``gelu_new`` / ``gelu_pytorch_tanh`` (tanh) or ``relu``,
   ``position_embedding_type`` ``absolute``; anything else raises
-  ``ValueError`` naming it;
+  ``ValueError`` naming it.  Where Flax computes another model than the
+  checkpoint holds, it raises naming the field: a RoFormer
+  ``embedding_size`` other than ``hidden_size`` (Flax RoFormer has no
+  ``embeddings_project``) and a BigBird ``attention_type`` other than
+  ``original_full`` / ``block_sparse``;
 - the decoder families ``llama``, ``mistral`` and ``gemma`` (``DECODERS``),
   with their grouped-query heads, ``head_dim``, ``rms_norm_eps``,
   ``hidden_act`` (``silu``; Gemma's ``hidden_activation``, whose None is
@@ -56,7 +61,13 @@ DECODER_ACTIVATIONS = ACTIVATIONS + ("silu", "swish")
 #: the decoder-only families (hf_llama.py); the JAX cross-encoder's class
 #: has no sequence classifier for them
 DECODERS = ("llama", "mistral", "gemma")
-FAMILIES = ("bert", "roberta", "xlm-roberta", "electra", "distilbert") + DECODERS
+#: the encoder families of the second group (hf_roberta_prelayernorm.py,
+#: hf_albert.py, hf_big_bird.py, hf_roformer.py)
+ENCODERS_MORE = ("roberta-prelayernorm", "albert", "big_bird", "roformer")
+FAMILIES = (("bert", "roberta", "xlm-roberta", "electra", "distilbert") + ENCODERS_MORE
+            + DECODERS)
+#: the attention types of Flax BigBird
+BIG_BIRD_ATTENTION = ("original_full", "block_sparse")
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
            "BF16": torch.bfloat16, "I64": torch.int64}
 _EXPORT_HINT = ("convert it with scripts/torch_export_hf.py (where "
@@ -66,22 +77,42 @@ _EXPORT_HINT = ("convert it with scripts/torch_export_hf.py (where "
 #: modules of its trunk
 _PREFIX = {"bert": "bert.", "roberta": "roberta.", "xlm-roberta": "roberta.",
            "electra": "electra.", "distilbert": "distilbert.",
+           "roberta-prelayernorm": "roberta_prelayernorm.", "albert": "albert.",
+           "big_bird": "bert.", "roformer": "roformer.",
            **{f: "model." for f in DECODERS}}
 _TRUNK = {"bert": ("embeddings.", "encoder."),
           "roberta": ("embeddings.", "encoder."),
           "xlm-roberta": ("embeddings.", "encoder."),
           "electra": ("embeddings.", "embeddings_project.", "encoder."),
           "distilbert": ("embeddings.", "transformer."),
+          "roberta-prelayernorm": ("embeddings.", "encoder.", "LayerNorm."),
+          "albert": ("embeddings.", "encoder."),
+          "big_bird": ("embeddings.", "encoder."),
+          "roformer": ("embeddings.", "encoder."),
           **{f: ("embed_tokens.", "layers.", "norm.") for f in DECODERS}}
+#: the families whose sequence classifier reads the pooler (BERT's and
+#: ALBERT's); the others' trunks never run theirs
+_POOLED = ("bert", "albert")
 #: the classification head's weights (DistilBERT serves as an embedder
 #: only, so its ``pre_classifier`` / ``classifier`` are always left out)
 _HEAD = {"bert": ("classifier.",),
          "roberta": ("classifier.dense.", "classifier.out_proj."),
          "xlm-roberta": ("classifier.dense.", "classifier.out_proj."),
-         "electra": ("classifier.dense.", "classifier.out_proj.")}
+         "electra": ("classifier.dense.", "classifier.out_proj."),
+         "roberta-prelayernorm": ("classifier.dense.", "classifier.out_proj."),
+         "albert": ("classifier.",),
+         "big_bird": ("classifier.dense.", "classifier.out_proj."),
+         "roformer": ("classifier.dense.", "classifier.out_proj.")}
 # transformers' config classes' defaults, where a family's differ from
 # BertConfig's (DistilBERT's names are read in read_config)
 _DEFAULTS = {"roberta": dict(pad_token_id=1), "xlm-roberta": dict(pad_token_id=1),
+             "roberta-prelayernorm": dict(pad_token_id=1, vocab_size=50265),
+             "albert": dict(vocab_size=30000, embedding_size=128, hidden_size=4096,
+                            num_attention_heads=64, intermediate_size=16384,
+                            hidden_act="gelu_new"),
+             "big_bird": dict(vocab_size=50358, hidden_act="gelu_new",
+                              max_position_embeddings=4096),
+             "roformer": dict(vocab_size=50000, max_position_embeddings=1536),
              "electra": dict(hidden_size=256, num_attention_heads=4,
                              intermediate_size=1024, embedding_size=128),
              "llama": dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -110,10 +141,24 @@ class HFConfig:
     hidden_act: str = "gelu"
     num_labels: int = 2
     model_type: str = "bert"
-    #: RoBERTa / XLM-R: the padding id, which sets the position offset
+    #: RoBERTa / XLM-R / RoBERTa-PreLayerNorm: the padding id, which sets
+    #: the position offset
     pad_token_id: int = 0
-    #: ELECTRA: the embeddings' width (``hidden_size`` when None)
+    #: ELECTRA, ALBERT: the embeddings' width (``hidden_size`` when None)
     embedding_size: Optional[int] = None
+    #: ALBERT: the groups of shared layers and the layers in each group
+    num_hidden_groups: int = 1
+    inner_group_num: int = 1
+    #: BigBird: ``original_full`` or ``block_sparse``, the block width,
+    #: the random blocks of each query block, biases on Q/K/V, and the word
+    #: embeddings scaled by sqrt(hidden_size)
+    attention_type: Optional[str] = None
+    block_size: int = 64
+    num_random_blocks: int = 3
+    use_bias: bool = True
+    rescale_embeddings: bool = False
+    #: RoFormer: the rotary positions also rotate the values
+    rotary_value: bool = False
     #: DistilBERT: Flax's fixed sinusoidal table instead of the learned one
     sinusoidal_pos_embds: bool = False
     #: the decoders: KV heads, the head width Flax takes (Gemma's
@@ -132,8 +177,8 @@ class HFConfig:
     def position_offset(self) -> int:
         """How far past ``max_len - 1`` the position ids of a row reach:
         RoBERTa's start at ``pad_token_id + 1``."""
-        return (self.pad_token_id + 1
-                if self.model_type in ("roberta", "xlm-roberta") else 0)
+        return (self.pad_token_id + 1 if self.model_type in
+                ("roberta", "xlm-roberta", "roberta-prelayernorm") else 0)
 
 
 def checkpoint_dir(path) -> Path:
@@ -183,6 +228,15 @@ def read_config(path) -> HFConfig:
     num_labels = (len(cfg["id2label"]) if cfg.get("id2label")
                   else int(cfg.get("num_labels", 2)))
     hidden = int(cfg.get("hidden_size", 768))
+    embedding = cfg.get("embedding_size")
+    if model_type == "roformer" and embedding not in (None, hidden):
+        raise ValueError(f"{what} embedding_size {embedding} is not supported: the JAX "
+                         f"reference's Flax RoFormer has no embeddings_project and "
+                         f"takes hidden_size {hidden} for the embeddings")
+    attention = cfg.get("attention_type", "block_sparse")
+    if model_type == "big_bird" and attention not in BIG_BIRD_ATTENTION:
+        raise ValueError(f"{what} attention_type {attention!r} is not supported "
+                         f"(supported: {', '.join(BIG_BIRD_ATTENTION)})")
     return HFConfig(
         vocab_size=int(cfg.get("vocab_size", 30522)), hidden_size=hidden,
         num_hidden_layers=int(cfg.get("num_hidden_layers", 12)),
@@ -194,8 +248,16 @@ def read_config(path) -> HFConfig:
         hidden_act=act, num_labels=num_labels, model_type=model_type,
         pad_token_id=int(cfg.get("pad_token_id") or 0),
         embedding_size=(int(cfg.get("embedding_size", hidden))
-                        if model_type == "electra" else None),
-        sinusoidal_pos_embds=bool(cfg.get("sinusoidal_pos_embds", False)))
+                        if model_type in ("electra", "albert") else None),
+        sinusoidal_pos_embds=bool(cfg.get("sinusoidal_pos_embds", False)),
+        num_hidden_groups=int(cfg.get("num_hidden_groups", 1)),
+        inner_group_num=int(cfg.get("inner_group_num", 1)),
+        attention_type=attention if model_type == "big_bird" else None,
+        block_size=int(cfg.get("block_size", 64)),
+        num_random_blocks=int(cfg.get("num_random_blocks", 3)),
+        use_bias=bool(cfg.get("use_bias", True)),
+        rescale_embeddings=bool(cfg.get("rescale_embeddings", False)),
+        rotary_value=bool(cfg.get("rotary_value", False)))
 
 
 def _decoder_config(cfg: dict, model_type: str, what: str) -> HFConfig:
@@ -345,18 +407,22 @@ def family_state(raw: Dict[str, torch.Tensor], config: HFConfig, *,
                  head: bool, pooler: bool = True) -> Dict[str, torch.Tensor]:
     """``raw`` under the names of the family's trunk (``head=False``, no
     prefix) or its sequence classifier (the prefixed trunk plus the
-    classification head), as f32.  BERT's trunk keeps its pooler unless
-    ``pooler`` is false (no other family's module runs one); DistilBERT's
-    learned position table is left out where Flax computes a sinusoidal
-    one; the weights of other heads are left out."""
+    classification head), as f32.  BERT's and ALBERT's trunks keep their
+    pooler unless ``pooler`` is false (no other family's module runs one);
+    DistilBERT's learned position table is left out where Flax computes a
+    sinusoidal one, and so is RoFormer's table; the weights of other heads
+    are left out."""
     family = config.model_type
     prefix, trunk_parts = _PREFIX[family], _TRUNK[family]
-    if family == "bert" and pooler:
+    if family in _POOLED and pooler:
         trunk_parts += ("pooler.",)
+    computed = {"encoder.embed_positions.weight"} if family == "roformer" else set()
+    if config.sinusoidal_pos_embds:
+        computed.add("embeddings.position_embeddings.weight")
     out: Dict[str, torch.Tensor] = {}
     for name, t in raw.items():
         trunk = name[len(prefix):] if name.startswith(prefix) else name
-        if config.sinusoidal_pos_embds and trunk == "embeddings.position_embeddings.weight":
+        if trunk in computed:
             continue
         if trunk.startswith(trunk_parts):
             key = f"{prefix}{trunk}" if head else trunk
@@ -377,6 +443,7 @@ def load_checkpoint(path, *, head: bool, pooler: bool = True
                                 pooler=pooler)
 
 
-__all__ = ["ACTIVATIONS", "DECODERS", "FAMILIES", "HFConfig", "checkpoint_dir",
+__all__ = ["ACTIVATIONS", "BIG_BIRD_ATTENTION", "DECODERS", "ENCODERS_MORE", "FAMILIES",
+           "HFConfig", "checkpoint_dir",
            "family_state", "load_checkpoint", "read_config", "read_json",
            "read_safetensors", "read_state_dict"]

@@ -1,15 +1,17 @@
 """HF-checkpoint cross-encoder reranker: the port of
 ``advanced_rag_tpu/models/hf_cross_encoder.py``.
 
-A local sequence-classification checkpoint of the BERT, RoBERTa, XLM-R
-or ELECTRA family (e.g. ``cross-encoder/ms-marco-MiniLM-L-6-v2``,
+A local sequence-classification checkpoint of the BERT, RoBERTa, XLM-R,
+ELECTRA, RoBERTa-PreLayerNorm, ALBERT, BigBird or RoFormer family (e.g.
+``cross-encoder/ms-marco-MiniLM-L-6-v2``,
 ``cross-encoder/ms-marco-electra-base``, ``BAAI/bge-reranker-base``)
 scores (query, document) pairs on the card with the ``score`` /
 ``score_pairs`` surface of ``models/cross_encoder.py``, so it drops into
 the retriever's rerank stage (``RAG_RERANKER=hf:<path>``).  Pairs are the
 family's template (``[CLS] q [SEP] d [SEP]``, ``<s> q </s></s> d </s>``)
 truncated ``longest_first`` to ``max_len``; where the tokenizer returns no
-token types (RoBERTa's, XLM-R's) zeros are fed, as JAX's class does; the
+token types (RoBERTa's, XLM-R's, BigBird's) zeros are fed, as JAX's class
+does; the
 score is the first logit in f32 (the relevance convention of one-label
 heads).
 
@@ -29,21 +31,31 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
+from .hf_albert import AlbertForSequenceClassification
 from .hf_bert import BertForSequenceClassification
+from .hf_big_bird import BigBirdForSequenceClassification
 from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint, read_config
 from .hf_electra import ElectraForSequenceClassification
 from .hf_embedder import _bucket, check_max_len
 from .hf_roberta import RobertaForSequenceClassification
+from .hf_roberta_prelayernorm import RobertaPreLayerNormForSequenceClassification
+from .hf_roformer import RoFormerForSequenceClassification
 from .hf_tokenizer import load_tokenizer
+
+#: the sequence classifiers by model_type (BERT's for any other encoder)
+CLASSIFIERS = {"roberta": RobertaForSequenceClassification,
+               "xlm-roberta": RobertaForSequenceClassification,
+               "electra": ElectraForSequenceClassification,
+               "roberta-prelayernorm": RobertaPreLayerNormForSequenceClassification,
+               "albert": AlbertForSequenceClassification,
+               "big_bird": BigBirdForSequenceClassification,
+               "roformer": RoFormerForSequenceClassification}
 
 
 def build_classifier(config: HFConfig, dtype: torch.dtype):
     """The family's sequence-classification module."""
-    if config.model_type in ("roberta", "xlm-roberta"):
-        return RobertaForSequenceClassification(config, dtype=dtype)
-    if config.model_type == "electra":
-        return ElectraForSequenceClassification(config, dtype=dtype)
-    return BertForSequenceClassification(config, dtype=dtype)
+    return CLASSIFIERS.get(config.model_type, BertForSequenceClassification)(
+        config, dtype=dtype)
 
 
 class HFCrossEncoder:

@@ -8,10 +8,15 @@ mean-pooled, L2-normalised embedder on the card, under the ``Embedder``
 interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
 nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
 directory (``model_type`` bert, roberta, xlm-roberta, electra,
-distilbert, llama, mistral or gemma), ``hf_tokenizer.load_tokenizer``
-tokenizes as the family's fast tokenizer does and ``hf_bert.py`` /
-``hf_roberta.py`` / ``hf_electra.py`` / ``hf_distilbert.py`` /
-``hf_llama.py`` run the model.
+distilbert, roberta-prelayernorm, albert, big_bird, roformer, llama,
+mistral or gemma), ``hf_tokenizer.load_tokenizer`` tokenizes as the
+family's fast tokenizer does and ``hf_bert.py`` / ``hf_roberta.py`` /
+``hf_electra.py`` / ``hf_distilbert.py`` / ``hf_roberta_prelayernorm.py``
+/ ``hf_albert.py`` / ``hf_big_bird.py`` / ``hf_roformer.py`` /
+``hf_llama.py`` run the model.  A BigBird checkpoint's ``max_len`` must
+be a multiple of its ``block_size``, and in ``block_sparse`` at least
+four blocks (``hf_big_bird.check_length``): the port raises at
+construction, where JAX's class raises at its first encode.
 
 The token types fed to the trunk are what ``FlaxAutoModel`` fills in when
 JAX's class passes none: zeros, except ELECTRA's ones.  A decoder's
@@ -32,12 +37,16 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
+from .hf_albert import AlbertModel
 from .hf_bert import BertModel
+from .hf_big_bird import BigBirdModel, check_length
 from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint
 from .hf_distilbert import DistilBertModel
 from .hf_electra import ElectraModel
 from .hf_llama import DecoderModel
 from .hf_roberta import RobertaModel
+from .hf_roberta_prelayernorm import RobertaPreLayerNormModel
+from .hf_roformer import RoFormerModel
 from .hf_tokenizer import load_tokenizer
 
 
@@ -57,6 +66,8 @@ def check_max_len(max_len: int, config: HFConfig, path) -> None:
                  if config.position_offset else "")
         raise ValueError(f"max_len {max_len}{extra} exceeds the {positions} "
                          f"positions of {path}")
+    if config.model_type == "big_bird":
+        check_length(max_len, config, f"{path}: max_len")
 
 
 def build_trunk(config: HFConfig, dtype: torch.dtype):
@@ -69,6 +80,14 @@ def build_trunk(config: HFConfig, dtype: torch.dtype):
         return ElectraModel(config, dtype=dtype)
     if config.model_type == "distilbert":
         return DistilBertModel(config, dtype=dtype)
+    if config.model_type == "roberta-prelayernorm":
+        return RobertaPreLayerNormModel(config, dtype=dtype)
+    if config.model_type == "albert":
+        return AlbertModel(config, pooler=False, dtype=dtype)
+    if config.model_type == "big_bird":
+        return BigBirdModel(config, dtype=dtype)
+    if config.model_type == "roformer":
+        return RoFormerModel(config, dtype=dtype)
     return BertModel(config, pooler=False, dtype=dtype)
 
 

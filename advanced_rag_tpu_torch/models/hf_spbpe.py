@@ -1,9 +1,10 @@
 """The SentencePiece-style BPE tokenizer of the Llama, Mistral and Gemma
-checkpoints, read from a local ``tokenizer.json``.
+checkpoints (and of a BigBird checkpoint whose SentencePiece model is a
+BPE one), read from a local ``tokenizer.json``.
 
-The port's copy of what ``LlamaTokenizerFast`` and ``GemmaTokenizerFast``
-(the ``tokenizers`` crate) do, so the card's machine needs neither
-``transformers`` nor ``tokenizers``:
+The port's copy of what ``LlamaTokenizerFast``, ``GemmaTokenizerFast`` and
+``BigBirdTokenizerFast`` (the ``tokenizers`` crate) do, so the card's
+machine needs neither ``transformers`` nor ``tokenizers``:
 
 1. added tokens (``<s>``, ``</s>``, ``<unk>``, ``<bos>``, ``<pad>`` and
    any other) are found in the raw text first, leftmost-longest; a
@@ -30,7 +31,11 @@ The port's copy of what ``LlamaTokenizerFast`` and ``GemmaTokenizerFast``
    ``add_eos_token`` (default false): ``[bos] A [eos]``, in place of the
    post-processor in ``tokenizer.json``; truncation on
    ``truncation_side`` (default right) and padding to ``max_length`` on
-   ``padding_side`` (default left, the classes' own).
+   ``padding_side`` (default left, the classes' own).  BigBird's class
+   instead takes its ``tokenizer.json``'s ``[CLS] A [SEP] B [SEP]``
+   (``TemplateTokenizer``: pairs, right padding, no token types), with
+   BigBird's converter's normalizer (``Precompiled``, ``Strip``, Replace
+   " {2,}") and ``Metaspace``.
 
 It refuses, with ``ValueError`` naming it: BPE ``dropout``,
 ``ignore_merges``, a word prefix or suffix, a ``ByteLevel`` or ``Split``
@@ -51,8 +56,9 @@ import numpy as np
 
 from .hf_bpe import merge_ids
 from .hf_checkpoint import checkpoint_dir, read_json
-from .hf_tokenizer import (TemplateTokenizer, _added_pattern, _token_content,
-                           added_tokens, read_tokenizer_config)
+from .hf_tokenizer import (BIG_BIRD_SPECIALS, TemplateTokenizer, _added_pattern,
+                           _token_content, added_tokens, bert_template,
+                           read_tokenizer_config)
 from .hf_unigram import Normalizer, metaspace
 
 #: a token that crosses a word boundary: a character, then "▁"
@@ -66,6 +72,7 @@ CLASS_SPECIALS = {
     "llama": dict(bos_token="<s>", eos_token="</s>", unk_token="<unk>"),
     "gemma": dict(bos_token="<bos>", eos_token="<eos>", unk_token="<unk>",
                   pad_token="<pad>"),
+    "big_bird": BIG_BIRD_SPECIALS,
 }
 
 
@@ -79,8 +86,11 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                  unk_token: Optional[str] = None, byte_fallback: bool = False,
                  fuse_unk: bool = False, normalizer: Optional[dict] = None,
                  pre_tokenizer: Optional[dict] = None, padding_side: str = "left",
-                 truncation_side: str = "right", where: str = "tokenizer.json"):
-        super().__init__(added, cls_id=bos_id, sep_id=eos_id, pad_id=pad_id)
+                 truncation_side: str = "right", where: str = "tokenizer.json",
+                 pair_template: bool = False):
+        super().__init__(added, cls_id=bos_id, sep_id=eos_id, pad_id=pad_id, pair_seps=1)
+        #: BigBird's [CLS] A [SEP] B [SEP] (TemplateTokenizer's call)
+        self.pair_template = pair_template
         for name, side in (("padding_side", padding_side),
                            ("truncation_side", truncation_side)):
             if side not in ("left", "right"):
@@ -154,7 +164,8 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
         merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
                   for m in model.get("merges", [])]
         specials = CLASS_SPECIALS[family]
-        added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials)
+        added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials,
+                             lstrip_mask=family == "big_bird")
 
         def token_id(name: str) -> Optional[int]:
             content = _token_content(cfg.get(name, specials.get(name)))
@@ -162,6 +173,16 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                 return None
             return next(t.id for t in added if t.content == content)
 
+        common = dict(unk_token=model.get("unk_token"),
+                      byte_fallback=bool(model.get("byte_fallback", False)),
+                      fuse_unk=bool(model.get("fuse_unk", False)),
+                      normalizer=tj.get("normalizer"), pre_tokenizer=tj.get("pre_tokenizer"),
+                      where=where)
+        if family == "big_bird":
+            cls_id, sep_id = bert_template(tj.get("post_processor") or {})
+            return cls(vocab, merges, added=added, bos_id=cls_id, eos_id=sep_id,
+                       pad_id=token_id("pad_token"), padding_side="right",
+                       pair_template=True, **common)
         bos_id, eos_id = token_id("bos_token"), token_id("eos_token")
         add_bos = bool(cfg.get("add_bos_token", True))
         add_eos = bool(cfg.get("add_eos_token", False))
@@ -170,12 +191,8 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                 raise ValueError(f"{path}: add_{name} is true but {name} is None")
         return cls(vocab, merges, added=added, bos_id=bos_id if add_bos else None,
                    eos_id=eos_id if add_eos else None, pad_id=token_id("pad_token"),
-                   unk_token=model.get("unk_token"),
-                   byte_fallback=bool(model.get("byte_fallback", False)),
-                   fuse_unk=bool(model.get("fuse_unk", False)),
-                   normalizer=tj.get("normalizer"), pre_tokenizer=tj.get("pre_tokenizer"),
                    padding_side=cfg.get("padding_side", "left"),
-                   truncation_side=cfg.get("truncation_side", "right"), where=where)
+                   truncation_side=cfg.get("truncation_side", "right"), **common)
 
     def normalize(self, text: str) -> str:
         return self.normalizer(text)
@@ -225,6 +242,8 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
 
     def __call__(self, texts: Sequence[str], pairs: Optional[Sequence[str]] = None, *,
                  max_length: int) -> Dict[str, np.ndarray]:
+        if self.pair_template:
+            return super().__call__(texts, pairs, max_length=max_length)
         if pairs is not None:
             raise ValueError("the SentencePiece BPE tokenizer encodes single texts only "
                              "(the decoder families serve no cross-encoder)")

@@ -33,14 +33,21 @@ true) override those in ``tokenizer.json``.
 ``load_tokenizer(path)`` chooses as transformers' ``AutoTokenizer`` does:
 ``tokenizer_config.json``'s ``tokenizer_class`` first, else
 ``config.json``'s ``model_type``.  BERT, ELECTRA and DistilBERT take
-``WordPieceTokenizer``; RoBERTa takes ``hf_bpe.ByteLevelBPETokenizer``;
-XLM-RoBERTa takes ``hf_unigram.UnigramTokenizer``; Llama, Mistral and
-Gemma take ``hf_spbpe.SentencePieceBPETokenizer``.  Each tokenizer carries
-the ``model_input_names`` of its transformers class: only BERT's and
-ELECTRA's return ``token_type_ids``.  ``TemplateTokenizer`` is what the
-BPE and Unigram tokenizers share: added tokens split out of the text as
-the crate's added vocabulary does, RoBERTa's pair template, truncation
-and padding.
+``WordPieceTokenizer`` (so does a RoFormer checkpoint whose
+``tokenizer_class`` names BERT's); RoBERTa and RoBERTa-PreLayerNorm take
+``hf_bpe.ByteLevelBPETokenizer``; XLM-RoBERTa and ALBERT take
+``hf_unigram.UnigramTokenizer``; BigBird takes the Unigram or the
+SentencePiece BPE tokenizer as its ``tokenizer.json``'s ``model.type``
+says; Llama, Mistral and Gemma take ``hf_spbpe.SentencePieceBPETokenizer``.
+``RoFormerTokenizer`` raises ``ValueError``: its Jieba pre-tokenizer needs
+``rjieba``, which neither the card's machine nor the JAX package's has
+(JAX's ``AutoTokenizer`` raises ``ImportError`` there).  Each tokenizer
+carries the ``model_input_names`` of its transformers class: only BERT's,
+ELECTRA's and ALBERT's return ``token_type_ids``.  ``TemplateTokenizer``
+is what the BPE and Unigram tokenizers share: added tokens split out of
+the text as the crate's added vocabulary does, the pair template
+(RoBERTa's ``<s> A </s></s> B </s>`` or, for ALBERT and BigBird, ``[CLS] A
+[SEP] B [SEP]`` with B's token types 1), truncation and padding.
 """
 
 from __future__ import annotations
@@ -480,21 +487,28 @@ def read_tokenizer_config(path) -> dict:
 ROBERTA_SPECIALS = dict(bos_token="<s>", eos_token="</s>", sep_token="</s>",
                         cls_token="<s>", unk_token="<unk>", pad_token="<pad>",
                         mask_token="<mask>")
+#: ALBERT's and BigBird's (``AlbertTokenizerFast``, ``BigBirdTokenizerFast``)
+ALBERT_SPECIALS = dict(bos_token="[CLS]", eos_token="[SEP]", sep_token="[SEP]",
+                       cls_token="[CLS]", unk_token="<unk>", pad_token="<pad>",
+                       mask_token="[MASK]")
+BIG_BIRD_SPECIALS = dict(ALBERT_SPECIALS, bos_token="<s>", eos_token="</s>")
 
 
 def added_tokens(json_tokens: Sequence[dict], cfg: dict,
-                 vocab: Dict[str, int], specials: Optional[Dict[str, str]] = None
-                 ) -> List[AddedToken]:
+                 vocab: Dict[str, int], specials: Optional[Dict[str, str]] = None,
+                 lstrip_mask: Optional[bool] = None) -> List[AddedToken]:
     """The added vocabulary ``PreTrainedTokenizerFast.__init__`` leaves for
     RoBERTa's and XLM-R's classes (or another class whose default special
     tokens are ``specials``): ``tokenizer.json``'s ``added_tokens``, then
     ``tokenizer_config.json``'s ``added_tokens_decoder``, then the class's
     special tokens (``ROBERTA_SPECIALS`` where the config names none; a
-    RoBERTa ``<mask>`` given as a string takes ``lstrip``, as the classes
-    make it), each once, by content; a special token is matched in the
-    raw text (not normalized)."""
+    mask token given as a string takes ``lstrip`` where the class makes it
+    so, RoBERTa's, ALBERT's and BigBird's, as ``lstrip_mask`` says, by
+    default for RoBERTa's specials), each once, by content; a special
+    token is matched in the raw text (not normalized)."""
     roberta = specials is None
     specials = ROBERTA_SPECIALS if roberta else specials
+    lstrip_mask = roberta if lstrip_mask is None else lstrip_mask
     out: Dict[str, AddedToken] = {}
 
     def add(content, tid, flags):
@@ -523,15 +537,17 @@ def added_tokens(json_tokens: Sequence[dict], cfg: dict,
         for tok in (toks if isinstance(toks, list) else [toks]):
             if tok is None:
                 continue
-            flags = tok if isinstance(tok, dict) else {"lstrip": roberta and name == "mask_token"}
+            flags = tok if isinstance(tok, dict) else {"lstrip": lstrip_mask and name == "mask_token"}
             add(_token_content(tok), None, {"special": True, "normalized": False, **flags})
     return list(out.values())
 
 
-def special_id(cfg: dict, name: str, added: Sequence[AddedToken]) -> int:
+def special_id(cfg: dict, name: str, added: Sequence[AddedToken],
+               specials: Optional[Dict[str, str]] = None) -> int:
     """The id of the special token ``name`` (e.g. "pad_token"), which
-    ``added_tokens`` put in the added vocabulary."""
-    content = _token_content(cfg.get(name, ROBERTA_SPECIALS[name]))
+    ``added_tokens`` put in the added vocabulary (``specials``: the class's
+    defaults, RoBERTa's where None)."""
+    content = _token_content(cfg.get(name, (specials or ROBERTA_SPECIALS)[name]))
     return next(t.id for t in added if t.content == content)
 
 
@@ -571,19 +587,24 @@ def split_added(text: str, pattern, by_content: Dict[str, AddedToken]
 
 
 class TemplateTokenizer:
-    """The template ``<s> A </s>`` / ``<s> A </s></s> B </s>`` around the
-    ids a subclass's ``encode_piece`` gives the text between added tokens,
-    truncated to ``max_length`` (a pair ``longest_first``) and right-padded
-    with the pad id; ``__call__`` returns numpy ``input_ids`` and
-    ``attention_mask`` [B, L] int64, as RoBERTa's and XLM-R's fast
-    tokenizers do (no token types)."""
+    """The template around the ids a subclass's ``encode_piece`` gives the
+    text between added tokens: ``<s> A </s>`` / ``<s> A </s></s> B </s>``
+    (RoBERTa's, ``pair_seps`` 2) or ``[CLS] A [SEP]`` / ``[CLS] A [SEP] B
+    [SEP]`` (ALBERT's and BigBird's, ``pair_seps`` 1, B and its separator
+    of token type 1), truncated to ``max_length`` (a pair
+    ``longest_first``) and right-padded with the pad id; ``__call__``
+    returns numpy ``input_ids``, ``attention_mask`` and, where
+    ``model_input_names`` has them, ``token_type_ids`` [B, L] int64, as the
+    fast tokenizers do (RoBERTa's, XLM-R's and BigBird's return no token
+    types)."""
 
     model_input_names: Tuple[str, ...] = ("input_ids", "attention_mask")
 
     def __init__(self, added: Sequence[AddedToken], *, cls_id: int, sep_id: int,
-                 pad_id: int):
+                 pad_id: int, pair_seps: int = 2):
         self.added = list(added)
         self.cls_id, self.sep_id, self.pad_id = cls_id, sep_id, pad_id
+        self.pair_seps = pair_seps
         self._by_content = {t.content: t for t in self.added}
         self._raw_re = _added_pattern([t for t in self.added if not t.normalized])
         self._norm_re = _added_pattern([t for t in self.added if t.normalized])
@@ -613,13 +634,14 @@ class TemplateTokenizer:
                  max_length: int) -> Dict[str, np.ndarray]:
         if pairs is not None and len(pairs) != len(texts):
             raise ValueError("texts and pairs must align")
-        n_special = 2 if pairs is None else 4
+        n_special = 2 if pairs is None else 2 + self.pair_seps
         if max_length < n_special:
             raise ValueError(f"max_length {max_length} leaves no room for "
                              f"the {n_special} special tokens")
         budget = max_length - n_special
         ids = np.full((len(texts), max_length), self.pad_id, np.int64)
         mask = np.zeros((len(texts), max_length), np.int64)
+        types = np.zeros((len(texts), max_length), np.int64)
         for i, text in enumerate(texts):
             a = self.encode(text)
             if pairs is None:
@@ -629,10 +651,15 @@ class TemplateTokenizer:
                 if len(a) + len(b) > budget:
                     na, nb = WordPieceTokenizer._pair_budget(len(a), len(b), budget)
                     a, b = a[:na], b[:nb]
-                row = [self.cls_id, *a, self.sep_id, self.sep_id, *b, self.sep_id]
+                row = [self.cls_id, *a, *[self.sep_id] * self.pair_seps, *b, self.sep_id]
+                if self.pair_seps == 1:
+                    types[i, len(a) + 2:len(row)] = 1
             ids[i, :len(row)] = row
             mask[i, :len(row)] = 1
-        return {"input_ids": ids, "attention_mask": mask}
+        out = {"input_ids": ids, "attention_mask": mask}
+        if "token_type_ids" in self.model_input_names:
+            out["token_type_ids"] = types
+        return out
 
 
 def roberta_template(post: dict) -> Tuple[int, int]:
@@ -657,6 +684,28 @@ def roberta_template(post: dict) -> Tuple[int, int]:
     raise ValueError(f"not a RoBERTa post-processor: {json.dumps(post)[:200]}")
 
 
+def bert_template(post: dict) -> Tuple[int, int]:
+    """The ids of ``[CLS]`` and ``[SEP]`` in the ``TemplateProcessing``
+    that ALBERT's and BigBird's converters write (``[CLS]:0 $A:0 [SEP]:0``,
+    pair ``... $B:1 [SEP]:1``); any other template raises."""
+    if post.get("type") == "TemplateProcessing":
+        def toks(seq):
+            return [("S", p["SpecialToken"]["id"], p["SpecialToken"].get("type_id", 0))
+                    if "SpecialToken" in p else
+                    ("Q", p["Sequence"]["id"], p["Sequence"].get("type_id", 0))
+                    for p in seq]
+
+        single, pair = toks(post.get("single") or []), toks(post.get("pair") or [])
+        special = post.get("special_tokens") or {}
+        if len(single) == 3 and single[0][0] == single[2][0] == "S":
+            cls_tok, sep_tok = single[0][1], single[2][1]
+            want = [("S", cls_tok, 0), ("Q", "A", 0), ("S", sep_tok, 0)]
+            if single == want and pair == want + [("Q", "B", 1), ("S", sep_tok, 1)] and all(
+                    len(special.get(t, {}).get("ids", [])) == 1 for t in (cls_tok, sep_tok)):
+                return int(special[cls_tok]["ids"][0]), int(special[sep_tok]["ids"][0])
+    raise ValueError(f"not a [CLS] A [SEP] B [SEP] post-processor: {json.dumps(post)[:200]}")
+
+
 def load_tokenizer(path):
     """The tokenizer of a checkpoint directory, chosen as ``AutoTokenizer``
     chooses it: ``tokenizer_config.json``'s ``tokenizer_class``, else
@@ -665,7 +714,7 @@ def load_tokenizer(path):
     cls_name = read_tokenizer_config(path).get("tokenizer_class")
     if cls_name:
         family = cls_name.removesuffix("Fast").removesuffix("Tokenizer").lower()
-        family = {"xlmroberta": "xlm-roberta"}.get(family, family)
+        family = {"xlmroberta": "xlm-roberta", "bigbird": "big_bird"}.get(family, family)
     else:
         family = (read_json(path / "config.json").get("model_type")
                   if (path / "config.json").exists() else None)
@@ -675,14 +724,29 @@ def load_tokenizer(path):
         tok = WordPieceTokenizer.from_pretrained(path)
         tok.model_input_names = ("input_ids", "attention_mask")
         return tok
-    if family == "roberta":
+    if family in ("roberta", "roberta-prelayernorm"):
         from .hf_bpe import ByteLevelBPETokenizer
 
         return ByteLevelBPETokenizer.from_pretrained(path)
-    if family == "xlm-roberta":
+    if family in ("xlm-roberta", "albert"):
         from .hf_unigram import UnigramTokenizer
 
-        return UnigramTokenizer.from_pretrained(path)
+        return UnigramTokenizer.from_pretrained(path, family)
+    if family == "big_bird":
+        from .hf_spbpe import SentencePieceBPETokenizer
+        from .hf_unigram import UnigramTokenizer
+
+        # BigBird's converter writes whichever model its SentencePiece file holds
+        kind = ((read_json(path / "tokenizer.json").get("model") or {}).get("type")
+                if (path / "tokenizer.json").exists() else None)
+        if kind == "BPE":
+            return SentencePieceBPETokenizer.from_pretrained(path, family)
+        return UnigramTokenizer.from_pretrained(path, family)
+    if family == "roformer":
+        raise ValueError(f"{path}: RoFormerTokenizer is not supported: its Jieba "
+                         "pre-tokenizer needs rjieba (the JAX reference's AutoTokenizer "
+                         "raises ImportError there); a RoFormer checkpoint with a "
+                         "WordPiece tokenizer (tokenizer_class BertTokenizer) is served")
     if family in ("llama", "mistral", "gemma"):
         from .hf_spbpe import SentencePieceBPETokenizer
 
@@ -691,10 +755,12 @@ def load_tokenizer(path):
             path, "gemma" if family == "gemma" else "llama")
     raise ValueError(f"{path}: tokenizer {cls_name or family!r} is not supported; "
                      "the port reads the BERT, ELECTRA, DistilBERT (WordPiece), "
-                     "RoBERTa (byte-level BPE), XLM-RoBERTa (Unigram) and Llama, "
-                     "Mistral, Gemma (SentencePiece BPE) tokenizers")
+                     "RoBERTa, RoBERTa-PreLayerNorm (byte-level BPE), XLM-RoBERTa, "
+                     "ALBERT (Unigram), BigBird (Unigram or SentencePiece BPE) and "
+                     "Llama, Mistral, Gemma (SentencePiece BPE) tokenizers")
 
 
-__all__ = ["ROBERTA_SPECIALS", "AddedToken", "TemplateTokenizer", "WordPieceTokenizer",
-           "added_tokens", "load_tokenizer", "read_tokenizer_config", "roberta_template",
-           "special_id", "split_added"]
+__all__ = ["ALBERT_SPECIALS", "BIG_BIRD_SPECIALS", "ROBERTA_SPECIALS", "AddedToken",
+           "TemplateTokenizer", "WordPieceTokenizer", "added_tokens", "bert_template",
+           "load_tokenizer", "read_tokenizer_config", "roberta_template", "special_id",
+           "split_added"]

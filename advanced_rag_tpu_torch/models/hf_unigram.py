@@ -1,16 +1,23 @@
-"""XLM-RoBERTa's Unigram tokenizer read from a local HF checkpoint's
-``tokenizer.json``.
+"""The SentencePiece Unigram tokenizers of XLM-RoBERTa, ALBERT and BigBird
+read from a local HF checkpoint's ``tokenizer.json``.
 
-The port's copy of ``XLMRobertaTokenizerFast`` (the ``tokenizers`` crate),
-so the card's machine needs neither ``transformers`` nor ``tokenizers``:
+The port's copy of ``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast``
+and ``BigBirdTokenizerFast`` (the ``tokenizers`` crate), so the card's
+machine needs neither ``transformers`` nor ``tokenizers``:
 
 1. added tokens are found in the raw text first, leftmost-longest
-   (``TemplateTokenizer``; XLM-R's ``<mask>`` takes ``lstrip``);
+   (``TemplateTokenizer``; the ``<mask>`` / ``[MASK]`` of the three
+   classes takes ``lstrip``);
 2. the normalizer on each piece between them (``Normalizer``):
    ``Sequence``, ``Replace`` (a string, or a regex of literals and
-   repetition such as XLM-R's ``" {2,}"``), ``NFKC``, ``Strip``,
+   repetition such as XLM-R's ``" {2,}"``), ``NFKC``, ``NFKD``,
+   ``StripAccents`` (every combining mark dropped, Mn, Mc and Me: the
+   crate's ``is_combining_mark``, unlike BERT's Mn-only strip), ``Strip``,
    ``Lowercase`` (one character at a time, as the crate does) and
-   ``Precompiled``; any other raises, naming it;
+   ``Precompiled``; any other raises, naming it.  ALBERT's converter
+   writes Replace "``" and "''", ``NFKD``, ``StripAccents``, ``Lowercase``,
+   ``Precompiled``, Replace " {2,}"; BigBird's ``Precompiled``, ``Strip``
+   (right), Replace " {2,}" by "▁";
 3. ``Precompiled`` is SentencePiece's charsmap: a little-endian ``uint32``
    trie size, the darts-clone double array (read with numpy), then the
    NUL-terminated normalized strings.  The crate walks the text by
@@ -25,12 +32,21 @@ so the card's machine needs neither ``transformers`` nor ``tokenizers``:
 5. the Unigram model: Viterbi over the pieces' scores (``_viterbi``, the
    crate's ``encode_optimized``: a character no piece covers is ``unk``
    at the lowest score less 10, and consecutive unknowns fuse);
-6. RoBERTa's template ``<s> A </s></s> B </s>``; the ids are
-   ``tokenizer.json``'s (the fairseq offset is already in them).
+6. the template: XLM-R's ``<s> A </s></s> B </s>``, ALBERT's and BigBird's
+   ``[CLS] A [SEP] B [SEP]`` (``hf_tokenizer.bert_template``; ALBERT's
+   class returns the token types, B's 1); the ids are ``tokenizer.json``'s
+   (XLM-R's fairseq offset is already in them).
 
-A directory with ``sentencepiece.bpe.model`` and no ``tokenizer.json``
-raises: transformers converts that file only with ``sentencepiece``
-installed, which the card's machine lacks.
+A directory with ``sentencepiece.bpe.model`` (or ``spiece.model``) and no
+``tokenizer.json`` raises: transformers converts that file only with
+``sentencepiece`` installed, which the card's machine lacks.
+
+``NFKD`` is Python's ``unicodedata`` (Unicode 15.0) where the crate's
+older tables agree; the characters of ``_CRATE_NFKD_WHOLE`` the crate
+leaves whole, and the marks of ``_CRATE_STARTER`` it takes as starters
+(combining class 0), so no reordering crosses either.  ``StripAccents``
+takes ``unicodedata``'s M categories with the crate's ``_CRATE_MARK`` /
+``_CRATE_NOT_MARK`` differences.
 
 The grapheme cluster classes are Python's ``unicodedata`` (Unicode 15.0)
 with the ``_CRATE_*`` differences that
@@ -52,7 +68,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .hf_checkpoint import checkpoint_dir, read_json
-from .hf_tokenizer import (_LOWER, _WHITESPACE, TemplateTokenizer, added_tokens,
+from .hf_tokenizer import (_LOWER, _WHITESPACE, ALBERT_SPECIALS, BIG_BIRD_SPECIALS,
+                           TemplateTokenizer, added_tokens, bert_template,
                            read_tokenizer_config, roberta_template, special_id)
 
 # Where the crate's grapheme clusters (unicode-segmentation) and the rules
@@ -87,6 +104,57 @@ _CRATE_PREPEND = (
 )
 
 
+# Where the crate's NFKD and combining-mark tables (older than Python
+# 3.12's unicodedata) disagree: characters its NFKD leaves whole, marks it
+# gives combining class 0, marks its StripAccents keeps and characters it
+# drops as marks.
+_CRATE_NFKD_WHOLE = (
+    (0x32ff, 0x32ff), (0xa7f2, 0xa7f4), (0xab69, 0xab69), (0x10781, 0x10785),
+    (0x10787, 0x107b0), (0x107b2, 0x107ba), (0x11938, 0x11938),
+    (0x1e030, 0x1e06d), (0x1f16c, 0x1f16c), (0x1fbf0, 0x1fbf9),
+)
+_CRATE_STARTER = (
+    (0x7fd, 0x7fd), (0x898, 0x89f), (0x8ca, 0x8d3), (0x9fe, 0x9fe),
+    (0xc3c, 0xc3c), (0xd3b, 0xd3c), (0xeba, 0xeba), (0x1715, 0x1715),
+    (0x1abf, 0x1ace), (0x1df6, 0x1dfa), (0xa82c, 0xa82c), (0x10d24, 0x10d27),
+    (0x10eab, 0x10eac), (0x10efd, 0x10eff), (0x10f46, 0x10f50),
+    (0x10f82, 0x10f85), (0x11070, 0x11070), (0x1133b, 0x1133b),
+    (0x1145e, 0x1145e), (0x11839, 0x1183a), (0x1193d, 0x1193e),
+    (0x11943, 0x11943), (0x119e0, 0x119e0), (0x11a34, 0x11a34),
+    (0x11a47, 0x11a47), (0x11a99, 0x11a99), (0x11d42, 0x11d42),
+    (0x11d44, 0x11d45), (0x11d97, 0x11d97), (0x11f41, 0x11f42),
+    (0x16ff0, 0x16ff1), (0x1e08f, 0x1e08f), (0x1e130, 0x1e136),
+    (0x1e2ae, 0x1e2ae), (0x1e2ec, 0x1e2ef), (0x1e4ec, 0x1e4ef),
+)
+_CRATE_NOT_MARK = (
+    (0x7fd, 0x7fd), (0x898, 0x89f), (0x8ca, 0x8d3), (0x9fe, 0x9fe),
+    (0xafa, 0xaff), (0xb55, 0xb55), (0xc04, 0xc04), (0xc3c, 0xc3c),
+    (0xcf3, 0xcf3), (0xd00, 0xd00), (0xd3b, 0xd3c), (0xd81, 0xd81),
+    (0xeba, 0xeba), (0xece, 0xece), (0x1715, 0x1715), (0x180f, 0x180f),
+    (0x1abf, 0x1ace), (0x1cf7, 0x1cf7), (0x1df6, 0x1dfa), (0xa82c, 0xa82c),
+    (0xa8ff, 0xa8ff), (0x10d24, 0x10d27), (0x10eab, 0x10eac),
+    (0x10efd, 0x10eff), (0x10f46, 0x10f50), (0x10f82, 0x10f85),
+    (0x11070, 0x11070), (0x11073, 0x11074), (0x110c2, 0x110c2),
+    (0x11145, 0x11146), (0x111c9, 0x111c9), (0x111ce, 0x111cf),
+    (0x11241, 0x11241), (0x1133b, 0x1133b), (0x1145e, 0x1145e),
+    (0x1182c, 0x1183a), (0x11930, 0x11935), (0x11937, 0x11938),
+    (0x1193b, 0x1193e), (0x11940, 0x11940), (0x11942, 0x11943),
+    (0x119d1, 0x119d7), (0x119da, 0x119e0), (0x119e4, 0x119e4),
+    (0x11a01, 0x11a0a), (0x11a33, 0x11a39), (0x11a3b, 0x11a3e),
+    (0x11a47, 0x11a47), (0x11a51, 0x11a5b), (0x11a8a, 0x11a99),
+    (0x11d31, 0x11d36), (0x11d3a, 0x11d3a), (0x11d3c, 0x11d3d),
+    (0x11d3f, 0x11d45), (0x11d47, 0x11d47), (0x11d8a, 0x11d8e),
+    (0x11d90, 0x11d91), (0x11d93, 0x11d97), (0x11ef3, 0x11ef6),
+    (0x11f00, 0x11f01), (0x11f03, 0x11f03), (0x11f34, 0x11f3a),
+    (0x11f3e, 0x11f42), (0x13440, 0x13440), (0x13447, 0x13455),
+    (0x16f4f, 0x16f4f), (0x16f7f, 0x16f87), (0x16fe4, 0x16fe4),
+    (0x16ff0, 0x16ff1), (0x1cf00, 0x1cf2d), (0x1cf30, 0x1cf46),
+    (0x1e08f, 0x1e08f), (0x1e130, 0x1e136), (0x1e2ae, 0x1e2ae),
+    (0x1e2ec, 0x1e2ef), (0x1e4ec, 0x1e4ef),
+)
+_CRATE_MARK = ((0x1cf2, 0x1cf3),)
+
+
 def _expand(runs) -> frozenset:
     return frozenset(c for lo, hi in runs for c in range(lo, hi + 1))
 
@@ -94,6 +162,36 @@ def _expand(runs) -> frozenset:
 _ATTACH, _NOT_ATTACH = _expand(_CRATE_ATTACH), _expand(_CRATE_NOT_ATTACH)
 _CONTROL, _NOT_CONTROL = _expand(_CRATE_CONTROL), _expand(_CRATE_NOT_CONTROL)
 _PREPEND = _expand(_CRATE_PREPEND)
+#: the characters NFKD keeps whole, each a starter in the crate's tables
+_NFKD_KEEP = frozenset(map(chr, _expand(_CRATE_NFKD_WHOLE) | _expand(_CRATE_STARTER)))
+_NOT_MARK, _MARK = _expand(_CRATE_NOT_MARK), _expand(_CRATE_MARK)
+
+
+def nfkd(text: str) -> str:
+    """NFKD as the crate computes it: the characters of ``_NFKD_KEEP``
+    stay whole, and no mark is reordered across them."""
+    if _NFKD_KEEP.isdisjoint(text):
+        return unicodedata.normalize("NFKD", text)
+    out, start = [], 0
+    for i, ch in enumerate(text):
+        if ch in _NFKD_KEEP:
+            out += [unicodedata.normalize("NFKD", text[start:i]), ch]
+            start = i + 1
+    out.append(unicodedata.normalize("NFKD", text[start:]))
+    return "".join(out)
+
+
+def is_combining_mark(ch: str) -> bool:
+    """A character the crate's ``StripAccents`` drops."""
+    cp = ord(ch)
+    return cp in _MARK or (cp not in _NOT_MARK
+                           and unicodedata.category(ch) in ("Mn", "Mc", "Me"))
+
+
+def strip_accents(text: str) -> str:
+    if text.isascii():
+        return text
+    return "".join([ch for ch in text if not is_combining_mark(ch)])
 
 # grapheme cluster classes
 OTHER, CR, LF, CONTROL, ATTACH, PREPEND, L, V, T, LV, LVT, RI = range(12)
@@ -333,6 +431,10 @@ class Normalizer:
             self.steps.append(lambda s, p=spec["prepend"]: p + s if s else s)
         elif kind == "NFKC":
             self.steps.append(lambda s: unicodedata.normalize("NFKC", s))
+        elif kind == "NFKD":
+            self.steps.append(nfkd)
+        elif kind == "StripAccents":
+            self.steps.append(strip_accents)
         elif kind == "Strip":
             left, right = spec.get("strip_left", True), spec.get("strip_right", True)
 
@@ -353,8 +455,8 @@ class Normalizer:
                 self.steps.append(Precompiled(base64.b64decode(charsmap)))
         else:
             raise ValueError(f"the normalizer {kind!r} is not supported (supported: "
-                             "Sequence, Replace, Prepend, NFKC, Strip, Lowercase, "
-                             "Precompiled)")
+                             "Sequence, Replace, Prepend, NFKC, NFKD, StripAccents, "
+                             "Strip, Lowercase, Precompiled)")
 
     def __call__(self, text: str) -> str:
         for step in self.steps:
@@ -387,15 +489,30 @@ def metaspace(text: str, rep: str, prepend_scheme: str, split: bool,
     return words
 
 
+#: each class's special tokens, its template and whether it returns
+#: token types
+UNIGRAM_CLASSES = {
+    "xlm-roberta": (None, roberta_template, 2, False),
+    "albert": (ALBERT_SPECIALS, bert_template, 1, True),
+    "big_bird": (BIG_BIRD_SPECIALS, bert_template, 1, False),
+}
+
+
 class UnigramTokenizer(TemplateTokenizer):
-    """``XLMRobertaTokenizerFast`` on its own: ``__call__`` returns numpy
-    ``input_ids`` and ``attention_mask`` [B, L] int64."""
+    """``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast`` or
+    ``BigBirdTokenizerFast`` on its own: ``__call__`` returns numpy
+    ``input_ids`` and ``attention_mask`` (ALBERT's also
+    ``token_type_ids``) [B, L] int64."""
 
     def __init__(self, pieces: Sequence[Tuple[str, float]], *, unk_id: int, added,
                  cls_id: int, sep_id: int, pad_id: int,
                  normalizer: Optional[dict] = None, replacement: str = "▁",
-                 prepend_scheme: str = "always", split: bool = True):
-        super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id)
+                 prepend_scheme: str = "always", split: bool = True,
+                 pair_seps: int = 2, type_ids: bool = False):
+        super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id,
+                         pair_seps=pair_seps)
+        if type_ids:
+            self.model_input_names = ("input_ids", "token_type_ids", "attention_mask")
         if not 0 <= unk_id < len(pieces):
             raise ValueError(f"unk_id {unk_id} is not a piece of the vocabulary")
         if prepend_scheme not in ("always", "first", "never"):
@@ -414,15 +531,17 @@ class UnigramTokenizer(TemplateTokenizer):
         self._words: Dict[str, Tuple[int, ...]] = {}
 
     @classmethod
-    def from_pretrained(cls, path) -> "UnigramTokenizer":
+    def from_pretrained(cls, path, family: str = "xlm-roberta") -> "UnigramTokenizer":
         path = checkpoint_dir(path)
         if not (path / "tokenizer.json").exists():
-            if (path / "sentencepiece.bpe.model").exists():
-                raise ValueError(
-                    f"{path} holds sentencepiece.bpe.model and no tokenizer.json: "
-                    "the port reads XLM-RoBERTa's tokenizer.json (transformers "
-                    "converts the .model file only where sentencepiece is installed)")
+            for spm in ("sentencepiece.bpe.model", "spiece.model"):
+                if (path / spm).exists():
+                    raise ValueError(
+                        f"{path} holds {spm} and no tokenizer.json: the port reads "
+                        "the tokenizer.json (transformers converts the .model file "
+                        "only where sentencepiece is installed)")
             raise FileNotFoundError(f"{path} has no tokenizer.json")
+        specials, template, pair_seps, type_ids = UNIGRAM_CLASSES[family]
         cfg = read_tokenizer_config(path)
         tj = read_json(path / "tokenizer.json")
         model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
@@ -434,8 +553,9 @@ class UnigramTokenizer(TemplateTokenizer):
                              "not supported")
         pieces = [(p, s) for p, s in model["vocab"]]
         vocab = {p: i for i, (p, _) in enumerate(pieces)}
-        added = added_tokens(tj.get("added_tokens", []), cfg, vocab)
-        cls_id, sep_id = roberta_template(tj.get("post_processor") or {})
+        added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials,
+                             lstrip_mask=True)
+        cls_id, sep_id = template(tj.get("post_processor") or {})
         if pre.get("add_prefix_space") is False and "prepend_scheme" not in pre:
             # the older form; the crate reads only add_prefix_space true
             raise ValueError(f"{path}/tokenizer.json: Metaspace add_prefix_space "
@@ -444,11 +564,12 @@ class UnigramTokenizer(TemplateTokenizer):
             raise ValueError(f"{path}/tokenizer.json: a Unigram model without "
                              "unk_id is not supported")
         return cls(pieces, unk_id=int(model["unk_id"]), added=added, cls_id=cls_id,
-                   sep_id=sep_id, pad_id=special_id(cfg, "pad_token", added),
+                   sep_id=sep_id, pad_id=special_id(cfg, "pad_token", added, specials),
                    normalizer=tj.get("normalizer"),
                    replacement=pre.get("replacement", "▁"),
                    prepend_scheme=pre.get("prepend_scheme", "always"),
-                   split=bool(pre.get("split", True)))
+                   split=bool(pre.get("split", True)), pair_seps=pair_seps,
+                   type_ids=type_ids)
 
     def normalize(self, text: str) -> str:
         return self.normalizer(text)
@@ -510,5 +631,6 @@ class UnigramTokenizer(TemplateTokenizer):
         return out
 
 
-__all__ = ["Normalizer", "Precompiled", "UnigramTokenizer", "build_precompiled",
-           "grapheme_class", "graphemes", "metaspace"]
+__all__ = ["UNIGRAM_CLASSES", "Normalizer", "Precompiled", "UnigramTokenizer",
+           "build_precompiled", "grapheme_class", "graphemes", "is_combining_mark",
+           "metaspace", "nfkd", "strip_accents"]

@@ -207,7 +207,21 @@ Phases, each printing its elapsed seconds:
    client, as (c), K1 at D = 4096 (two slices a query batch) and K3
    launched and held against their plain versions; (iv) gemma-2b's width
    (HF_GEMMA: MQA, head_dim 256, 256,000 pieces) at HF_DECODER_WRITTEN
-   layers, card against CPU; (v) the peak memory.
+   layers, card against CPU; (v) the peak memory; (h) the second group
+   of encoder families (phase_hf_more) at published widths
+   (bigbird-roberta-base: block_sparse, block 64, 3 random blocks, 50,358
+   Unigram pieces; albert-base-v2: 12 layers in one shared group, a
+   30,000-piece Unigram tokenizer.json with NFKD / StripAccents;
+   roformer_chinese_base; efficient_mlm_m0.40's RoBERTa-PreLayerNorm,
+   1024 wide): (i) each at its written layers on the card against the
+   CPU (f32 within HF_TOL; BigBird at 512 tokens, eight blocks); (ii) the
+   12-layer BigBird built on the card, f32 and bf16, forward and
+   encode_device at 32 x 1024 and 8 x 4096 tokens, its share of the bf16
+   peak, one bf16 forward profiled by kernel group; (iii) that bf16
+   embedder at 1024 tokens behind a bf16-tier manager over 5,000 chunks,
+   served with RAG_RERANKER=hf: on the albert-base-v2-width reranker, 32
+   /retrieve requests from 1 client, K1 and K3 launched and held against
+   their plain versions; (iv) the peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -828,16 +842,23 @@ def device_events(prof):
 
 
 def profile_batch(mgr, reranker, queries):
-    """One batch under torch.profiler: wall time, device busy time (the sum
-    of the kernels' device time; one stream, so they do not overlap), the
-    idle share, device time by kernel group and the top kernels."""
+    """One batch under torch.profiler (profile_call)."""
+    return profile_call(lambda: mgr.fused_retrieve_batch_sync(
+        queries, reranker=reranker, **SERVE))
+
+
+def profile_call(fn, kernel_groups=KERNEL_GROUPS):
+    """One call of ``fn`` under torch.profiler: wall time, device busy time
+    (the sum of the kernels' device time; one stream, so they do not
+    overlap), the idle share, device time by kernel group and the top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        mgr.fused_retrieve_batch_sync(queries, reranker=reranker, **SERVE)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = {}
@@ -845,11 +866,11 @@ def profile_batch(mgr, reranker, queries):
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     if not kernels:
         raise AssertionError("the profiler recorded no device kernels")
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     for name, ms in kernels.items():
         low = name.lower()
-        key = next((g for g, pats in KERNEL_GROUPS if any(p in low for p in pats)),
+        key = next((g for g, pats in kernel_groups if any(p in low for p in pats)),
                    "other")
         groups[key] += ms
     device_ms = sum(kernels.values())
@@ -4611,13 +4632,14 @@ HF_CLIENTS = (1, 8)
 HF_TOL = 1e-4                  # card vs CPU, f32, max |err|
 
 
-def hf_vocab():
-    """A vocab.txt of HF_GEOMETRY's size laid out as BERT-uncased's:
+def hf_vocab(size=None):
+    """A vocab.txt of ``size`` entries (HF_GEOMETRY's) laid out as BERT-uncased's:
     [PAD], [unused0-98], [UNK], [CLS], [SEP], [MASK], more [unused], the
     printable ASCII characters and their ## pieces, then phase 4's corpus
     words (synthetic_corpus's vocabulary) by frequency."""
     import numpy as np
 
+    size = size or HF_GEOMETRY["vocab_size"]
     words, _ = zipf_vocab(np.random.default_rng(11))
     out = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
@@ -4626,13 +4648,12 @@ def hf_vocab():
     out += chars + ["##" + c for c in chars]
     seen = set(out)
     for w in words.tolist():
-        if len(out) == HF_GEOMETRY["vocab_size"]:
+        if len(out) == size:
             break
         if w not in seen:
             seen.add(w)
             out.append(w)
-    return out + [f"[unused{i}]" for i in range(994, 994 + HF_GEOMETRY["vocab_size"]
-                                                 - len(out))]
+    return out + [f"[unused{i}]" for i in range(994, 994 + size - len(out))]
 
 
 def write_safetensors(path, state, bf16=False):
@@ -4668,8 +4689,10 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
     with one label, else BertModel (with its pooler, as all-MiniLM-L6-v2
     ships).  Another family: at its HF_FAMILIES geometry, a sequence
     classifier with one label or a trunk as HF_FAMILIES says, with
-    RoBERTa's vocab.json + merges.txt, XLM-R's Unigram tokenizer.json, or
-    ELECTRA's / DistilBERT's vocab.txt (phase 13's WordPiece vocabulary)."""
+    RoBERTa's (and RoBERTa-PreLayerNorm's) vocab.json + merges.txt, XLM-R's,
+    ALBERT's or BigBird's Unigram tokenizer.json, or ELECTRA's /
+    DistilBERT's / RoFormer's vocab.txt (phase 13's WordPiece vocabulary);
+    a family of (h) at its ``written`` layers."""
     import torch
 
     from advanced_rag_tpu_torch.models.hf_bert import BertModel
@@ -4687,17 +4710,23 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
                    architectures=["BertForSequenceClassification" if head else "BertModel"],
                    **HF_GEOMETRY)
     else:
-        cfg = dict(HF_FAMILIES[family]["config"])
-        if family == "roberta":
+        spec = HF_FAMILIES[family]
+        cfg = dict(spec["config"])
+        if "written" in spec:
+            cfg["num_hidden_layers"] = spec["written"]
+        if family in ("roberta", "roberta-prelayernorm"):
             roberta_tokenizer_files(path, cfg["vocab_size"])
         elif family == "xlm-roberta":
             xlmr_tokenizer_files(path, cfg["vocab_size"])
+        elif family in ("albert", "big_bird"):
+            spm_tokenizer_files(path, cfg["vocab_size"], family)
         else:
-            (path / "vocab.txt").write_text("\n".join(hf_vocab()) + "\n")
+            (path / "vocab.txt").write_text("\n".join(hf_vocab(cfg["vocab_size"])) + "\n")
             (path / "tokenizer_config.json").write_text(json.dumps(
                 {"do_lower_case": True,
                  "tokenizer_class": {"electra": "ElectraTokenizer",
-                                     "distilbert": "DistilBertTokenizer"}[family]}))
+                                     "distilbert": "DistilBertTokenizer",
+                                     "roformer": "BertTokenizer"}[family]}))
     if head:
         cfg["id2label"] = {"0": "LABEL_0"}
     (path / "config.json").write_text(json.dumps(cfg, indent=2))
@@ -4981,7 +5010,44 @@ HF_FAMILIES = {
                     vocab_size=30522, dim=768, hidden_dim=3072, n_layers=6, n_heads=12,
                     max_position_embeddings=512, activation="gelu",
                     sinusoidal_pos_embds=False, pad_token_id=0)),
+    # (h): written at ``written`` layers (ALBERT's one shared group is all
+    # of its weights), on the card against the CPU at ``max_len``
+    "big_bird": dict(
+        source="google/bigbird-roberta-base", head=False, written=2, max_len=512,
+        config=dict(model_type="big_bird", architectures=["BigBirdModel"],
+                    vocab_size=50358, hidden_size=768, num_hidden_layers=12,
+                    num_attention_heads=12, intermediate_size=3072, hidden_act="gelu_new",
+                    max_position_embeddings=4096, type_vocab_size=2, layer_norm_eps=1e-12,
+                    pad_token_id=0, bos_token_id=1, eos_token_id=2, sep_token_id=66,
+                    attention_type="block_sparse", block_size=64, num_random_blocks=3,
+                    use_bias=True, rescale_embeddings=False)),
+    "albert": dict(
+        source="albert-base-v2", head=True, written=12, max_len=256,
+        config=dict(model_type="albert", architectures=["AlbertForSequenceClassification"],
+                    vocab_size=30000, embedding_size=128, hidden_size=768,
+                    num_hidden_layers=12, num_hidden_groups=1, inner_group_num=1,
+                    num_attention_heads=12, intermediate_size=3072, hidden_act="gelu_new",
+                    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+                    pad_token_id=0, bos_token_id=2, eos_token_id=3,
+                    position_embedding_type="absolute")),
+    "roformer": dict(
+        source="junnyu/roformer_chinese_base", head=True, written=2, max_len=256,
+        config=dict(model_type="roformer", architectures=["RoFormerForSequenceClassification"],
+                    vocab_size=50000, embedding_size=768, hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+                    hidden_act="gelu", max_position_embeddings=1536, type_vocab_size=2,
+                    layer_norm_eps=1e-12, pad_token_id=0, rotary_value=False)),
+    "roberta-prelayernorm": dict(
+        source="andreasmadsen/efficient_mlm_m0.40", head=False, written=2, max_len=256,
+        config=dict(model_type="roberta-prelayernorm",
+                    architectures=["RobertaPreLayerNormModel"], vocab_size=50265,
+                    hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                    intermediate_size=4096, hidden_act="gelu", max_position_embeddings=514,
+                    type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
+                    position_embedding_type="absolute")),
 }
+#: (e)'s families; (h) runs the others
+E_FAMILIES = [f for f, spec in HF_FAMILIES.items() if "written" not in spec]
 HF_FAMILY_TEXTS = 16                 # texts or pairs, card vs CPU
 #: tokens a row of the throughput batches (256 too until phase 13 (g))
 HF_FAMILY_LENGTHS = (128,)
@@ -5086,6 +5152,83 @@ def xlmr_tokenizer_files(path, size):
     (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
     (path / "tokenizer_config.json").write_text(json.dumps(
         {"tokenizer_class": "XLMRobertaTokenizer"}))
+
+
+def spm_tokenizer_files(path, size, family):
+    """ALBERT's or BigBird's tokenizer.json at ``size`` pieces, as their
+    converters lay it out: the class's specials first ([CLS], [SEP], [MASK]
+    among them), "▁", the letters and phase 4's corpus words scored as in
+    xlmr_tokenizer_files, PUA filler; ALBERT's normalizer (Replace "``" and
+    "''", NFKD, StripAccents, Lowercase, a Precompiled charsmap of the
+    full-width forms, " {2,}" to one space) or BigBird's (the charsmap,
+    Strip right, " {2,}" to "▁"), Metaspace, the template [CLS] A [SEP] /
+    [CLS] A [SEP] B [SEP] (B of type 1), and the class's
+    tokenizer_config.json."""
+    import base64
+    import math
+
+    import numpy as np
+
+    from advanced_rag_tpu_torch.models.hf_unigram import build_precompiled
+
+    words, p = zipf_vocab(np.random.default_rng(11))
+    letters = {}
+    for w, pw in zip(words.tolist(), p.tolist()):
+        for ch in w:
+            letters[ch] = letters.get(ch, 0.0) + pw * len(w)
+    total = sum(letters.values())
+    specials = (["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"] if family == "albert"
+                else ["<pad>", "</s>", "<s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"])
+    ids = {t: i for i, t in enumerate(specials)}
+    pieces = [[t, 0.0] for t in specials] + [["▁", -4.0]]
+    pieces += [[ch, math.log(n / total) - 8.0] for ch, n in sorted(letters.items())]
+    seen = set()
+    for w, pw in zip(words.tolist(), p.tolist()):
+        if w not in seen and len(pieces) < size:
+            seen.add(w)
+            pieces.append([f"▁{w}", math.log(pw)])
+    pieces += [[f"\U000F0000{i}", -40.0] for i in range(size - len(pieces))]
+    rules = {chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}
+    rules.update({"　": " ", "…": "..."})
+    charsmap = {"type": "Precompiled",
+                "precompiled_charsmap": base64.b64encode(build_precompiled(rules)).decode()}
+    if family == "albert":
+        steps = [{"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+                 {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+                 {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"},
+                 charsmap, {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]
+    else:
+        steps = [charsmap, {"type": "Strip", "strip_left": False, "strip_right": True},
+                 {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]
+
+    def special(tok, type_id):
+        return {"SpecialToken": {"id": tok, "type_id": type_id}}
+
+    def seq(name, type_id):
+        return {"Sequence": {"id": name, "type_id": type_id}}
+
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": t == "[MASK]", "rstrip": False, "normalized": False,
+                          "special": True} for t, i in ids.items()],
+        "normalizer": {"type": "Sequence", "normalizers": steps},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [special("[CLS]", 0), seq("A", 0), special("[SEP]", 0)],
+            "pair": [special("[CLS]", 0), seq("A", 0), special("[SEP]", 0), seq("B", 1),
+                     special("[SEP]", 1)],
+            "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")}},
+        "decoder": None,
+        "model": {"type": "Unigram", "unk_id": ids["<unk>"], "vocab": pieces,
+                  "byte_fallback": False},
+    }
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "AlbertTokenizer" if family == "albert" else "BigBirdTokenizer"}))
 
 
 def hf_family(path, family, texts, queries, dev):
@@ -5416,6 +5559,224 @@ def phase_hf_decoders(root, texts, queries, dev):
     return rec, launches
 
 
+# -- phase 13 (h): the second group of encoder families ----------------------
+
+HF_MORE = ("big_bird", "albert", "roformer", "roberta-prelayernorm")
+#: (ii): the BigBird embedder's timed batches, rows by tokens a row
+HF_BIG_BIRD_ROWS = {1024: 32, 4096: 8}
+HF_BIG_BIRD_MAX_LEN = 1024    # (iii): the embedder's max_len in the manager
+HF_MORE_CHUNKS = HF_FAMILY_CHUNKS
+HF_MORE_REQUESTS = HF_FAMILY_REQUESTS
+#: the card's published bf16 dense peak (H100 SXM, NVIDIA's data sheet)
+BF16_PEAK_FLOPS = 989e12
+#: (ii)'s profiled forward: device time by kernel group
+ENCODER_KERNEL_GROUPS = (
+    ("matmul", ("gemm", "cutlass", "xmma", "gemv", "sm90_", "nvjet")),
+    ("softmax", ("softmax",)),
+    ("cat/gather/copy", ("cat", "index", "gather", "copy")),
+    ("reduce", ("reduce",)),
+)
+
+
+def encoder_weights(module, gen):
+    """Fill an encoder's parameters from ``gen`` as write_hf_checkpoint
+    draws them: N(0, 0.02), LayerNorm scales 1 + N(0, 0.05); drawn in f32
+    on the generator's device."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            n = torch.randn(p.shape, generator=gen, device=gen.device)
+            scale = name.endswith(("LayerNorm.weight", "layer_norm.weight"))
+            p.copy_(((1.0 + 0.05 * n) if scale else 0.02 * n).to(p.device))
+    return module
+
+
+def full_depth_encoder(config, dtype, dev, seed, layers):
+    """The trunk of ``config`` at ``layers`` layers built on the card, its
+    weights drawn there from a seeded generator."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    with torch.device("meta"):
+        module = build_trunk(dataclasses.replace(config, num_hidden_layers=layers), dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return encoder_weights(module.to_empty(device=dev), gen).eval()
+
+
+def big_bird_flops(config, rows, seq):
+    """The multiply-adds (x2) of one block-sparse BigBird forward: the
+    dense layers at every token, and each query's products with the keys
+    Flax's five parts give it (all keys for blocks 0 and n-1; 4 + r blocks
+    for 1 and n-2; 5 + r blocks for the middle ones), Q.K and P.V."""
+    h, f, layers = config.hidden_size, config.intermediate_size, config.num_hidden_layers
+    b, r = config.block_size, config.num_random_blocks
+    nb = seq // b
+    keys = b * (2 * seq + 2 * (4 + r) * b + (nb - 4) * (5 + r) * b)
+    dense = 2 * seq * (4 * h * h + 2 * h * f)
+    attention = 2 * 2 * keys * h
+    return rows * layers * (dense + attention)
+
+
+def hf_more_parity(path, family, texts, queries, dev):
+    """(i), one family: the model on the card against the same module on
+    the CPU at its ``max_len`` over HF_FAMILY_TEXTS texts or pairs, f32
+    within HF_TOL, the bf16 distance recorded.  BigBird's texts are half
+    five chunks long (512 tokens filled: the window and random blocks see
+    tokens) and half one chunk (the rest padding)."""
+    import numpy as np
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    spec = HF_FAMILIES[family]
+    head, max_len = spec["head"], spec["max_len"]
+    cls = HFCrossEncoder if head else HFEmbedder
+    n = HF_FAMILY_TEXTS
+    docs = ([" ".join(texts[i:i + 5]) for i in range(1, 5 * (n // 2), 5)]
+            + texts[1:1 + n - n // 2])
+
+    def run(model):
+        return model.score_pairs(queries[:n], docs) if head else model.encode(docs)
+
+    rec = {"source": spec["source"], "kind": "rerank" if head else "encode",
+           "layers": spec["written"], "max_len": max_len}
+    t = time.perf_counter()
+    cpu = cls(path, max_len=max_len, device="cpu")
+    want = run(cpu)
+    rec["cpu_s"] = time.perf_counter() - t
+    rec["tokens"] = int(cpu._tokenize(queries[:n], docs, n)[1].sum() if head
+                        else cpu._tokenize(docs, n)[1].sum())
+    del cpu
+    rec["scale"] = float(np.abs(want).max())
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        got = run(cls(path, max_len=max_len, dtype=dtype, device=dev))
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"hf {family} {name}: shape {got.shape} or non-finite values")
+        rec[f"{name}_max_abs_err"] = float(np.abs(got - want).max())
+    if rec["float32_max_abs_err"] > HF_TOL:
+        raise AssertionError(f"hf {family}: the card's f32 differs from the CPU's by "
+                             f"{rec['float32_max_abs_err']} > {HF_TOL}")
+    log(f"hf[{family}] ({spec['source']}'s width, {spec['written']} layers, max_len "
+        f"{max_len}): card vs CPU on {n} {'pairs' if head else 'texts'} ({rec['tokens']} "
+        f"tokens) f32 {rec['float32_max_abs_err']:.3g}, bf16 "
+        f"{rec['bfloat16_max_abs_err']:.3g} (scale {rec['scale']:.3g})")
+    return rec
+
+
+def big_bird_throughput(emb, texts, dev):
+    """(ii): the full-depth embedder at each HF_BIG_BIRD_ROWS length, every
+    row filled: the forward alone in CUDA events and the whole
+    encode_device call (tokenization, forward, pooling) on the host clock,
+    after warm-up; the forward's TFLOP/s and share of the bf16 peak; in
+    bf16 one forward under torch.profiler, its device time by
+    ENCODER_KERNEL_GROUPS."""
+    import torch
+
+    cfg = emb.model.config
+    bf16 = emb.model.dtype == torch.bfloat16
+    out = {}
+    for seq, rows in HF_BIG_BIRD_ROWS.items():
+        emb.max_len = seq
+        k = seq // 64                        # chunks that fill ``seq`` tokens
+        docs = [" ".join(texts[i:i + k]) for i in range(1, k * rows, k)]
+        ids, mask = (torch.from_numpy(a).to(dev) for a in emb._tokenize(docs, rows))
+        if not bool(mask.all()):
+            raise AssertionError(f"hf big_bird rows are not {seq} tokens")
+        types = torch.zeros_like(ids)
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: emb.model(ids, mask, types), reps=10 if bf16 else 3,
+                          warmup=2)
+        emb.encode_device(docs)
+        sync(dev)
+        t = time.perf_counter()
+        for _ in range(3):
+            emb.encode_device(docs)
+        sync(dev)
+        whole = (time.perf_counter() - t) / 3 * 1e3
+        flops = big_bird_flops(cfg, rows, seq)
+        out[seq] = dict(rows=rows, forward_ms=fwd, encode_ms=whole,
+                        rows_per_s=rows / whole * 1e3, tflop=flops / 1e12,
+                        tflops_per_s=flops / fwd / 1e9,
+                        bf16_peak_share=flops / fwd / 1e-3 / BF16_PEAK_FLOPS)
+        if bf16 and dev == "cuda":
+            with torch.inference_mode():
+                prof = profile_call(lambda: emb.model(ids, mask, types),
+                                    ENCODER_KERNEL_GROUPS)
+            out[seq]["profile"] = prof
+            log(f"hf[big_bird][bfloat16] {rows} x {seq} profiled: wall {prof['wall_ms']:.2f} "
+                f"ms, device {prof['device_ms']:.2f} ms ({prof['n_kernels']} kernels), "
+                f"by group {prof['groups_ms']}")
+        log(f"hf[big_bird][{'bfloat16' if bf16 else 'float32'}] {cfg.num_hidden_layers} "
+            f"layers: {rows} x {seq} tokens forward {fwd:.2f} ms "
+            f"({out[seq]['tflops_per_s']:.1f} TFLOP/s, {out[seq]['bf16_peak_share']:.3f} of "
+            f"the bf16 peak); encode_device {whole:.2f} ms ({out[seq]['rows_per_s']:.1f} rows/s)")
+    emb.max_len = HF_BIG_BIRD_MAX_LEN
+    return out
+
+
+def phase_hf_more(root, texts, queries, dev):
+    """(h): the second group of encoder families at published widths
+    (HF_MORE).  (i) each written at its ``written`` layers (bigbird-roberta-
+    base: block_sparse, block 64, 3 random blocks; albert-base-v2: all 12
+    layers, one shared group; roformer_chinese_base; efficient_mlm_m0.40)
+    with its tokenizer made here, on the card against the CPU
+    (hf_more_parity); (ii) the 12-layer BigBird embedder built on the card,
+    bf16 and f32, timed at HF_BIG_BIRD_ROWS (big_bird_throughput); (iii)
+    that bf16 embedder at max_len HF_BIG_BIRD_MAX_LEN behind a bf16-tier
+    manager ingesting HF_MORE_CHUNKS chunks, and the app with
+    RAG_RERANKER=hf: on the albert-base-v2-width reranker (one label,
+    max_len 256) answering HF_MORE_REQUESTS /retrieve requests from 1
+    client, every answer a 200 with finite reranked scores, K1 (bf16, D =
+    768) and K3 launched and held against their plain versions; (iv) the
+    peak device memory."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    t_phase = time.perf_counter()
+    base = memory_mark() if dev == "cuda" else 0
+    rec = {}
+    t = time.perf_counter()
+    for i, family in enumerate(HF_MORE):
+        write_hf_checkpoint(root / family, head=HF_FAMILIES[family]["head"], seed=71 + 2 * i,
+                            family=family)
+    rec["write_s"] = time.perf_counter() - t
+    log(f"hf: {', '.join(HF_MORE)} checkpoints written in {rec['write_s']:.2f}s (" + ", ".join(
+        f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_MORE)
+        + " MB)")
+    rec["parity"] = {f: hf_more_parity(root / f, f, texts, queries, dev) for f in HF_MORE}
+    layers = HF_FAMILIES["big_bird"]["config"]["num_hidden_layers"]
+    runs = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        emb = HFEmbedder(root / "big_bird", max_len=HF_BIG_BIRD_MAX_LEN, dtype=dtype,
+                         device=dev)
+        emb.model = full_depth_encoder(emb.model.config, dtype, dev, seed=79, layers=layers)
+        runs[name] = big_bird_throughput(emb, texts, dev)
+        if name == "float32":
+            del emb
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    rec["big_bird_throughput"] = runs
+    rec["service"], launches = hf_service(
+        root, texts, queries, dev, ce_dir=root / "albert", chunks=HF_MORE_CHUNKS,
+        clients=(1,), requests=HF_MORE_REQUESTS, warm=False, db="service_hf_more.db",
+        embedder=emb)
+    rec["service"].update(embedder_layers=layers, embedder_max_len=HF_BIG_BIRD_MAX_LEN,
+                          reranker=HF_FAMILIES["albert"]["source"])
+    del emb
+    rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"hf: (h) took {rec['seconds']:.2f}s; peak device memory {rec['peak_gb']} GB")
+    return rec, launches
+
+
 def phase_hf(texts, dev="cuda"):
     """Phase 13: the HF checkpoint models on the card.  At MiniLM-L6's
     width: (a) an embedder (BertModel) and a reranker
@@ -5427,8 +5788,9 @@ def phase_hf(texts, dev="cuda"):
     CPU and timed; (f) a RoBERTa embedder's bf16-tier manager ingests
     HF_FAMILY_CHUNKS chunks and the app with RAG_RERANKER=hf: on the
     ELECTRA reranker answers HF_FAMILY_REQUESTS /retrieve requests from
-    one client; (g) the decoder embedders (phase_hf_decoders).  Returns
-    the record and the launches of (c), (f) and (g)."""
+    one client; (g) the decoder embedders (phase_hf_decoders); (h) the
+    second group of encoder families (phase_hf_more).  Returns the record
+    and the launches of (c), (f), (g) and (h)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -5451,16 +5813,16 @@ def phase_hf(texts, dev="cuda"):
         rec["throughput"] = hf_throughput(root, texts, queries, dev)
         rec["service"], launches = hf_service(root, texts, queries[HF_PARITY_TEXTS:], dev)
         t = time.perf_counter()
-        for i, (family, spec) in enumerate(HF_FAMILIES.items()):
-            write_hf_checkpoint(root / family, head=spec["head"], seed=51 + 2 * i,
-                                family=family)
+        for i, family in enumerate(E_FAMILIES):
+            write_hf_checkpoint(root / family, head=HF_FAMILIES[family]["head"],
+                                seed=51 + 2 * i, family=family)
         fam = {"write_s": time.perf_counter() - t}
-        log(f"hf: {', '.join(HF_FAMILIES)} checkpoints written in {fam['write_s']:.2f}s (" + ", ".join(
-            f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_FAMILIES)
+        log(f"hf: {', '.join(E_FAMILIES)} checkpoints written in {fam['write_s']:.2f}s (" + ", ".join(
+            f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in E_FAMILIES)
             + " MB)")
         fam_queries = snippet_queries(rng, texts[:HF_FAMILY_CHUNKS], HF_BATCH + 8
                                       + HF_FAMILY_REQUESTS + 32)
-        for family in HF_FAMILIES:
+        for family in E_FAMILIES:
             fam[family] = hf_family(root / family, family, texts, fam_queries, dev)
         fam["service"], fam_launches = hf_service(
             root, texts, fam_queries[HF_BATCH:], dev, emb_dir=root / "roberta",
@@ -5472,6 +5834,9 @@ def phase_hf(texts, dev="cuda"):
                                       + HF_DECODER_REQUESTS + 32)
         rec["decoders"], dec_launches = phase_hf_decoders(root, texts, dec_queries, dev)
         launches = {k: v + dec_launches[k] for k, v in launches.items()}
+        more_queries = snippet_queries(rng, texts[:HF_MORE_CHUNKS], 8 + HF_MORE_REQUESTS + 32)
+        rec["encoders_more"], more_launches = phase_hf_more(root, texts, more_queries, dev)
+        launches = {k: v + more_launches[k] for k, v in launches.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None

@@ -9,8 +9,9 @@ copies them into the matching PyTorch class and writes its state dict as
 ``model.safetensors`` in the same directory, leaving every other file as it
 was.  A config whose ``architectures`` name a sequence-classification head
 loads as ``AutoModelForSequenceClassification``, any other as ``AutoModel``,
-so every family the port reads converts (``bert``, ``roberta``,
-``xlm-roberta``, ``electra``, ``distilbert``).
+so every encoder family the port reads converts (``bert``, ``roberta``,
+``xlm-roberta``, ``electra``, ``distilbert``, ``roberta-prelayernorm``,
+``albert``, ``big_bird``, ``roformer``).
 
     python scripts/torch_export_hf.py <checkpoint dir> [<dir> ...]
 """

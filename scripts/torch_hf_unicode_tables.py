@@ -14,7 +14,9 @@ that the modules carry:
 - ``hf_tokenizer.py``: the BERT normalizer and pre-tokenizer;
 - ``hf_bpe.py``: ``\\p{L}``, ``\\p{N}`` and ``\\s`` of GPT-2's split;
 - ``hf_unigram.py``: the grapheme cluster classes that ``Precompiled``
-  normalizes by, probed through ``Precompiled`` itself.
+  normalizes by, probed through ``Precompiled`` itself; what ALBERT's
+  ``NFKD`` leaves whole or takes as a starter, and the marks its
+  ``StripAccents`` drops.
 
 It needs ``tokenizers`` (installed beside ``transformers``), so it runs on
 a machine with the JAX package's dependencies, never on the card's:
@@ -22,8 +24,9 @@ a machine with the JAX package's dependencies, never on the card's:
     python scripts/torch_hf_unicode_tables.py
 
 ``tests/test_torch_hf_tokenizer.py::test_every_code_point_matches_the_crate``,
-``tests/test_torch_hf_bpe.py`` and ``tests/test_torch_hf_unigram.py`` hold
-the tables against the crate.
+``tests/test_torch_hf_bpe.py``, ``tests/test_torch_hf_unigram.py`` and
+``tests/test_torch_hf_albert_tokenizer.py`` hold the tables against the
+crate.
 """
 
 from __future__ import annotations
@@ -191,6 +194,33 @@ def grapheme_tables() -> Dict[str, object]:
     }
 
 
+def normalizer_tables() -> Dict[str, object]:
+    """The crate's ``NFKD`` and ``StripAccents`` against unicodedata's:
+    the characters NFKD leaves whole (each a starter that unicodedata
+    decomposes), the marks of a nonzero combining class in unicodedata
+    that the crate takes as starters (neither a class-1 mark after one nor
+    a class-240 mark before one moves), and where its combining marks
+    (what StripAccents drops) differ from the M categories."""
+    nfkd, strip = normalizers.NFKD(), normalizers.StripAccents()
+    whole, starter, mark, not_mark = set(), set(), set(), set()
+    for c in CODE_POINTS:
+        ch = chr(c)
+        crate = nfkd.normalize_str(ch)
+        if crate != unicodedata.normalize("NFKD", ch):
+            if crate != ch or unicodedata.combining(ch):
+                raise SystemExit(f"U+{c:04X}: NFKD {crate!r}")
+            whole.add(c)
+        if unicodedata.combining(ch):
+            after, before = "a" + ch + "\u0334", "a\u0345" + ch
+            if nfkd.normalize_str(after) == after and nfkd.normalize_str(before) == before:
+                starter.add(c)
+        dropped = strip.normalize_str(ch) == ""
+        if dropped != (unicodedata.category(ch) in ("Mn", "Mc", "Me")):
+            (mark if dropped else not_mark).add(c)
+    return {"_CRATE_NFKD_WHOLE": ranges(whole), "_CRATE_STARTER": ranges(starter),
+            "_CRATE_NOT_MARK": ranges(not_mark), "_CRATE_MARK": ranges(mark)}
+
+
 def literal(name: str, runs) -> str:
     """``name = (...)`` as hf_tokenizer.py holds it, 79 columns wide."""
     items = ["(" + ", ".join(f"{v:#x}" if i < 2 else str(v)
@@ -210,7 +240,8 @@ def literal(name: str, runs) -> str:
 def main() -> None:
     print(f"# unicodedata {unicodedata.unidata_version}")
     for module, tables in (("hf_tokenizer.py", crate_tables), ("hf_bpe.py", bpe_tables),
-                           ("hf_unigram.py", grapheme_tables)):
+                           ("hf_unigram.py", grapheme_tables),
+                           ("hf_unigram.py", normalizer_tables)):
         print(f"# {module}")
         for name, runs in tables().items():
             print(literal(name, runs))

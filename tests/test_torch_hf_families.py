@@ -39,6 +39,7 @@ from advanced_rag_tpu.index.manager import MultiIndexManager as JManager
 from advanced_rag_tpu.models.hf_cross_encoder import HFCrossEncoder as JCross
 from advanced_rag_tpu.models.hf_embedder import HFEmbedder as JEmbedder
 from advanced_rag_tpu.pipeline import AdvancedRAGPipeline as JPipeline
+from advanced_rag_tpu.utils.cache import EmbeddingCache
 from advanced_rag_tpu_torch.config import PipelineConfig
 from advanced_rag_tpu_torch.index.manager import MultiIndexManager
 from advanced_rag_tpu_torch.models import HFEmbedder
@@ -225,8 +226,12 @@ def pipelines(st_dirs):
     RAG_RERANKER=hf: wires it."""
     jcfg, tcfg = configs()
     emb, ce = st_dirs / "roberta" / "emb", st_dirs / "electra" / "ce"
+    # JAX's HFEmbedder has no cache_tag, so every JAX HF manager of one width
+    # in the process shares the module-level cache's "semantic:" namespace;
+    # a cache of its own keeps another test's embeddings out of this one
     jpipe = JPipeline(jcfg, index_manager=JManager(
-        jcfg, embedder=JEmbedder(str(emb), max_len=64, max_batch=16)))
+        jcfg, embedder=JEmbedder(str(emb), max_len=64, max_batch=16),
+        semantic_cache_=EmbeddingCache()))
     tpipe = AdvancedRAGPipeline(tcfg, index_manager=MultiIndexManager(
         tcfg, embedder=HFEmbedder(emb, max_len=64, max_batch=16, device="cpu"),
         device="cpu"))

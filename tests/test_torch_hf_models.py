@@ -43,6 +43,7 @@ from advanced_rag_tpu.index.manager import MultiIndexManager as JManager
 from advanced_rag_tpu.models.hf_cross_encoder import HFCrossEncoder as JCross
 from advanced_rag_tpu.models.hf_embedder import HFEmbedder as JEmbedder
 from advanced_rag_tpu.pipeline import AdvancedRAGPipeline as JPipeline
+from advanced_rag_tpu.utils.cache import EmbeddingCache
 from advanced_rag_tpu_torch.config import PipelineConfig
 from advanced_rag_tpu_torch.index.manager import MultiIndexManager
 from advanced_rag_tpu_torch.models import HFEmbedder
@@ -205,8 +206,12 @@ def hf_pipelines(ckpt):
     """Both packages' pipelines on one corpus: the HF embedder in the
     manager, the HF cross-encoder as the retriever's reranker."""
     jcfg, tcfg = configs()
+    # JAX's HFEmbedder has no cache_tag, so every JAX HF manager of one width
+    # in the process shares the module-level cache's "semantic:" namespace;
+    # a cache of its own keeps another test's embeddings out of this one
     jpipe = JPipeline(jcfg, index_manager=JManager(
-        jcfg, embedder=JEmbedder(str(ckpt / "emb"), max_len=64, max_batch=16)))
+        jcfg, embedder=JEmbedder(str(ckpt / "emb"), max_len=64, max_batch=16),
+        semantic_cache_=EmbeddingCache()))
     tpipe = AdvancedRAGPipeline(tcfg, index_manager=MultiIndexManager(
         tcfg, embedder=HFEmbedder(ckpt / "emb", max_len=64, max_batch=16,
                                   device="cpu"), device="cpu"))

@@ -981,3 +981,47 @@ def test_sharded_hybrid_at_world_size_1_under_nccl(cuda):
             assert bool((got[0] >= 0).any())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("family", ["big_bird", "albert"])
+def test_hf_encoder_forward_on_the_card_matches_the_cpu(cuda, family):
+    """models/hf_big_bird.py (block_sparse, 16 blocks of 64, an all-padding
+    row and a half-padded one) and models/hf_albert.py (2 groups of 2 inner
+    layers over 4 layers, embedding 128 under hidden 256) at f32: the
+    card's hidden states against the same module's on the CPU within 1e-4
+    absolute (hidden states of scale about 4)."""
+    from advanced_rag_tpu_torch.models.hf_checkpoint import HFConfig
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    if family == "big_bird":
+        config = HFConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=512,
+                          max_position_embeddings=1024, hidden_act="gelu_new",
+                          model_type="big_bird", attention_type="block_sparse",
+                          block_size=64, num_random_blocks=3)
+        seq = 1024
+    else:
+        config = HFConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=4,
+                          num_attention_heads=4, intermediate_size=512,
+                          max_position_embeddings=512, hidden_act="gelu_new",
+                          model_type="albert", embedding_size=128, num_hidden_groups=2,
+                          inner_group_num=2)
+        seq = 256
+    torch.manual_seed(0)
+    model = build_trunk(config, torch.float32)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_((1.0 + 0.05 * torch.randn_like(p)) if name.endswith("LayerNorm.weight")
+                    or name.endswith("layer_norm.weight") else 0.05 * torch.randn_like(p))
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, config.vocab_size, (4, seq), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, seq // 2 + 5:] = 0
+    mask[3] = 0
+    types = torch.zeros_like(ids)
+    with torch.inference_mode():
+        want, _ = model(ids, mask, types)
+        got, _ = model.to(cuda)(ids.to(cuda), mask.to(cuda), types.to(cuda))
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4, float((got - want).abs().max())
