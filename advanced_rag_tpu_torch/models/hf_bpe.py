@@ -1,7 +1,9 @@
 """RoBERTa's byte-level BPE tokenizer read from a local HF checkpoint.
 
-The port's copy of ``RobertaTokenizerFast`` (the ``tokenizers`` crate), so
-the card's machine needs neither ``transformers`` nor ``tokenizers``:
+The port's copy of ``RobertaTokenizerFast`` (the ``tokenizers`` crate;
+``BartTokenizerFast`` is the same class, and ``BlenderbotTokenizerFast``
+differs in its template only), so the card's machine needs neither
+``transformers`` nor ``tokenizers``:
 
 1. added tokens (``<s>``, ``</s>``, ``<unk>``, ``<pad>``, ``<mask>`` and any
    other) are found in the raw text first, leftmost-longest; ``<mask>``
@@ -15,7 +17,10 @@ the card's machine needs neither ``transformers`` nor ``tokenizers``:
 3. BPE: the crate's merge loop, the pair of lowest rank first and, among
    equal ranks, the leftmost (``_merge``);
 4. the template ``<s> A </s>`` / ``<s> A </s></s> B </s>``, truncation
-   (``longest_first`` for pairs) and padding.
+   (``longest_first`` for pairs) and padding.  Blenderbot's is the one its
+   ``tokenizer.json`` names (its converter writes ``A </s>``, a single
+   text alone; a ``RobertaProcessing`` is RoBERTa's), and ``A </s>``
+   where only ``vocab.json`` + ``merges.txt`` are given.
 
 Files: ``tokenizer.json`` (model ``BPE``, pre-tokenizer ``ByteLevel``,
 post-processor ``RobertaProcessing`` or the equal ``TemplateProcessing``),
@@ -37,11 +42,11 @@ from __future__ import annotations
 import heapq
 import re
 import unicodedata
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .hf_checkpoint import checkpoint_dir, read_json
 from .hf_tokenizer import (TemplateTokenizer, added_tokens, read_tokenizer_config,
-                           roberta_template, special_id)
+                           roberta_template, special_id, suffix_template)
 
 # Where Oniguruma's \p{L} / \p{N} / \s in the crate and Python 3.12's
 # unicodedata (Unicode 15.0: categories L*, N*; White_Space) disagree.
@@ -216,9 +221,10 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
     ``input_ids`` and ``attention_mask`` [B, L] int64."""
 
     def __init__(self, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]], *,
-                 added, cls_id: int, sep_id: int, pad_id: int,
-                 add_prefix_space: bool = False):
-        super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id)
+                 added, cls_id: Optional[int], sep_id: Optional[int], pad_id: int,
+                 add_prefix_space: bool = False, suffix: Optional[Sequence[int]] = None):
+        super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id,
+                         suffix=suffix)
         self.vocab = dict(vocab)
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for rank, (a, b) in enumerate(merges):
@@ -230,9 +236,12 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
         self._words: Dict[str, Tuple[int, ...]] = {}
 
     @classmethod
-    def from_pretrained(cls, path) -> "ByteLevelBPETokenizer":
+    def from_pretrained(cls, path, family: str = "roberta") -> "ByteLevelBPETokenizer":
+        """``family`` "roberta" (RoBERTa's and BART's class) or
+        "blenderbot"."""
         path = checkpoint_dir(path)
         cfg = read_tokenizer_config(path)
+        suffix = None
         if (path / "tokenizer.json").exists():
             tj = read_json(path / "tokenizer.json")
             model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
@@ -255,7 +264,10 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
             merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
                       for m in model.get("merges", [])]
             added = added_tokens(tj.get("added_tokens", []), cfg, vocab)
-            cls_id, sep_id = roberta_template(tj.get("post_processor") or {})
+            post = tj.get("post_processor") or {}
+            if family == "blenderbot" and post.get("type") == "TemplateProcessing":
+                suffix = suffix_template(post)
+            cls_id, sep_id = (None, None) if suffix else roberta_template(post)
         else:
             if not (path / "vocab.json").exists() or not (path / "merges.txt").exists():
                 raise FileNotFoundError(
@@ -266,9 +278,12 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
             merges = list(dict.fromkeys(tuple(line.split()) for line in lines))
             added = added_tokens([], cfg, vocab)
             cls_id, sep_id = (special_id(cfg, n, added) for n in ("cls_token", "sep_token"))
+            if family == "blenderbot":
+                # BlenderbotConverter's template
+                suffix = [special_id(cfg, "eos_token", added)]
         return cls(vocab, merges, added=added, cls_id=cls_id, sep_id=sep_id,
                    pad_id=special_id(cfg, "pad_token", added),
-                   add_prefix_space=bool(cfg.get("add_prefix_space", False)))
+                   add_prefix_space=bool(cfg.get("add_prefix_space", False)), suffix=suffix)
 
     def _merge(self, word: str) -> Tuple[int, ...]:
         """The crate's ``merge_word`` + ``merge_all`` on one mapped word."""

@@ -28,6 +28,16 @@ load for a RAG deployment:
   heads (Flax ignores it), ``mlp_bias`` (Flax's MLP has none), and
   ``max_position_embeddings`` under twice the head width (Flax cuts its
   sin/cos table to that many columns);
+- the encoder-decoder families ``bart``, ``mbart``, ``pegasus``,
+  ``marian``, ``blenderbot`` and ``blenderbot-small`` (``ENCDEC``): their
+  ``d_model``, each stack's layers, heads and FFN width,
+  ``activation_function``, ``scale_embedding``, ``pad_token_id`` and
+  ``decoder_start_token_id``.  Where Flax computes another model than the
+  checkpoint's, ``read_config`` raises naming the field: Marian's
+  ``share_encoder_decoder_embeddings: false`` (Flax feeds the decoder the
+  shared table, PyTorch its own ``decoder.embed_tokens``), and a
+  ``decoder_start_token_id`` of null outside mBART (Flax's shift cannot
+  start the decoder row);
 - the weights: ``model.safetensors`` (a hand parser: an 8-byte header
   length, a JSON header, raw little-endian F32/F16/BF16/I64 bytes read
   with ``torch.frombuffer``), else ``pytorch_model.bin``
@@ -41,7 +51,11 @@ load for a RAG deployment:
   removed to fit the module, the decoders' ``rotary_emb.inv_freq`` buffers
   are dropped, and the weights of heads the module does not run (MLM, LM,
   discriminator, a decoder's ``lm_head``) are left out, as
-  ``from_pretrained`` leaves them.
+  ``from_pretrained`` leaves them.  An encoder-decoder's ``shared.weight``
+  feeds both stacks (``encoder.`` / ``decoder.embed_tokens.weight``, its
+  tied copies, are dropped), and Marian's and Pegasus's saved
+  ``embed_positions.weight`` is dropped: Flax computes the sinusoids
+  itself and reads neither.
 """
 
 from __future__ import annotations
@@ -64,8 +78,12 @@ DECODERS = ("llama", "mistral", "gemma")
 #: the encoder families of the second group (hf_roberta_prelayernorm.py,
 #: hf_albert.py, hf_big_bird.py, hf_roformer.py)
 ENCODERS_MORE = ("roberta-prelayernorm", "albert", "big_bird", "roformer")
+#: the encoder-decoder families (hf_bart.py); JAX's cross-encoder serves none
+ENCDEC = ("bart", "mbart", "pegasus", "marian", "blenderbot", "blenderbot-small")
+#: the encoder-decoders whose positions are sinusoids computed at build time
+SINUSOIDAL = ("pegasus", "marian")
 FAMILIES = (("bert", "roberta", "xlm-roberta", "electra", "distilbert") + ENCODERS_MORE
-            + DECODERS)
+            + DECODERS + ENCDEC)
 #: the attention types of Flax BigBird
 BIG_BIRD_ATTENTION = ("original_full", "block_sparse")
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
@@ -79,7 +97,7 @@ _PREFIX = {"bert": "bert.", "roberta": "roberta.", "xlm-roberta": "roberta.",
            "electra": "electra.", "distilbert": "distilbert.",
            "roberta-prelayernorm": "roberta_prelayernorm.", "albert": "albert.",
            "big_bird": "bert.", "roformer": "roformer.",
-           **{f: "model." for f in DECODERS}}
+           **{f: "model." for f in DECODERS + ENCDEC}}
 _TRUNK = {"bert": ("embeddings.", "encoder."),
           "roberta": ("embeddings.", "encoder."),
           "xlm-roberta": ("embeddings.", "encoder."),
@@ -89,7 +107,8 @@ _TRUNK = {"bert": ("embeddings.", "encoder."),
           "albert": ("embeddings.", "encoder."),
           "big_bird": ("embeddings.", "encoder."),
           "roformer": ("embeddings.", "encoder."),
-          **{f: ("embed_tokens.", "layers.", "norm.") for f in DECODERS}}
+          **{f: ("embed_tokens.", "layers.", "norm.") for f in DECODERS},
+          **{f: ("shared.", "encoder.", "decoder.") for f in ENCDEC}}
 #: the families whose sequence classifier reads the pooler (BERT's and
 #: ALBERT's); the others' trunks never run theirs
 _POOLED = ("bert", "albert")
@@ -103,6 +122,13 @@ _HEAD = {"bert": ("classifier.",),
          "albert": ("classifier.",),
          "big_bird": ("classifier.dense.", "classifier.out_proj."),
          "roformer": ("classifier.dense.", "classifier.out_proj.")}
+# BartConfig's defaults (bart-large's geometry), under the other
+# encoder-decoders' own
+_ENCDEC_BASE = dict(vocab_size=50265, d_model=1024, encoder_layers=12, decoder_layers=12,
+                    encoder_attention_heads=16, decoder_attention_heads=16,
+                    encoder_ffn_dim=4096, decoder_ffn_dim=4096,
+                    activation_function="gelu", max_position_embeddings=1024,
+                    scale_embedding=False, pad_token_id=1, decoder_start_token_id=2)
 # transformers' config classes' defaults, where a family's differ from
 # BertConfig's (DistilBERT's names are read in read_config)
 _DEFAULTS = {"roberta": dict(pad_token_id=1), "xlm-roberta": dict(pad_token_id=1),
@@ -125,7 +151,21 @@ _DEFAULTS = {"roberta": dict(pad_token_id=1), "xlm-roberta": dict(pad_token_id=1
              "gemma": dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576,
                            num_hidden_layers=28, num_attention_heads=16,
                            num_key_value_heads=16, head_dim=256,
-                           max_position_embeddings=8192, tie_word_embeddings=True)}
+                           max_position_embeddings=8192, tie_word_embeddings=True),
+             **{f: _ENCDEC_BASE for f in ("bart", "mbart")},
+             "pegasus": dict(_ENCDEC_BASE, pad_token_id=0, decoder_start_token_id=0),
+             "marian": dict(_ENCDEC_BASE, vocab_size=58101, pad_token_id=58100,
+                            decoder_start_token_id=58100),
+             "blenderbot": dict(_ENCDEC_BASE, vocab_size=8008, d_model=2560,
+                                encoder_layers=2, decoder_layers=24,
+                                encoder_attention_heads=32, decoder_attention_heads=32,
+                                encoder_ffn_dim=10240, decoder_ffn_dim=10240,
+                                max_position_embeddings=128, pad_token_id=0,
+                                decoder_start_token_id=1),
+             "blenderbot-small": dict(_ENCDEC_BASE, d_model=512, encoder_layers=8,
+                                      decoder_layers=8, encoder_ffn_dim=2048,
+                                      decoder_ffn_dim=2048, max_position_embeddings=512,
+                                      pad_token_id=0, decoder_start_token_id=1)}
 
 
 @dataclass(frozen=True)
@@ -172,6 +212,17 @@ class HFConfig:
     attention_bias: bool = False
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
+    #: the encoder-decoders: the decoder stack's layers, heads and FFN
+    #: width (the encoder's are ``num_hidden_layers``,
+    #: ``num_attention_heads``, ``intermediate_size``), the token
+    #: embeddings scaled by sqrt(d_model), and the id that starts the
+    #: decoder's row (None for mBART, which starts it with the row's last
+    #: non-pad token)
+    decoder_layers: int = 0
+    decoder_attention_heads: int = 0
+    decoder_ffn_dim: int = 0
+    scale_embedding: bool = False
+    decoder_start_token_id: Optional[int] = None
 
     @property
     def position_offset(self) -> int:
@@ -205,6 +256,8 @@ def read_config(path) -> HFConfig:
     what = f"{path}: model_type {model_type!r}:"
     if model_type in DECODERS:
         return _decoder_config(cfg, model_type, what)
+    if model_type in ENCDEC:
+        return _encdec_config(cfg, model_type, what)
     if model_type == "distilbert":
         cfg = dict(cfg, hidden_size=cfg.get("dim", 768),
                    intermediate_size=cfg.get("hidden_dim", 3072),
@@ -321,6 +374,46 @@ def _decoder_config(cfg: dict, model_type: str, what: str) -> HFConfig:
         tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)))
 
 
+def _encdec_config(cfg: dict, model_type: str, what: str) -> HFConfig:
+    """The config of a BART-like encoder-decoder checkpoint; the fields
+    that Flax's module would compute another model from raise."""
+    cfg = {**_DEFAULTS[model_type], **cfg}
+    act = cfg.get("activation_function", "gelu")
+    if act not in DECODER_ACTIVATIONS:
+        raise ValueError(f"{what} activation_function {act!r} is not supported "
+                         f"(supported: {', '.join(DECODER_ACTIVATIONS)})")
+    if model_type == "marian" and not cfg.get("share_encoder_decoder_embeddings", True):
+        raise ValueError(f"{what} share_encoder_decoder_embeddings false is not "
+                         "supported: the JAX reference's Flax Marian feeds the decoder "
+                         "the shared table, not the checkpoint's decoder.embed_tokens")
+    start = cfg.get("decoder_start_token_id")
+    if start is None and model_type != "mbart":
+        raise ValueError(f"{what} decoder_start_token_id null is not supported: the "
+                         "JAX reference's Flax shift_tokens_right needs it")
+    d = int(cfg["d_model"])
+    for side in ("encoder", "decoder"):
+        heads = int(cfg[f"{side}_attention_heads"])
+        if d % heads:
+            raise ValueError(f"{what} {side}_attention_heads {heads} does not divide "
+                             f"d_model {d}")
+    pad = cfg.get("pad_token_id")
+    if pad is None:
+        raise ValueError(f"{what} pad_token_id null is not supported: the decoder's "
+                         "shift needs it")
+    return HFConfig(
+        vocab_size=int(cfg["vocab_size"]), hidden_size=d,
+        num_hidden_layers=int(cfg["encoder_layers"]),
+        num_attention_heads=int(cfg["encoder_attention_heads"]),
+        intermediate_size=int(cfg["encoder_ffn_dim"]),
+        max_position_embeddings=int(cfg["max_position_embeddings"]), type_vocab_size=0,
+        layer_norm_eps=1e-5, hidden_act=act, model_type=model_type, pad_token_id=int(pad),
+        decoder_layers=int(cfg["decoder_layers"]),
+        decoder_attention_heads=int(cfg["decoder_attention_heads"]),
+        decoder_ffn_dim=int(cfg["decoder_ffn_dim"]),
+        scale_embedding=bool(cfg.get("scale_embedding", False)),
+        decoder_start_token_id=None if model_type == "mbart" else int(start))
+
+
 def read_safetensors(file) -> Dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file, as views of one buffer."""
     size = os.path.getsize(file)
@@ -417,6 +510,12 @@ def family_state(raw: Dict[str, torch.Tensor], config: HFConfig, *,
     if family in _POOLED and pooler:
         trunk_parts += ("pooler.",)
     computed = {"encoder.embed_positions.weight"} if family == "roformer" else set()
+    if family in ENCDEC:
+        # the tied copies of shared.weight, and the sinusoids Flax computes
+        computed |= {"encoder.embed_tokens.weight", "decoder.embed_tokens.weight"}
+        if family in SINUSOIDAL:
+            computed |= {"encoder.embed_positions.weight",
+                         "decoder.embed_positions.weight"}
     if config.sinusoidal_pos_embds:
         computed.add("embeddings.position_embeddings.weight")
     out: Dict[str, torch.Tensor] = {}
@@ -431,6 +530,9 @@ def family_state(raw: Dict[str, torch.Tensor], config: HFConfig, *,
         else:
             continue
         out[key] = t.float() if t.is_floating_point() else t
+    if family in ENCDEC and not head and "shared.weight" not in out:
+        raise ValueError(f"model_type {family!r}: the checkpoint has no shared.weight, "
+                         "the token table both of the JAX reference's Flax stacks read")
     return out
 
 
@@ -443,7 +545,8 @@ def load_checkpoint(path, *, head: bool, pooler: bool = True
                                 pooler=pooler)
 
 
-__all__ = ["ACTIVATIONS", "BIG_BIRD_ATTENTION", "DECODERS", "ENCODERS_MORE", "FAMILIES",
+__all__ = ["ACTIVATIONS", "BIG_BIRD_ATTENTION", "DECODERS", "ENCDEC", "ENCODERS_MORE",
+           "FAMILIES", "SINUSOIDAL",
            "HFConfig", "checkpoint_dir",
            "family_state", "load_checkpoint", "read_config", "read_json",
            "read_safetensors", "read_state_dict"]

@@ -20,7 +20,12 @@ A DistilBERT checkpoint raises ``ValueError`` here: JAX's class passes
 takes none, so the reference raises ``TypeError`` at its first score, and
 the port serves no reranker the reference cannot.  So does a Llama,
 Mistral or Gemma one: ``FlaxAutoModelForSequenceClassification`` has no
-class for those model types.
+class for those model types.  None of the encoder-decoders reranks either:
+for BART and mBART JAX's class passes ``token_type_ids=`` to
+``FlaxBartForSequenceClassification`` / ``FlaxMBartForSequenceClassification``,
+which take none (``TypeError`` at the first score), and Pegasus, Marian,
+Blenderbot and BlenderbotSmall have no Flax sequence classifier
+(``ValueError`` "Unrecognized configuration class" at construction).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from .. import DeviceLike, resolve_device
 from .hf_albert import AlbertForSequenceClassification
 from .hf_bert import BertForSequenceClassification
 from .hf_big_bird import BigBirdForSequenceClassification
-from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint, read_config
+from .hf_checkpoint import DECODERS, ENCDEC, HFConfig, load_checkpoint, read_config
 from .hf_electra import ElectraForSequenceClassification
 from .hf_embedder import _bucket, check_max_len
 from .hf_roberta import RobertaForSequenceClassification
@@ -71,7 +76,12 @@ class HFCrossEncoder:
                 f"{path}: a DistilBERT checkpoint does not serve as a "
                 "cross-encoder: the JAX reference passes token_type_ids, which "
                 "FlaxDistilBertForSequenceClassification does not take")
-        if model_type in DECODERS:
+        if model_type in ("bart", "mbart"):
+            raise ValueError(
+                f"{path}: model_type {model_type!r} does not serve as a "
+                "cross-encoder: the JAX reference passes token_type_ids, which its "
+                "Flax sequence classifier does not take (TypeError)")
+        if model_type in DECODERS + ENCDEC:
             raise ValueError(
                 f"{path}: model_type {model_type!r} does not serve as a "
                 "cross-encoder: the JAX reference's "

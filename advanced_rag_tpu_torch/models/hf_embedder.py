@@ -9,14 +9,18 @@ interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
 nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
 directory (``model_type`` bert, roberta, xlm-roberta, electra,
 distilbert, roberta-prelayernorm, albert, big_bird, roformer, llama,
-mistral or gemma), ``hf_tokenizer.load_tokenizer`` tokenizes as the
-family's fast tokenizer does and ``hf_bert.py`` / ``hf_roberta.py`` /
-``hf_electra.py`` / ``hf_distilbert.py`` / ``hf_roberta_prelayernorm.py``
-/ ``hf_albert.py`` / ``hf_big_bird.py`` / ``hf_roformer.py`` /
-``hf_llama.py`` run the model.  A BigBird checkpoint's ``max_len`` must
-be a multiple of its ``block_size``, and in ``block_sparse`` at least
-four blocks (``hf_big_bird.check_length``): the port raises at
-construction, where JAX's class raises at its first encode.
+mistral, gemma, or the encoder-decoders bart, mbart, pegasus, marian,
+blenderbot and blenderbot-small), ``hf_tokenizer.load_tokenizer``
+tokenizes as the family's tokenizer does and ``hf_bert.py`` /
+``hf_roberta.py`` / ``hf_electra.py`` / ``hf_distilbert.py`` /
+``hf_roberta_prelayernorm.py`` / ``hf_albert.py`` / ``hf_big_bird.py`` /
+``hf_roformer.py`` / ``hf_llama.py`` / ``hf_bart.py`` run the model.  An
+encoder-decoder embeds with its decoder's last state, pooled over the
+encoder's mask, as JAX's class does with what ``FlaxAutoModel`` returns.
+A BigBird checkpoint's ``max_len`` must be a multiple of its
+``block_size``, and in ``block_sparse`` at least four blocks
+(``hf_big_bird.check_length``): the port raises at construction, where
+JAX's class raises at its first encode.
 
 The token types fed to the trunk are what ``FlaxAutoModel`` fills in when
 JAX's class passes none: zeros, except ELECTRA's ones.  A decoder's
@@ -39,8 +43,9 @@ import torch
 from .. import DeviceLike, resolve_device
 from .hf_albert import AlbertModel
 from .hf_bert import BertModel
+from .hf_bart import EncoderDecoderModel
 from .hf_big_bird import BigBirdModel, check_length
-from .hf_checkpoint import DECODERS, HFConfig, load_checkpoint
+from .hf_checkpoint import DECODERS, ENCDEC, HFConfig, load_checkpoint
 from .hf_distilbert import DistilBertModel
 from .hf_electra import ElectraModel
 from .hf_llama import DecoderModel
@@ -59,7 +64,10 @@ def _bucket(n: int, max_batch: int) -> int:
 
 def check_max_len(max_len: int, config: HFConfig, path) -> None:
     # JAX's position gather clamps past the table; the port refuses.
-    # RoBERTa's ids run from pad_token_id + 1 to max_len + pad_token_id.
+    # RoBERTa's ids run from pad_token_id + 1 to max_len + pad_token_id;
+    # an encoder-decoder's table holds max_position_embeddings rows past
+    # its offset (Blenderbot-400M's 128, BART's 1024), and so does Flax's
+    # causal mask.
     positions = config.max_position_embeddings
     if max_len + config.position_offset > positions:
         extra = (f" past RoBERTa's offset of {config.position_offset}"
@@ -74,6 +82,8 @@ def build_trunk(config: HFConfig, dtype: torch.dtype):
     """The family's trunk module, without a pooler."""
     if config.model_type in DECODERS:
         return DecoderModel(config, dtype=dtype)
+    if config.model_type in ENCDEC:
+        return EncoderDecoderModel(config, dtype=dtype)
     if config.model_type in ("roberta", "xlm-roberta"):
         return RobertaModel(config, dtype=dtype)
     if config.model_type == "electra":
@@ -104,10 +114,10 @@ class HFEmbedder:
                              "embedder pads every batch to max_len")
         config, state = load_checkpoint(path, head=False, pooler=False)
         check_max_len(max_len, config, path)
-        if config.model_type in DECODERS:
+        if config.model_type in DECODERS + ENCDEC:
             # billions of weights skip their random init: the module is
             # built without storage and filled from the checkpoint on the
-            # device (a decoder holds no buffer to initialize)
+            # device (neither family holds a buffer to initialize)
             with torch.device("meta"):
                 model = build_trunk(config, dtype)
             model = model.to_empty(device=self.device)

@@ -35,13 +35,20 @@ true) override those in ``tokenizer.json``.
 ``config.json``'s ``model_type``.  BERT, ELECTRA and DistilBERT take
 ``WordPieceTokenizer`` (so does a RoFormer checkpoint whose
 ``tokenizer_class`` names BERT's); RoBERTa and RoBERTa-PreLayerNorm take
-``hf_bpe.ByteLevelBPETokenizer``; XLM-RoBERTa and ALBERT take
+``hf_bpe.ByteLevelBPETokenizer`` (so do BART and, with its ``A </s>``
+template, Blenderbot); XLM-RoBERTa, ALBERT, mBART and Pegasus take
 ``hf_unigram.UnigramTokenizer``; BigBird takes the Unigram or the
 SentencePiece BPE tokenizer as its ``tokenizer.json``'s ``model.type``
-says; Llama, Mistral and Gemma take ``hf_spbpe.SentencePieceBPETokenizer``.
-``RoFormerTokenizer`` raises ``ValueError``: its Jieba pre-tokenizer needs
-``rjieba``, which neither the card's machine nor the JAX package's has
-(JAX's ``AutoTokenizer`` raises ``ImportError`` there).  Each tokenizer
+says; Llama, Mistral and Gemma take ``hf_spbpe.SentencePieceBPETokenizer``;
+BlenderbotSmall (by ``model_type``) takes
+``hf_blenderbot_small.BlenderbotSmallTokenizer``, the slow class
+``AutoTokenizer`` takes there; a ``tokenizer_class`` naming it raises, as
+``AutoTokenizer`` then takes the byte-level ``BlenderbotSmallTokenizerFast``,
+which cannot read those files.  ``RoFormerTokenizer`` raises
+``ValueError``: its Jieba pre-tokenizer needs ``rjieba``, which neither
+the card's machine nor the JAX package's has (JAX's ``AutoTokenizer``
+raises ``ImportError`` there); so does ``MarianTokenizer``, which needs
+``sentencepiece``.  Each tokenizer
 carries the ``model_input_names`` of its transformers class: only BERT's,
 ELECTRA's and ALBERT's return ``token_type_ids``.  ``TemplateTokenizer``
 is what the BPE and Unigram tokenizers share: added tokens split out of
@@ -492,6 +499,40 @@ ALBERT_SPECIALS = dict(bos_token="[CLS]", eos_token="[SEP]", sep_token="[SEP]",
                        cls_token="[CLS]", unk_token="<unk>", pad_token="<pad>",
                        mask_token="[MASK]")
 BIG_BIRD_SPECIALS = dict(ALBERT_SPECIALS, bos_token="<s>", eos_token="</s>")
+#: the language codes ``MBartTokenizerFast`` adds as special tokens
+MBART_LANGUAGE_CODES = (
+    "ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN",
+    "hi_IN", "it_IT", "ja_XX", "kk_KZ", "ko_KR", "lt_LT", "lv_LV", "my_MM", "ne_NP",
+    "nl_XX", "ro_RO", "ru_RU", "si_LK", "tr_TR", "vi_VN", "zh_CN")
+#: ``PegasusTokenizerFast``'s (its ``additional_special_tokens`` come from
+#: ``pegasus_additional``)
+PEGASUS_SPECIALS = dict(pad_token="<pad>", eos_token="</s>", unk_token="<unk>",
+                        mask_token="<mask_2>")
+
+
+def mbart_additional(cfg: dict) -> List:
+    """``MBartTokenizerFast``'s additional special tokens: the language
+    codes, then the config's others."""
+    given = cfg.get("additional_special_tokens") or []
+    return list(MBART_LANGUAGE_CODES) + [
+        t for t in given if _token_content(t) not in MBART_LANGUAGE_CODES]
+
+
+def pegasus_additional(cfg: dict) -> List:
+    """``PegasusTokenizerFast``'s additional special tokens: the config's
+    with ``mask_token_sent`` in front, filled up with ``<unk_i>`` to
+    ``offset - 1`` tokens; without any, ``mask_token_sent`` and
+    ``<unk_2>`` ... ``<unk_{offset - 1}>``."""
+    offset = int(cfg.get("offset", 103))
+    sent = cfg.get("mask_token_sent", "<mask_1>")
+    given = cfg.get("additional_special_tokens")
+    if given is None:
+        return ([sent] if sent is not None else []) + [
+            f"<unk_{i}>" for i in range(2, offset)]
+    out = list(given)
+    if sent is not None and _token_content(sent) not in map(_token_content, out):
+        out.insert(0, sent)
+    return out + [f"<unk_{i}>" for i in range(len(out), offset - 1)]
 
 
 def added_tokens(json_tokens: Sequence[dict], cfg: dict,
@@ -591,20 +632,24 @@ class TemplateTokenizer:
     text between added tokens: ``<s> A </s>`` / ``<s> A </s></s> B </s>``
     (RoBERTa's, ``pair_seps`` 2) or ``[CLS] A [SEP]`` / ``[CLS] A [SEP] B
     [SEP]`` (ALBERT's and BigBird's, ``pair_seps`` 1, B and its separator
-    of token type 1), truncated to ``max_length`` (a pair
-    ``longest_first``) and right-padded with the pad id; ``__call__``
-    returns numpy ``input_ids``, ``attention_mask`` and, where
-    ``model_input_names`` has them, ``token_type_ids`` [B, L] int64, as the
-    fast tokenizers do (RoBERTa's, XLM-R's and BigBird's return no token
-    types)."""
+    of token type 1), or with ``suffix`` a single text followed by those
+    ids alone (Pegasus's and Blenderbot's ``A </s>``, mBART's ``A </s>
+    <lang>``, BlenderbotSmall's ``A``; no pair template), truncated to
+    ``max_length`` (a pair ``longest_first``) and right-padded with the
+    pad id; ``__call__`` returns numpy ``input_ids``, ``attention_mask``
+    and, where ``model_input_names`` has them, ``token_type_ids`` [B, L]
+    int64, as the fast tokenizers do (RoBERTa's, XLM-R's and BigBird's
+    return no token types)."""
 
     model_input_names: Tuple[str, ...] = ("input_ids", "attention_mask")
 
-    def __init__(self, added: Sequence[AddedToken], *, cls_id: int, sep_id: int,
-                 pad_id: int, pair_seps: int = 2):
+    def __init__(self, added: Sequence[AddedToken], *, cls_id: Optional[int],
+                 sep_id: Optional[int], pad_id: int, pair_seps: int = 2,
+                 suffix: Optional[Sequence[int]] = None):
         self.added = list(added)
         self.cls_id, self.sep_id, self.pad_id = cls_id, sep_id, pad_id
         self.pair_seps = pair_seps
+        self.suffix = None if suffix is None else list(suffix)
         self._by_content = {t.content: t for t in self.added}
         self._raw_re = _added_pattern([t for t in self.added if not t.normalized])
         self._norm_re = _added_pattern([t for t in self.added if t.normalized])
@@ -634,7 +679,11 @@ class TemplateTokenizer:
                  max_length: int) -> Dict[str, np.ndarray]:
         if pairs is not None and len(pairs) != len(texts):
             raise ValueError("texts and pairs must align")
-        n_special = 2 if pairs is None else 2 + self.pair_seps
+        if pairs is not None and self.suffix is not None:
+            raise ValueError("this tokenizer's template takes single texts only")
+        head, tail = (([], self.suffix) if self.suffix is not None
+                      else ([self.cls_id], [self.sep_id]))
+        n_special = len(head) + len(tail) if pairs is None else 2 + self.pair_seps
         if max_length < n_special:
             raise ValueError(f"max_length {max_length} leaves no room for "
                              f"the {n_special} special tokens")
@@ -645,7 +694,7 @@ class TemplateTokenizer:
         for i, text in enumerate(texts):
             a = self.encode(text)
             if pairs is None:
-                row = [self.cls_id, *a[:budget], self.sep_id]
+                row = [*head, *a[:budget], *tail]
             else:
                 b = self.encode(pairs[i])
                 if len(a) + len(b) > budget:
@@ -684,18 +733,21 @@ def roberta_template(post: dict) -> Tuple[int, int]:
     raise ValueError(f"not a RoBERTa post-processor: {json.dumps(post)[:200]}")
 
 
+def _items(seq) -> List[Tuple[str, str, int]]:
+    """A ``TemplateProcessing`` form as (kind, id, type id) triples: "S"
+    for a special token, "Q" for a sequence ($A, $B)."""
+    return [("S", p["SpecialToken"]["id"], p["SpecialToken"].get("type_id", 0))
+            if "SpecialToken" in p else
+            ("Q", p["Sequence"]["id"], p["Sequence"].get("type_id", 0))
+            for p in seq or []]
+
+
 def bert_template(post: dict) -> Tuple[int, int]:
     """The ids of ``[CLS]`` and ``[SEP]`` in the ``TemplateProcessing``
     that ALBERT's and BigBird's converters write (``[CLS]:0 $A:0 [SEP]:0``,
     pair ``... $B:1 [SEP]:1``); any other template raises."""
     if post.get("type") == "TemplateProcessing":
-        def toks(seq):
-            return [("S", p["SpecialToken"]["id"], p["SpecialToken"].get("type_id", 0))
-                    if "SpecialToken" in p else
-                    ("Q", p["Sequence"]["id"], p["Sequence"].get("type_id", 0))
-                    for p in seq]
-
-        single, pair = toks(post.get("single") or []), toks(post.get("pair") or [])
+        single, pair = _items(post.get("single")), _items(post.get("pair"))
         special = post.get("special_tokens") or {}
         if len(single) == 3 and single[0][0] == single[2][0] == "S":
             cls_tok, sep_tok = single[0][1], single[2][1]
@@ -706,6 +758,21 @@ def bert_template(post: dict) -> Tuple[int, int]:
     raise ValueError(f"not a [CLS] A [SEP] B [SEP] post-processor: {json.dumps(post)[:200]}")
 
 
+def suffix_template(post: dict) -> List[int]:
+    """The ids after ``$A`` in a ``TemplateProcessing`` whose single form
+    is the text followed by special tokens of type 0 (Pegasus's ``$A
+    </s>``, Blenderbot's ``$A:0 </s>:0``); its pair form is never used;
+    any other raises."""
+    if post.get("type") == "TemplateProcessing":
+        single, special = _items(post.get("single")), post.get("special_tokens") or {}
+        tail = single[1:]
+        if single[:1] == [("Q", "A", 0)] and all(
+                kind == "S" and type_id == 0 and len(special.get(tok, {}).get("ids", [])) == 1
+                for kind, tok, type_id in tail):
+            return [int(special[tok]["ids"][0]) for _, tok, _ in tail]
+    raise ValueError(f"not an A </s> post-processor: {json.dumps(post)[:200]}")
+
+
 def load_tokenizer(path):
     """The tokenizer of a checkpoint directory, chosen as ``AutoTokenizer``
     chooses it: ``tokenizer_config.json``'s ``tokenizer_class``, else
@@ -714,7 +781,8 @@ def load_tokenizer(path):
     cls_name = read_tokenizer_config(path).get("tokenizer_class")
     if cls_name:
         family = cls_name.removesuffix("Fast").removesuffix("Tokenizer").lower()
-        family = {"xlmroberta": "xlm-roberta", "bigbird": "big_bird"}.get(family, family)
+        family = {"xlmroberta": "xlm-roberta", "bigbird": "big_bird",
+                  "blenderbotsmall": "blenderbot-small"}.get(family, family)
     else:
         family = (read_json(path / "config.json").get("model_type")
                   if (path / "config.json").exists() else None)
@@ -724,11 +792,12 @@ def load_tokenizer(path):
         tok = WordPieceTokenizer.from_pretrained(path)
         tok.model_input_names = ("input_ids", "attention_mask")
         return tok
-    if family in ("roberta", "roberta-prelayernorm"):
+    if family in ("roberta", "roberta-prelayernorm", "bart", "blenderbot"):
         from .hf_bpe import ByteLevelBPETokenizer
 
-        return ByteLevelBPETokenizer.from_pretrained(path)
-    if family in ("xlm-roberta", "albert"):
+        return ByteLevelBPETokenizer.from_pretrained(
+            path, "blenderbot" if family == "blenderbot" else "roberta")
+    if family in ("xlm-roberta", "albert", "mbart", "pegasus"):
         from .hf_unigram import UnigramTokenizer
 
         return UnigramTokenizer.from_pretrained(path, family)
@@ -747,6 +816,23 @@ def load_tokenizer(path):
                          "pre-tokenizer needs rjieba (the JAX reference's AutoTokenizer "
                          "raises ImportError there); a RoFormer checkpoint with a "
                          "WordPiece tokenizer (tokenizer_class BertTokenizer) is served")
+    if family == "blenderbot-small":
+        if cls_name:
+            raise ValueError(
+                f"{path}: tokenizer_class {cls_name!r} is not supported: AutoTokenizer "
+                "then takes BlenderbotSmallTokenizerFast, a byte-level BPE that cannot "
+                "read the @@ vocabulary of BlenderbotSmallTokenizer's files; without "
+                "tokenizer_class, config.json's model_type 'blenderbot-small' takes "
+                "the slow class, which the port reads")
+        from .hf_blenderbot_small import BlenderbotSmallTokenizer
+
+        return BlenderbotSmallTokenizer.from_pretrained(path)
+    if family == "marian":
+        raise ValueError(f"{path}: MarianTokenizer is not supported: it reads its "
+                         "SentencePiece files with sentencepiece, which neither the card's "
+                         "machine nor the JAX package's has (the JAX reference's "
+                         "AutoTokenizer fails there); a Marian checkpoint whose "
+                         "tokenizer_class names a tokenizer the port reads is served")
     if family in ("llama", "mistral", "gemma"):
         from .hf_spbpe import SentencePieceBPETokenizer
 
@@ -755,12 +841,14 @@ def load_tokenizer(path):
             path, "gemma" if family == "gemma" else "llama")
     raise ValueError(f"{path}: tokenizer {cls_name or family!r} is not supported; "
                      "the port reads the BERT, ELECTRA, DistilBERT (WordPiece), "
-                     "RoBERTa, RoBERTa-PreLayerNorm (byte-level BPE), XLM-RoBERTa, "
-                     "ALBERT (Unigram), BigBird (Unigram or SentencePiece BPE) and "
-                     "Llama, Mistral, Gemma (SentencePiece BPE) tokenizers")
+                     "RoBERTa, RoBERTa-PreLayerNorm, BART, Blenderbot (byte-level BPE), "
+                     "XLM-RoBERTa, ALBERT, mBART, Pegasus (Unigram), BigBird (Unigram "
+                     "or SentencePiece BPE), Llama, Mistral, Gemma (SentencePiece BPE) "
+                     "and BlenderbotSmall tokenizers")
 
 
-__all__ = ["ALBERT_SPECIALS", "BIG_BIRD_SPECIALS", "ROBERTA_SPECIALS", "AddedToken",
-           "TemplateTokenizer", "WordPieceTokenizer", "added_tokens", "bert_template",
-           "load_tokenizer", "read_tokenizer_config", "roberta_template", "special_id",
-           "split_added"]
+__all__ = ["ALBERT_SPECIALS", "BIG_BIRD_SPECIALS", "MBART_LANGUAGE_CODES",
+           "PEGASUS_SPECIALS", "ROBERTA_SPECIALS", "AddedToken", "TemplateTokenizer",
+           "WordPieceTokenizer", "added_tokens", "bert_template", "load_tokenizer",
+           "mbart_additional", "pegasus_additional", "read_tokenizer_config",
+           "roberta_template", "special_id", "split_added", "suffix_template"]

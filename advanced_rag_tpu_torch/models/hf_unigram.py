@@ -1,13 +1,15 @@
-"""The SentencePiece Unigram tokenizers of XLM-RoBERTa, ALBERT and BigBird
-read from a local HF checkpoint's ``tokenizer.json``.
+"""The SentencePiece Unigram tokenizers of XLM-RoBERTa, ALBERT, BigBird,
+mBART and Pegasus read from a local HF checkpoint's ``tokenizer.json``.
 
-The port's copy of ``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast``
-and ``BigBirdTokenizerFast`` (the ``tokenizers`` crate), so the card's
-machine needs neither ``transformers`` nor ``tokenizers``:
+The port's copy of ``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast``,
+``BigBirdTokenizerFast``, ``MBartTokenizerFast`` and
+``PegasusTokenizerFast`` (the ``tokenizers`` crate), so the card's machine
+needs neither ``transformers`` nor ``tokenizers``:
 
 1. added tokens are found in the raw text first, leftmost-longest
-   (``TemplateTokenizer``; the ``<mask>`` / ``[MASK]`` of the three
-   classes takes ``lstrip``);
+   (``TemplateTokenizer``; the ``<mask>`` / ``[MASK]`` of the first four
+   classes takes ``lstrip``; mBART's language codes and Pegasus's
+   ``<mask_1>``, ``<unk_2>`` ... are special tokens of their classes);
 2. the normalizer on each piece between them (``Normalizer``):
    ``Sequence``, ``Replace`` (a string, or a regex of literals and
    repetition such as XLM-R's ``" {2,}"``), ``NFKC``, ``NFKD``,
@@ -28,14 +30,18 @@ machine needs neither ``transformers`` nor ``tokenizers``:
 4. the ``Metaspace`` pre-tokenizer: spaces become ``▁``, one is put in
    front as ``prepend_scheme`` says (``always``; ``first``: only for the
    piece at the start of the text; ``never``), and with ``split`` the
-   piece is cut before each run of ``▁``;
+   piece is cut before each run of ``▁``; Pegasus's converter puts
+   ``WhitespaceSplit`` before it, so each word takes its own ``▁``;
 5. the Unigram model: Viterbi over the pieces' scores (``_viterbi``, the
    crate's ``encode_optimized``: a character no piece covers is ``unk``
    at the lowest score less 10, and consecutive unknowns fuse);
 6. the template: XLM-R's ``<s> A </s></s> B </s>``, ALBERT's and BigBird's
    ``[CLS] A [SEP] B [SEP]`` (``hf_tokenizer.bert_template``; ALBERT's
-   class returns the token types, B's 1); the ids are ``tokenizer.json``'s
-   (XLM-R's fairseq offset is already in them).
+   class returns the token types, B's 1), Pegasus's ``A </s>`` (single
+   texts only); mBART's class overwrites the file's with ``A </s>
+   <src_lang>`` (``tokenizer_config.json``'s ``src_lang``, default
+   ``en_XX``); the ids are ``tokenizer.json``'s (XLM-R's fairseq offset,
+   Pegasus's 103, are already in them).
 
 A directory with ``sentencepiece.bpe.model`` (or ``spiece.model``) and no
 ``tokenizer.json`` raises: transformers converts that file only with
@@ -69,8 +75,10 @@ import numpy as np
 
 from .hf_checkpoint import checkpoint_dir, read_json
 from .hf_tokenizer import (_LOWER, _WHITESPACE, ALBERT_SPECIALS, BIG_BIRD_SPECIALS,
-                           TemplateTokenizer, added_tokens, bert_template,
-                           read_tokenizer_config, roberta_template, special_id)
+                           PEGASUS_SPECIALS, ROBERTA_SPECIALS, TemplateTokenizer,
+                           _token_content, added_tokens, bert_template, mbart_additional,
+                           pegasus_additional, read_tokenizer_config, roberta_template,
+                           special_id, suffix_template)
 
 # Where the crate's grapheme clusters (unicode-segmentation) and the rules
 # below on unicodedata disagree: characters that attach to the one before
@@ -464,6 +472,21 @@ class Normalizer:
         return text
 
 
+def _split_whitespace(text: str) -> List[str]:
+    """The crate's ``WhitespaceSplit``: the runs between whitespace."""
+    words, start = [], None
+    for i, ch in enumerate(text):
+        if ch in _WHITESPACE:
+            if start is not None:
+                words.append(text[start:i])
+                start = None
+        elif start is None:
+            start = i
+    if start is not None:
+        words.append(text[start:])
+    return words
+
+
 def metaspace(text: str, rep: str, prepend_scheme: str, split: bool,
               first: bool) -> List[str]:
     """The crate's ``Metaspace`` pre-tokenizer on one normalized piece:
@@ -489,28 +512,39 @@ def metaspace(text: str, rep: str, prepend_scheme: str, split: bool,
     return words
 
 
-#: each class's special tokens, its template and whether it returns
-#: token types
+#: each class's special tokens, its template (a pair template's (cls,
+#: sep) or a suffix-only one's ids; None: the class writes its own), the
+#: separators of its pair template, whether it returns token types and
+#: whether its mask token takes ``lstrip``
 UNIGRAM_CLASSES = {
-    "xlm-roberta": (None, roberta_template, 2, False),
-    "albert": (ALBERT_SPECIALS, bert_template, 1, True),
-    "big_bird": (BIG_BIRD_SPECIALS, bert_template, 1, False),
+    "xlm-roberta": (None, roberta_template, 2, False, True),
+    "albert": (ALBERT_SPECIALS, bert_template, 1, True, True),
+    "big_bird": (BIG_BIRD_SPECIALS, bert_template, 1, False, True),
+    "mbart": (ROBERTA_SPECIALS, None, 0, False, True),
+    "pegasus": (PEGASUS_SPECIALS, suffix_template, 0, False, False),
 }
 
 
 class UnigramTokenizer(TemplateTokenizer):
-    """``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast`` or
-    ``BigBirdTokenizerFast`` on its own: ``__call__`` returns numpy
+    """``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast``,
+    ``BigBirdTokenizerFast``, ``MBartTokenizerFast`` or
+    ``PegasusTokenizerFast`` on its own: ``__call__`` returns numpy
     ``input_ids`` and ``attention_mask`` (ALBERT's also
-    ``token_type_ids``) [B, L] int64."""
+    ``token_type_ids``) [B, L] int64.  ``whitespace_split``: the
+    pre-tokenizer is Pegasus's ``WhitespaceSplit`` before ``Metaspace``."""
 
     def __init__(self, pieces: Sequence[Tuple[str, float]], *, unk_id: int, added,
-                 cls_id: int, sep_id: int, pad_id: int,
+                 cls_id: Optional[int], sep_id: Optional[int], pad_id: int,
                  normalizer: Optional[dict] = None, replacement: str = "▁",
                  prepend_scheme: str = "always", split: bool = True,
-                 pair_seps: int = 2, type_ids: bool = False):
+                 pair_seps: int = 2, type_ids: bool = False,
+                 suffix: Optional[Sequence[int]] = None, whitespace_split: bool = False):
         super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id,
-                         pair_seps=pair_seps)
+                         pair_seps=pair_seps, suffix=suffix)
+        if whitespace_split and prepend_scheme == "first":
+            raise ValueError("Metaspace prepend_scheme 'first' after WhitespaceSplit "
+                             "is not supported")
+        self.whitespace_split = whitespace_split
         if type_ids:
             self.model_input_names = ("input_ids", "token_type_ids", "attention_mask")
         if not 0 <= unk_id < len(pieces):
@@ -541,10 +575,19 @@ class UnigramTokenizer(TemplateTokenizer):
                         "the tokenizer.json (transformers converts the .model file "
                         "only where sentencepiece is installed)")
             raise FileNotFoundError(f"{path} has no tokenizer.json")
-        specials, template, pair_seps, type_ids = UNIGRAM_CLASSES[family]
+        specials, template, pair_seps, type_ids, lstrip_mask = UNIGRAM_CLASSES[family]
         cfg = read_tokenizer_config(path)
+        if family == "mbart":
+            cfg = dict(cfg, additional_special_tokens=mbart_additional(cfg))
+        elif family == "pegasus":
+            cfg = dict(cfg, additional_special_tokens=pegasus_additional(cfg))
         tj = read_json(path / "tokenizer.json")
         model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
+        subs = [p.get("type") for p in pre.get("pretokenizers") or []]
+        whitespace_split = pre.get("type") == "Sequence" and subs == [
+            "WhitespaceSplit", "Metaspace"]
+        if whitespace_split:
+            pre = pre["pretokenizers"][1]
         if model.get("type") != "Unigram" or pre.get("type") != "Metaspace":
             raise ValueError(f"{path}/tokenizer.json is not a Unigram tokenizer "
                              f"(model {model.get('type')}, pre-tokenizer {pre.get('type')})")
@@ -554,8 +597,20 @@ class UnigramTokenizer(TemplateTokenizer):
         pieces = [(p, s) for p, s in model["vocab"]]
         vocab = {p: i for i, (p, _) in enumerate(pieces)}
         added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials,
-                             lstrip_mask=True)
-        cls_id, sep_id = template(tj.get("post_processor") or {})
+                             lstrip_mask=lstrip_mask)
+        cls_id = sep_id = suffix = None
+        if family == "mbart":
+            # MBartTokenizerFast overwrites the file's post-processor:
+            # $A </s> <src_lang>
+            lang = _token_content(cfg.get("src_lang") or "en_XX")
+            lang_id = {t.content: t.id for t in added}.get(lang, vocab.get(lang))
+            if lang_id is None:
+                raise ValueError(f"{path}: src_lang {lang!r} is not in the vocabulary")
+            suffix = [special_id(cfg, "eos_token", added, specials), lang_id]
+        elif template is suffix_template:
+            suffix = template(tj.get("post_processor") or {})
+        else:
+            cls_id, sep_id = template(tj.get("post_processor") or {})
         if pre.get("add_prefix_space") is False and "prepend_scheme" not in pre:
             # the older form; the crate reads only add_prefix_space true
             raise ValueError(f"{path}/tokenizer.json: Metaspace add_prefix_space "
@@ -569,13 +624,17 @@ class UnigramTokenizer(TemplateTokenizer):
                    replacement=pre.get("replacement", "▁"),
                    prepend_scheme=pre.get("prepend_scheme", "always"),
                    split=bool(pre.get("split", True)), pair_seps=pair_seps,
-                   type_ids=type_ids)
+                   type_ids=type_ids, suffix=suffix, whitespace_split=whitespace_split)
 
     def normalize(self, text: str) -> str:
         return self.normalizer(text)
 
     def pre_tokenize(self, text: str, first: bool) -> List[str]:
-        """``Metaspace`` on one normalized piece."""
+        """``Metaspace`` on one normalized piece (after ``WhitespaceSplit``:
+        on each of its words)."""
+        if self.whitespace_split:
+            return [w for word in _split_whitespace(text) for w in metaspace(
+                word, self.replacement, self.prepend_scheme, self.split, first)]
         return metaspace(text, self.replacement, self.prepend_scheme, self.split, first)
 
     def _viterbi(self, word: str) -> Tuple[int, ...]:

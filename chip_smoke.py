@@ -221,7 +221,18 @@ Phases, each printing its elapsed seconds:
    embedder at 1024 tokens behind a bf16-tier manager over 5,000 chunks,
    served with RAG_RERANKER=hf: on the albert-base-v2-width reranker, 32
    /retrieve requests from 1 client, K1 and K3 launched and held against
-   their plain versions; (iv) the peak memory.
+   their plain versions; (iv) the peak memory; (i) the encoder-decoder
+   embedders (phase_hf_encdec) at published widths (HF_ENCDEC: bart-large,
+   mbart-large-cc25, pegasus-large, opus-mt-en-de, blenderbot-400M-distill,
+   blenderbot_small-90M, each with its tokenizer made here; mBART, Pegasus
+   and Blenderbot written at 2 + 2 layers): (i) each on the card against
+   the CPU at 128 tokens (f32 within HF_TOL, bf16 recorded); (ii) each
+   built on the card at its published depth, f32 and bf16, forward and
+   encode_device at 64 x 128 tokens; (iii) the written 12 + 12 bart-large
+   embedder in bf16 behind a 1024-wide bf16-tier manager over 5,000
+   chunks, served with RAG_RERANKER=hf: on (e)'s ELECTRA reranker, 32
+   /retrieve requests from 1 client, every answer a 200, K1 and K3
+   launched and held against their plain versions; (iv) the peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -4656,6 +4667,10 @@ def hf_vocab(size=None):
     return out + [f"[unused{i}]" for i in range(994, 994 + size - len(out))]
 
 
+#: the LayerNorm scales a seeded checkpoint draws as 1 + N(0, 0.05)
+LN_SCALES = ("LayerNorm.weight", "layer_norm.weight", "layernorm_embedding.weight")
+
+
 def write_safetensors(path, state, bf16=False):
     """``state`` as one safetensors file of f32 (or, with ``bf16``, BF16)
     tensors: an 8-byte header length, the JSON header, the raw
@@ -4692,7 +4707,9 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
     RoBERTa's (and RoBERTa-PreLayerNorm's) vocab.json + merges.txt, XLM-R's,
     ALBERT's or BigBird's Unigram tokenizer.json, or ELECTRA's /
     DistilBERT's / RoFormer's vocab.txt (phase 13's WordPiece vocabulary);
-    a family of (h) at its ``written`` layers."""
+    a family of (h) at its ``written`` layers; an encoder-decoder of (i)
+    (HF_ENCDEC) with its stacks cut to ``written`` layers and its
+    tokenizer (encdec_tokenizer_files)."""
     import torch
 
     from advanced_rag_tpu_torch.models.hf_bert import BertModel
@@ -4709,6 +4726,12 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
                    position_embedding_type="absolute", pad_token_id=0,
                    architectures=["BertForSequenceClassification" if head else "BertModel"],
                    **HF_GEOMETRY)
+    elif family in HF_ENCDEC:
+        spec = HF_ENCDEC[family]
+        cfg = dict(spec["config"])
+        for stack in ("encoder_layers", "decoder_layers"):
+            cfg[stack] = min(cfg[stack], spec["written"])
+        encdec_tokenizer_files(path, family, cfg["vocab_size"])
     else:
         spec = HF_FAMILIES[family]
         cfg = dict(spec["config"])
@@ -4739,8 +4762,7 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
     state = {}
     for name, p in module.state_dict().items():
         n = torch.randn(p.shape, generator=gen)
-        state[name] = (1.0 + 0.05 * n if name.endswith(("LayerNorm.weight", "layer_norm.weight"))
-                       else 0.02 * n)
+        state[name] = (1.0 + 0.05 * n if name.endswith(LN_SCALES) else 0.02 * n)
     write_safetensors(path / "model.safetensors", state)
 
 
@@ -5587,7 +5609,7 @@ def encoder_weights(module, gen):
     with torch.no_grad():
         for name, p in module.named_parameters():
             n = torch.randn(p.shape, generator=gen, device=gen.device)
-            scale = name.endswith(("LayerNorm.weight", "layer_norm.weight"))
+            scale = name.endswith(LN_SCALES)
             p.copy_(((1.0 + 0.05 * n) if scale else 0.02 * n).to(p.device))
     return module
 
@@ -5622,18 +5644,18 @@ def big_bird_flops(config, rows, seq):
 
 
 def hf_more_parity(path, family, texts, queries, dev):
-    """(i), one family: the model on the card against the same module on
-    the CPU at its ``max_len`` over HF_FAMILY_TEXTS texts or pairs, f32
-    within HF_TOL, the bf16 distance recorded.  BigBird's texts are half
-    five chunks long (512 tokens filled: the window and random blocks see
-    tokens) and half one chunk (the rest padding)."""
+    """(h) (i) and (i) (i), one family: the model on the card against the
+    same module on the CPU at its ``max_len`` over HF_FAMILY_TEXTS texts or
+    pairs, f32 within HF_TOL, the bf16 distance recorded.  The texts are
+    half five chunks long (BigBird's 512 tokens filled: the window and
+    random blocks see tokens) and half one chunk (the rest padding)."""
     import numpy as np
     import torch
 
     from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
     from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
 
-    spec = HF_FAMILIES[family]
+    spec = HF_ENCDEC.get(family) or HF_FAMILIES[family]
     head, max_len = spec["head"], spec["max_len"]
     cls = HFCrossEncoder if head else HFEmbedder
     n = HF_FAMILY_TEXTS
@@ -5777,6 +5799,324 @@ def phase_hf_more(root, texts, queries, dev):
     return rec, launches
 
 
+# -- phase 13 (i): the encoder-decoder embedders (models/hf_bart.py) ---------
+
+#: the published geometries (config.json's widths as the sources publish
+#: them; the switches transformers' config classes set where the text
+#: does not name them), each an embedder at max_len 128, written with its
+#: stacks cut to ``written`` layers
+HF_ENCDEC = {
+    "bart": dict(source="facebook/bart-large", head=False, written=12, max_len=128,
+                 config=dict(model_type="bart", architectures=["BartModel"],
+                             vocab_size=50265, d_model=1024, encoder_layers=12,
+                             decoder_layers=12, encoder_attention_heads=16,
+                             decoder_attention_heads=16, encoder_ffn_dim=4096,
+                             decoder_ffn_dim=4096, activation_function="gelu",
+                             max_position_embeddings=1024, scale_embedding=False,
+                             pad_token_id=1, bos_token_id=0, eos_token_id=2,
+                             decoder_start_token_id=2)),
+    "mbart": dict(source="facebook/mbart-large-cc25", head=False, written=2, max_len=128,
+                  config=dict(model_type="mbart", architectures=["MBartForConditionalGeneration"],
+                              vocab_size=250027, d_model=1024, encoder_layers=12,
+                              decoder_layers=12, encoder_attention_heads=16,
+                              decoder_attention_heads=16, encoder_ffn_dim=4096,
+                              decoder_ffn_dim=4096, activation_function="gelu",
+                              max_position_embeddings=1024, scale_embedding=True,
+                              pad_token_id=1, bos_token_id=0, eos_token_id=2)),
+    "pegasus": dict(source="google/pegasus-large", head=False, written=2, max_len=128,
+                    config=dict(model_type="pegasus",
+                                architectures=["PegasusForConditionalGeneration"],
+                                vocab_size=96103, d_model=1024, encoder_layers=16,
+                                decoder_layers=16, encoder_attention_heads=16,
+                                decoder_attention_heads=16, encoder_ffn_dim=4096,
+                                decoder_ffn_dim=4096, activation_function="relu",
+                                max_position_embeddings=1024, scale_embedding=True,
+                                pad_token_id=0, eos_token_id=1, decoder_start_token_id=0)),
+    "marian": dict(source="Helsinki-NLP/opus-mt-en-de", head=False, written=6, max_len=128,
+                   config=dict(model_type="marian", architectures=["MarianMTModel"],
+                               vocab_size=58101, d_model=512, encoder_layers=6,
+                               decoder_layers=6, encoder_attention_heads=8,
+                               decoder_attention_heads=8, encoder_ffn_dim=2048,
+                               decoder_ffn_dim=2048, activation_function="swish",
+                               max_position_embeddings=512, scale_embedding=True,
+                               pad_token_id=58100, eos_token_id=0,
+                               decoder_start_token_id=58100)),
+    "blenderbot": dict(source="facebook/blenderbot-400M-distill", head=False, written=2,
+                       max_len=128,
+                       config=dict(model_type="blenderbot",
+                                   architectures=["BlenderbotForConditionalGeneration"],
+                                   vocab_size=8008, d_model=1280, encoder_layers=2,
+                                   decoder_layers=12, encoder_attention_heads=32,
+                                   decoder_attention_heads=32, encoder_ffn_dim=5120,
+                                   decoder_ffn_dim=5120, activation_function="gelu",
+                                   max_position_embeddings=128, scale_embedding=True,
+                                   pad_token_id=0, bos_token_id=1, eos_token_id=2,
+                                   decoder_start_token_id=1)),
+    "blenderbot-small": dict(source="facebook/blenderbot_small-90M", head=False, written=8,
+                             max_len=128,
+                             config=dict(model_type="blenderbot-small",
+                                         architectures=["BlenderbotSmallForConditionalGeneration"],
+                                         vocab_size=54944, d_model=512, encoder_layers=8,
+                                         decoder_layers=8, encoder_attention_heads=16,
+                                         decoder_attention_heads=16, encoder_ffn_dim=2048,
+                                         decoder_ffn_dim=2048, activation_function="gelu",
+                                         max_position_embeddings=512, scale_embedding=False,
+                                         pad_token_id=0, bos_token_id=1, eos_token_id=2,
+                                         decoder_start_token_id=1)),
+}
+HF_ENCDEC_ROWS, HF_ENCDEC_TOKENS = 64, 128    # (ii)'s timed batch
+HF_ENCDEC_CHUNKS = HF_FAMILY_CHUNKS           # (iii): chunks the bart-large manager ingests
+HF_ENCDEC_REQUESTS = HF_FAMILY_REQUESTS
+
+
+def encdec_tokenizer_files(path, family, size):
+    """The family's tokenizer at ``size`` entries, as its class reads it:
+    BART's and Blenderbot's byte-level BPE (roberta_tokenizer_files under
+    their class names; Blenderbot's class adds A </s>), mBART's Unigram
+    tokenizer.json (mbart_tokenizer_files), Pegasus's
+    (pegasus_tokenizer_files), BlenderbotSmall's vocab.json + merges.txt
+    (small_tokenizer_files), and for Marian, whose own tokenizer needs
+    sentencepiece, phase 13's WordPiece vocab.txt named BertTokenizer."""
+    if family in ("bart", "blenderbot"):
+        roberta_tokenizer_files(path, size)
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"tokenizer_class": "BartTokenizer" if family == "bart" else "BlenderbotTokenizer",
+             "add_prefix_space": False}))
+    elif family == "mbart":
+        mbart_tokenizer_files(path, size)
+    elif family == "pegasus":
+        pegasus_tokenizer_files(path, size)
+    elif family == "blenderbot-small":
+        small_tokenizer_files(path, size)
+    else:
+        (path / "vocab.txt").write_text("\n".join(hf_vocab(size)) + "\n")
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}))
+
+
+def _special_added(i, tok, lstrip=False):
+    return {"id": i, "content": tok, "single_word": False, "lstrip": lstrip,
+            "rstrip": False, "normalized": False, "special": True}
+
+
+def mbart_tokenizer_files(path, size):
+    """mBART's tokenizer.json at ``size`` pieces: XLM-R's layout
+    (xlmr_tokenizer_files) with the 25 language codes between the pieces
+    and <mask>, as MBartConverter writes it; MBartTokenizerFast replaces the
+    template with A </s> en_XX."""
+    from advanced_rag_tpu_torch.models.hf_tokenizer import MBART_LANGUAGE_CODES
+
+    codes = list(MBART_LANGUAGE_CODES)
+    xlmr_tokenizer_files(path, size - len(codes))
+    tj = json.loads((path / "tokenizer.json").read_text())
+    pieces = tj["model"]["vocab"]
+    mask = pieces.pop()
+    pieces += [[c, 0.0] for c in codes] + [mask]
+    tj["added_tokens"] = ([t for t in tj["added_tokens"] if t["content"] != "<mask>"]
+                          + [_special_added(size - 1 - len(codes) + i, c)
+                             for i, c in enumerate(codes)]
+                          + [_special_added(size - 1, "<mask>", lstrip=True)])
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "MBartTokenizer", "src_lang": "en_XX"}))
+
+
+def pegasus_tokenizer_files(path, size):
+    """Pegasus's tokenizer.json at ``size`` pieces, as PegasusConverter
+    lays it out: <pad>, </s>, <mask_1>, <mask_2>, <unk_2> ... <unk_102>,
+    <unk>, then XLM-R's pieces here (xlmr_tokenizer_files); the charsmap,
+    Strip right, " {2,}" to "▁"; WhitespaceSplit then Metaspace; A </s>."""
+    head = ["<pad>", "</s>", "<mask_1>", "<mask_2>"] + [f"<unk_{i}>" for i in range(2, 103)]
+    xlmr_tokenizer_files(path, size - len(head) + 4)
+    tj = json.loads((path / "tokenizer.json").read_text())
+    body = tj["model"]["vocab"][4:-1]          # without <s>, <pad>, </s>, <unk>, <mask>
+    pieces = ([[t, 0.0 if i < 4 else -100.0] for i, t in enumerate(head)]
+              + [["<unk>", 0.0]] + body)
+    assert len(pieces) == size, len(pieces)
+    charsmap = tj["normalizer"]["normalizers"][0]
+    tj.update({
+        "added_tokens": [_special_added(i, t) for i, t in enumerate(head + ["<unk>"])],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            charsmap, {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "WhitespaceSplit"},
+            {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+             "split": True}]},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "model": {"type": "Unigram", "unk_id": len(head), "vocab": pieces,
+                  "byte_fallback": False}})
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PegasusTokenizer"}))
+
+
+def small_tokenizer_files(path, size):
+    """BlenderbotSmall's vocab.json + merges.txt at ``size`` entries: the
+    specials and __newln__, each letter alone and with @@, then for phase
+    4's corpus words by frequency the merges that build "word</w>" left to
+    right (each merge once), every result in the vocabulary (as "x@@", or
+    the word itself for the last), while there is room; filler last.  No
+    tokenizer_config.json: config.json's model_type takes the slow class."""
+    import numpy as np
+
+    words, _ = zipf_vocab(np.random.default_rng(11))
+    vocab = {t: i for i, t in enumerate(
+        ["__null__", "__start__", "__end__", "__unk__", "__newln__"])}
+    for ch in sorted({ch for w in words.tolist() for ch in w}):
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault(ch + "@@", len(vocab))
+    merges, seen = [], set()
+    for w in words.tolist():
+        if len(vocab) + len(w) > size:
+            break
+        cur = w[0]
+        for i, ch in enumerate(w[1:], 1):
+            last = i == len(w) - 1
+            nxt = ch + "</w>" if last else ch
+            if (cur, nxt) not in seen:
+                seen.add((cur, nxt))
+                merges.append(f"{cur} {nxt}")
+            cur += nxt
+            vocab.setdefault(cur[:-4] if last else cur + "@@", len(vocab))
+    while len(vocab) < size:
+        vocab[f"__unused{len(vocab)}__"] = len(vocab)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def encdec_flops(config, rows, seq):
+    """The multiply-adds (x2) of one encoder-decoder forward of ``rows`` x
+    ``seq`` tokens: per encoder token Q/K/V/O and the FFN, per decoder
+    token self-attention's four projections, cross-attention's Q/O (its
+    K/V over the encoder's tokens) and the FFN, and the attention products
+    Q.K and P.V over all ``seq`` keys (self, and the decoder's cross)."""
+    d, dec = config.hidden_size, config.decoder_layers
+    enc = config.num_hidden_layers * (2 * seq * (4 * d * d + 2 * d * config.intermediate_size)
+                                      + 2 * 2 * seq * seq * d)
+    dec = dec * (2 * seq * (8 * d * d + 2 * d * config.decoder_ffn_dim)
+                 + 2 * 2 * 2 * seq * seq * d)
+    return rows * (enc + dec)
+
+
+def full_depth_encdec(config, family, dtype, dev, seed):
+    """The trunk of ``config`` at the published depth of ``family`` built
+    on the card, its weights drawn there from a seeded generator."""
+    import dataclasses
+
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    published = HF_ENCDEC[family]["config"]
+    with torch.device("meta"):
+        module = build_trunk(dataclasses.replace(
+            config, num_hidden_layers=published["encoder_layers"],
+            decoder_layers=published["decoder_layers"]), dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return encoder_weights(module.to_empty(device=dev), gen).eval()
+
+
+def encdec_throughput(emb, family, texts, dev):
+    """(ii), one family and dtype: the published-depth trunk (emb.model) at
+    HF_ENCDEC_ROWS x HF_ENCDEC_TOKENS tokens, every row filled: the forward
+    alone in CUDA events and the whole encode_device call on the host
+    clock, after warm-up; the forward's TFLOP/s and share of the bf16
+    peak."""
+    import torch
+
+    cfg = emb.model.config
+    rows, seq = HF_ENCDEC_ROWS, HF_ENCDEC_TOKENS
+    k = seq // 64                            # chunks that fill ``seq`` tokens
+    docs = [" ".join(texts[i:i + k]) for i in range(1, k * rows, k)]
+    ids, mask = (torch.from_numpy(a).to(dev) for a in emb._tokenize(docs, rows))
+    if not bool(mask.all()):
+        raise AssertionError(f"hf {family} rows are not {seq} tokens")
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: emb.model(ids, mask), reps=10, warmup=2)
+    emb.encode_device(docs)
+    sync(dev)
+    t = time.perf_counter()
+    for _ in range(5):
+        emb.encode_device(docs)
+    sync(dev)
+    whole = (time.perf_counter() - t) / 5 * 1e3
+    flops = encdec_flops(cfg, rows, seq)
+    out = dict(layers=[cfg.num_hidden_layers, cfg.decoder_layers], forward_ms=fwd,
+               encode_ms=whole, rows_per_s=rows / whole * 1e3, tflop=flops / 1e12,
+               tflops_per_s=flops / fwd / 1e9,
+               bf16_peak_share=flops / fwd / 1e-3 / BF16_PEAK_FLOPS)
+    log(f"hf[{family}][{str(emb.model.dtype).removeprefix('torch.')}] "
+        f"{cfg.num_hidden_layers} + {cfg.decoder_layers} layers: {rows} x {seq} tokens "
+        f"forward {fwd:.2f} ms ({out['tflops_per_s']:.1f} TFLOP/s, "
+        f"{out['bf16_peak_share']:.3f} of the bf16 peak); encode_device {whole:.2f} ms "
+        f"({out['rows_per_s']:.1f} rows/s)")
+    return out
+
+
+def phase_hf_encdec(root, texts, queries, dev):
+    """(i): the encoder-decoder embedders at published widths (HF_ENCDEC).
+    (i) each written at its ``written`` layers with its tokenizer made here
+    (encdec_tokenizer_files), on the card against the CPU (hf_more_parity);
+    (ii) each built on the card at its published depth, f32 and bf16, timed
+    at HF_ENCDEC_ROWS x HF_ENCDEC_TOKENS (encdec_throughput); (iii) the
+    written bart-large embedder (12 + 12 layers) in bf16 behind a
+    bf16-tier manager (D = 1024) ingesting HF_ENCDEC_CHUNKS chunks, and the
+    app with RAG_RERANKER=hf: on (e)'s ELECTRA reranker answering
+    HF_ENCDEC_REQUESTS /retrieve requests from 1 client, every answer a 200
+    with finite reranked scores, K1 (bf16, D = 1024) and K3 launched and
+    held against their plain versions; (iv) the peak device memory."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+
+    t_phase = time.perf_counter()
+    base = memory_mark() if dev == "cuda" else 0
+    rec = {}
+    t = time.perf_counter()
+    for i, family in enumerate(HF_ENCDEC):
+        write_hf_checkpoint(root / family, head=False, seed=91 + 2 * i, family=family)
+    rec["write_s"] = time.perf_counter() - t
+    log(f"hf: {', '.join(HF_ENCDEC)} checkpoints written in {rec['write_s']:.2f}s (" + ", ".join(
+        f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_ENCDEC)
+        + " MB)")
+    rec["parity"] = {f: hf_more_parity(root / f, f, texts, queries, dev) for f in HF_ENCDEC}
+    runs = {}
+    for i, family in enumerate(HF_ENCDEC):
+        runs[family] = {}
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            emb = HFEmbedder(root / family, max_len=HF_ENCDEC_TOKENS, dtype=dtype, device=dev)
+            emb.model = full_depth_encdec(emb.model.config, family, dtype, dev, seed=97 + i)
+            runs[family][name] = encdec_throughput(emb, family, texts, dev)
+            del emb
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    rec["throughput"] = runs
+    emb = HFEmbedder(root / "bart", dtype=torch.bfloat16, device=dev)
+    rec["service"], launches = hf_service(
+        root, texts, queries, dev, ce_dir=root / "electra", chunks=HF_ENCDEC_CHUNKS,
+        clients=(1,), requests=HF_ENCDEC_REQUESTS, warm=False, db="service_hf_encdec.db",
+        embedder=emb)
+    rec["service"].update(embedder=HF_ENCDEC["bart"]["source"],
+                          embedder_layers=[emb.model.config.num_hidden_layers,
+                                           emb.model.config.decoder_layers],
+                          reranker=HF_FAMILIES["electra"]["source"])
+    del emb
+    rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"hf: (i) took {rec['seconds']:.2f}s; peak device memory {rec['peak_gb']} GB")
+    return rec, launches
+
+
 def phase_hf(texts, dev="cuda"):
     """Phase 13: the HF checkpoint models on the card.  At MiniLM-L6's
     width: (a) an embedder (BertModel) and a reranker
@@ -5789,8 +6129,9 @@ def phase_hf(texts, dev="cuda"):
     HF_FAMILY_CHUNKS chunks and the app with RAG_RERANKER=hf: on the
     ELECTRA reranker answers HF_FAMILY_REQUESTS /retrieve requests from
     one client; (g) the decoder embedders (phase_hf_decoders); (h) the
-    second group of encoder families (phase_hf_more).  Returns the record
-    and the launches of (c), (f), (g) and (h)."""
+    second group of encoder families (phase_hf_more); (i) the
+    encoder-decoder embedders (phase_hf_encdec).  Returns the record and
+    the launches of (c), (f), (g), (h) and (i)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -5837,6 +6178,10 @@ def phase_hf(texts, dev="cuda"):
         more_queries = snippet_queries(rng, texts[:HF_MORE_CHUNKS], 8 + HF_MORE_REQUESTS + 32)
         rec["encoders_more"], more_launches = phase_hf_more(root, texts, more_queries, dev)
         launches = {k: v + more_launches[k] for k, v in launches.items()}
+        encdec_queries = snippet_queries(rng, texts[:HF_ENCDEC_CHUNKS],
+                                         8 + HF_ENCDEC_REQUESTS + 32)
+        rec["encdec"], encdec_launches = phase_hf_encdec(root, texts, encdec_queries, dev)
+        launches = {k: v + encdec_launches[k] for k, v in launches.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None

@@ -309,7 +309,7 @@ def test_family_configs_read_as_transformers_reads_them(tmp_path):
     assert (c.pad_token_id, c.position_offset, c.layer_norm_eps) == (1, 2, 1e-5)
 
 
-@pytest.mark.parametrize("model_type", ["bart", "mbart", "gpt2", "bloom", None])
+@pytest.mark.parametrize("model_type", ["t5", "opt", "gpt2", "bloom", None])
 def test_other_families_raise_naming_them(tmp_path, model_type):
     tiny_config().save_pretrained(tmp_path)
     cfg = json.loads((tmp_path / "config.json").read_text())

@@ -59,10 +59,10 @@ CARD_SCRIPTS = [REPO / "scripts" / "torch_quality_service.py",
 
 
 #: top-level packages the port, chip_smoke.py and the card's scripts never
-#: import: the JAX stack, and the HF libraries and ``regex`` the card's
-#: machine lacks
+#: import: the JAX stack, and the HF libraries, ``sentencepiece`` and
+#: ``regex`` the card's machine lacks
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "advanced_rag_tpu", "transformers",
-             "tokenizers", "safetensors", "huggingface_hub", "regex")
+             "tokenizers", "safetensors", "huggingface_hub", "sentencepiece", "regex")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -263,7 +263,7 @@ def test_hf_modules_are_the_ports_and_the_export_script_is_not():
     for name in ("hf_checkpoint", "hf_tokenizer", "hf_bpe", "hf_unigram", "hf_bert",
                  "hf_roberta", "hf_electra", "hf_distilbert", "hf_llama", "hf_spbpe",
                  "hf_roberta_prelayernorm", "hf_albert", "hf_big_bird", "hf_roformer",
-                 "hf_embedder", "hf_cross_encoder"):
+                 "hf_bart", "hf_blenderbot_small", "hf_embedder", "hf_cross_encoder"):
         assert f"advanced_rag_tpu_torch.models.{name}" in mods, name
     export = REPO / "scripts" / "torch_export_hf.py"
     assert export not in CARD_SCRIPTS

@@ -1025,3 +1025,42 @@ def test_hf_encoder_forward_on_the_card_matches_the_cpu(cuda, family):
     got = got.cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4, float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("family", ["bart", "mbart", "pegasus", "marian", "blenderbot",
+                                    "blenderbot-small"])
+def test_hf_encdec_forward_on_the_card_matches_the_cpu(cuda, family):
+    """models/hf_bart.py (3 + 3 layers, 256 wide, each family's switches,
+    an all-padding row of id 0 and a half-padded row) at f32: the card's
+    decoder states against the same module's on the CPU within 1e-4
+    absolute (states of scale about 1)."""
+    from advanced_rag_tpu_torch.models.hf_checkpoint import HFConfig
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    config = HFConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=3,
+                      num_attention_heads=4, intermediate_size=512,
+                      max_position_embeddings=256, layer_norm_eps=1e-5,
+                      hidden_act="silu" if family == "marian" else "gelu",
+                      model_type=family, pad_token_id=1, decoder_layers=3,
+                      decoder_attention_heads=8, decoder_ffn_dim=1024,
+                      scale_embedding=family in ("mbart", "pegasus", "marian", "blenderbot"),
+                      decoder_start_token_id=None if family == "mbart" else 2)
+    torch.manual_seed(0)
+    model = build_trunk(config, torch.float32)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_((1.0 + 0.05 * torch.randn_like(p)) if "norm" in name and
+                    name.endswith("weight") else 0.05 * torch.randn_like(p))
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, config.vocab_size, (4, 128), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, 70:] = 0
+    ids[1, 70:] = 1
+    mask[3] = 0
+    ids[3] = 0
+    with torch.inference_mode():
+        want, _ = model(ids, mask)
+        got, _ = model.to(cuda)(ids.to(cuda), mask.to(cuda))
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4, float((got - want).abs().max())
