@@ -126,10 +126,11 @@ class Attention(nn.Module):
 
 
 class Layer(nn.Module):
-    """An encoder layer, or with ``cross`` a decoder layer."""
+    """An encoder layer, or with ``cross`` a decoder layer; ``pre_ln``
+    (default: the family's) places the LayerNorms."""
 
     def __init__(self, config: HFConfig, heads: int, ffn: int, cross: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, pre_ln: Optional[bool] = None):
         super().__init__()
         d = config.hidden_size
         self.self_attn = Attention(d, heads, dtype)
@@ -141,7 +142,7 @@ class Layer(nn.Module):
         self.fc2 = nn.Linear(ffn, d, dtype=dtype)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self.act = activation(config.hidden_act)
-        self.pre_ln = config.model_type in PRE_LN
+        self.pre_ln = config.model_type in PRE_LN if pre_ln is None else pre_ln
 
     def _block(self, x: torch.Tensor, ln: nn.LayerNorm, f, dtype: torch.dtype
                ) -> torch.Tensor:

@@ -22,6 +22,18 @@ differs in its template only), so the card's machine needs neither
    text alone; a ``RobertaProcessing`` is RoBERTa's), and ``A </s>``
    where only ``vocab.json`` + ``merges.txt`` are given.
 
+``GPT2TokenizerFast`` (which GPT-Neo's and GPT-J's checkpoints take) is
+the same pipeline with the ``ByteLevel`` post-processor: no special
+tokens around the text (``<|endoftext|> A`` where its converter was given
+``add_bos_token``), no pad token unless the config names one (the
+embedder then refuses the checkpoint), and padding on
+``tokenizer_config.json``'s ``padding_side`` (default right).
+``BloomTokenizerFast`` pre-tokenizes with a ``Sequence``: a ``Split`` on
+``BLOOM_SPLIT`` (``bloom_split``: each match of `` ?`` and a run of
+characters other than whitespace and ``( | . , ! ? … 。 ， 、 । ۔ ، )``,
+and each stretch between matches, is a word) then ``ByteLevel`` without
+its regex; its published config pads on the left.
+
 Files: ``tokenizer.json`` (model ``BPE``, pre-tokenizer ``ByteLevel``,
 post-processor ``RobertaProcessing`` or the equal ``TemplateProcessing``),
 else ``vocab.json`` + ``merges.txt`` (its first line, the ``#version``
@@ -34,19 +46,22 @@ The letter, number and whitespace classes of the split are the crate's
 (Oniguruma's Unicode tables), code point by code point: Python's
 ``unicodedata`` (Unicode 15.0) with the ``_CRATE_*`` differences printed
 by ``scripts/torch_hf_unicode_tables.py`` and held against the crate over
-every code point by ``tests/test_torch_hf_bpe.py``.
+every code point by ``tests/test_torch_hf_bpe.py``; BLOOM's split by
+``tests/test_torch_hf_gpt_tokenizer.py``.
 """
 
 from __future__ import annotations
 
 import heapq
+import json
 import re
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .hf_checkpoint import checkpoint_dir, read_json
-from .hf_tokenizer import (TemplateTokenizer, added_tokens, read_tokenizer_config,
-                           roberta_template, special_id, suffix_template)
+from .hf_tokenizer import (BLOOM_SPECIALS, GPT2_SPECIALS, TemplateTokenizer, affix_template,
+                           added_tokens, read_tokenizer_config, roberta_template, special_id,
+                           suffix_template)
 
 # Where Oniguruma's \p{L} / \p{N} / \s in the crate and Python 3.12's
 # unicodedata (Unicode 15.0: categories L*, N*; White_Space) disagree.
@@ -102,6 +117,34 @@ def char_class(ch: str) -> int:
     if cat == "N" and cp not in _NOT[NUMBER]:
         return NUMBER
     return OTHER
+
+
+def _space_chars() -> List[str]:
+    """Every character the crate's ``\\s`` matches."""
+    chars = (set(_WHITE_SPACE) | _expand(_CRATE_SPACE)) - _NOT[SPACE]
+    return [chr(c) for c in sorted(chars)]
+
+
+#: BLOOM's Split pattern as its tokenizer.json writes it (Oniguruma: the
+#: nested class is part of the outer one), and the same in Python's re
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
+_BLOOM_SPLIT = re.compile(" ?[^" + re.escape("(|.,!?…。，、।۔،)")
+                          + "".join(map(re.escape, _space_chars())) + "]+")
+
+
+def bloom_split(text: str) -> List[str]:
+    """BLOOM's ``Split`` pre-tokenizer (behavior ``Isolated``): each match
+    of ``BLOOM_SPLIT`` and each stretch between two matches, in order."""
+    out: List[str] = []
+    pos = 0
+    for m in _BLOOM_SPLIT.finditer(text):
+        if m.start() > pos:
+            out.append(text[pos:m.start()])
+        out.append(m.group())
+        pos = m.end()
+    if pos < len(text):
+        out.append(text[pos:])
+    return out
 
 
 _CLASS: Dict[str, int] = {}
@@ -217,14 +260,20 @@ def merge_ids(ids: List[int], merges: Dict[Tuple[int, int], Tuple[int, int]]
 
 
 class ByteLevelBPETokenizer(TemplateTokenizer):
-    """``RobertaTokenizerFast`` on its own: ``__call__`` returns numpy
-    ``input_ids`` and ``attention_mask`` [B, L] int64."""
+    """``RobertaTokenizerFast`` (or GPT-2's, BLOOM's class) on its own:
+    ``__call__`` returns numpy ``input_ids`` and ``attention_mask`` [B, L]
+    int64.  ``split``: the pre-tokenizer's split of a piece into words
+    (GPT-2's ``pre_tokenize``, or BLOOM's ``bloom_split``)."""
 
     def __init__(self, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]], *,
-                 added, cls_id: Optional[int], sep_id: Optional[int], pad_id: int,
-                 add_prefix_space: bool = False, suffix: Optional[Sequence[int]] = None):
+                 added, cls_id: Optional[int], sep_id: Optional[int], pad_id: Optional[int],
+                 add_prefix_space: bool = False, suffix: Optional[Sequence[int]] = None,
+                 prefix: Optional[Sequence[int]] = None, padding_side: str = "right",
+                 truncation_side: str = "right", split=None):
         super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id,
-                         suffix=suffix)
+                         suffix=suffix, prefix=prefix, padding_side=padding_side,
+                         truncation_side=truncation_side)
+        self.split = pre_tokenize if split is None else split
         self.vocab = dict(vocab)
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for rank, (a, b) in enumerate(merges):
@@ -237,38 +286,56 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
 
     @classmethod
     def from_pretrained(cls, path, family: str = "roberta") -> "ByteLevelBPETokenizer":
-        """``family`` "roberta" (RoBERTa's and BART's class) or
-        "blenderbot"."""
+        """``family`` "roberta" (RoBERTa's and BART's class), "blenderbot",
+        "gpt2" (GPT-2's class, which GPT-Neo's and GPT-J's checkpoints
+        take) or "bloom"."""
         path = checkpoint_dir(path)
         cfg = read_tokenizer_config(path)
-        suffix = None
+        specials = {"gpt2": GPT2_SPECIALS, "bloom": BLOOM_SPECIALS}.get(family)
+        suffix = prefix = split = None
+        gpt = family in ("gpt2", "bloom")
         if (path / "tokenizer.json").exists():
             tj = read_json(path / "tokenizer.json")
             model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
+            if family == "bloom":
+                pre, split = cls._bloom_pre_tokenizer(pre, f"{path}/tokenizer.json")
             if model.get("type") != "BPE" or pre.get("type") != "ByteLevel" \
                     or tj.get("normalizer"):
                 raise ValueError(
                     f"{path}/tokenizer.json is not a byte-level BPE tokenizer "
                     f"(model {model.get('type')}, pre-tokenizer {pre.get('type')}, "
                     f"normalizer {(tj.get('normalizer') or {}).get('type')})")
-            # RoBERTa's converter sets none of these
+            # RoBERTa's and GPT-2's converters set none of these
             for where, key, ok in (
                     (model, "dropout", None), (model, "unk_token", None),
                     (model, "continuing_subword_prefix", ""),
                     (model, "end_of_word_suffix", ""), (model, "byte_fallback", False),
-                    (model, "ignore_merges", False), (pre, "use_regex", True)):
+                    (model, "ignore_merges", False),
+                    (pre, "use_regex", family != "bloom")):
                 if where.get(key) not in (None, ok):
                     raise ValueError(f"{path}/tokenizer.json: {key} "
                                      f"{where.get(key)!r} is not supported")
             vocab = model["vocab"]
             merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
                       for m in model.get("merges", [])]
-            added = added_tokens(tj.get("added_tokens", []), cfg, vocab)
+            added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials)
             post = tj.get("post_processor") or {}
-            if family == "blenderbot" and post.get("type") == "TemplateProcessing":
+            if gpt:
+                # GPT-2's converter writes a ByteLevel post-processor (no
+                # special tokens) or, with add_bos_token, <|endoftext|> $A
+                prefix, suffix = (([], []) if post.get("type") in (None, "ByteLevel")
+                                  else affix_template(post))
+            elif family == "blenderbot" and post.get("type") == "TemplateProcessing":
                 suffix = suffix_template(post)
-            cls_id, sep_id = (None, None) if suffix else roberta_template(post)
+            cls_id, sep_id = (None, None) if suffix is not None else roberta_template(post)
+            # the class's add_prefix_space replaces a top-level ByteLevel's;
+            # BLOOM's class keeps its Sequence's unless it is set
+            add_prefix_space = bool(cfg.get("add_prefix_space", False)) or (
+                family == "bloom" and bool(pre.get("add_prefix_space")))
         else:
+            if family == "bloom":
+                raise FileNotFoundError(f"{path} has no tokenizer.json, which "
+                                        "BloomTokenizerFast needs")
             if not (path / "vocab.json").exists() or not (path / "merges.txt").exists():
                 raise FileNotFoundError(
                     f"{path} has neither tokenizer.json nor vocab.json + merges.txt")
@@ -276,14 +343,40 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
             lines = (path / "merges.txt").read_text(encoding="utf-8").split("\n")[1:-1]
             # the slow tokenizer's bpe_ranks: each pair once, where it first stands
             merges = list(dict.fromkeys(tuple(line.split()) for line in lines))
-            added = added_tokens([], cfg, vocab)
-            cls_id, sep_id = (special_id(cfg, n, added) for n in ("cls_token", "sep_token"))
+            added = added_tokens([], cfg, vocab, specials)
+            cls_id, sep_id = (None, None) if gpt else (
+                special_id(cfg, n, added) for n in ("cls_token", "sep_token"))
             if family == "blenderbot":
                 # BlenderbotConverter's template
                 suffix = [special_id(cfg, "eos_token", added)]
+            elif gpt:
+                # GPT2Converter's: <|endoftext|> $A with add_bos_token
+                suffix = []
+                prefix = ([special_id(cfg, "bos_token", added, specials)]
+                          if cfg.get("add_bos_token") else [])
+            add_prefix_space = bool(cfg.get("add_prefix_space", False))
+        if family == "bloom" and add_prefix_space:
+            raise ValueError(f"{path}: add_prefix_space true is not supported for BLOOM's "
+                             "tokenizer (its class rewrites the pickled pre-tokenizer)")
         return cls(vocab, merges, added=added, cls_id=cls_id, sep_id=sep_id,
-                   pad_id=special_id(cfg, "pad_token", added),
-                   add_prefix_space=bool(cfg.get("add_prefix_space", False)), suffix=suffix)
+                   pad_id=special_id(cfg, "pad_token", added, specials),
+                   add_prefix_space=add_prefix_space, suffix=suffix, prefix=prefix,
+                   padding_side=cfg.get("padding_side", "right"),
+                   truncation_side=cfg.get("truncation_side", "right"), split=split)
+
+    @staticmethod
+    def _bloom_pre_tokenizer(pre: dict, where: str):
+        """BLOOM's ``Sequence`` of ``Split`` (``BLOOM_SPLIT``, Isolated)
+        and ``ByteLevel`` without its regex: that ``ByteLevel`` and
+        ``bloom_split``; any other form raises."""
+        steps = pre.get("pretokenizers") or []
+        split = steps[0] if len(steps) == 2 else {}
+        if (pre.get("type") != "Sequence" or split.get("type") != "Split"
+                or split.get("pattern") != {"Regex": BLOOM_SPLIT}
+                or split.get("behavior") != "Isolated" or split.get("invert")):
+            raise ValueError(f"{where}: the pre-tokenizer is not BLOOM's Split then "
+                             f"ByteLevel: {json.dumps(pre)[:200]}")
+        return steps[1], bloom_split
 
     def _merge(self, word: str) -> Tuple[int, ...]:
         """The crate's ``merge_word`` + ``merge_all`` on one mapped word."""
@@ -294,7 +387,7 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
         if self.add_prefix_space and text and not text.startswith(" "):
             text = " " + text
         out: List[int] = []
-        for word in pre_tokenize(text):
+        for word in self.split(text):
             ids = self._words.get(word)
             if ids is None:
                 mapped = "".join(_BYTE_TABLE[b] for b in word.encode("utf-8"))
@@ -306,5 +399,5 @@ class ByteLevelBPETokenizer(TemplateTokenizer):
         return out
 
 
-__all__ = ["ByteLevelBPETokenizer", "bytes_to_unicode", "char_class", "merge_ids",
-           "pre_tokenize", "pre_tokenize_any"]
+__all__ = ["BLOOM_SPLIT", "ByteLevelBPETokenizer", "bloom_split", "bytes_to_unicode",
+           "char_class", "merge_ids", "pre_tokenize", "pre_tokenize_any"]

@@ -38,6 +38,23 @@ load for a RAG deployment:
   shared table, PyTorch its own ``decoder.embed_tokens``), and a
   ``decoder_start_token_id`` of null outside mBART (Flax's shift cannot
   start the decoder row);
+- the GPT families ``gpt2`` / ``gpt-sw3``, ``gpt_neo``, ``gptj``, ``bloom``
+  and ``xglm`` (``GPT``): each family's own field names (GPT-2's
+  ``n_embd``, ``n_layer``, ``n_head``, ``n_inner``, ``n_positions``;
+  GPT-Neo's ``attention_types`` and ``window_size``; GPT-J's
+  ``rotary_dim``; BLOOM's ``n_embed`` / ``hidden_size``, ``n_head`` and
+  ``apply_residual_connection_post_layernorm``; XGLM's ``d_model``,
+  ``num_layers``, ``attention_heads``, ``ffn_dim`` and
+  ``scale_embedding``), ``layer_norm_epsilon`` and
+  ``activation_function``.  Where Flax computes another model than the
+  checkpoint's, ``read_config`` raises naming the field: GPT-2's
+  ``scale_attn_weights: false`` and ``scale_attn_by_inverse_layer_idx:
+  true`` (Flax reads neither), GPT-J's ``rotary_dim: null`` (both
+  frameworks then rotate the heads with a table as wide as the model,
+  which no head fits), a BLOOM ``n_head`` that is not a power of two
+  (Flax's ALiBi slopes then call ``jnp.cat``, which does not exist) and
+  BLOOM's ``slow_but_exact: true`` with ``pretraining_tp`` over 1
+  (PyTorch then drops the dense layers' biases, Flax reads neither);
 - the weights: ``model.safetensors`` (a hand parser: an 8-byte header
   length, a JSON header, raw little-endian F32/F16/BF16/I64 bytes read
   with ``torch.frombuffer``), else ``pytorch_model.bin``
@@ -55,7 +72,12 @@ load for a RAG deployment:
   feeds both stacks (``encoder.`` / ``decoder.embed_tokens.weight``, its
   tied copies, are dropped), and Marian's and Pegasus's saved
   ``embed_positions.weight`` is dropped: Flax computes the sinusoids
-  itself and reads neither.
+  itself and reads neither.  The GPT families' prefix is ``transformer.``
+  (XGLM's ``model.``; a bare ``GPT2Model`` has none); old GPT-2, GPT-Neo
+  and GPT-J checkpoints' causal-mask buffers (``attn.bias``,
+  ``attn.masked_bias``), GPT-2's cross-attention weights (Flax builds
+  them, but no embedder feeds them) and any saved ``embed_positions``
+  are dropped.
 """
 
 from __future__ import annotations
@@ -82,8 +104,14 @@ ENCODERS_MORE = ("roberta-prelayernorm", "albert", "big_bird", "roformer")
 ENCDEC = ("bart", "mbart", "pegasus", "marian", "blenderbot", "blenderbot-small")
 #: the encoder-decoders whose positions are sinusoids computed at build time
 SINUSOIDAL = ("pegasus", "marian")
+#: the GPT families (hf_gpt2.py, hf_bloom.py, hf_xglm.py); JAX's
+#: cross-encoder serves none
+GPT = ("gpt2", "gpt-sw3", "gpt_neo", "gptj", "bloom", "xglm")
+#: the families whose trunk is built without storage and filled from the
+#: checkpoint on the device (no buffer to initialize)
+LARGE = DECODERS + ENCDEC + GPT
 FAMILIES = (("bert", "roberta", "xlm-roberta", "electra", "distilbert") + ENCODERS_MORE
-            + DECODERS + ENCDEC)
+            + DECODERS + ENCDEC + GPT)
 #: the attention types of Flax BigBird
 BIG_BIRD_ATTENTION = ("original_full", "block_sparse")
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
@@ -97,7 +125,8 @@ _PREFIX = {"bert": "bert.", "roberta": "roberta.", "xlm-roberta": "roberta.",
            "electra": "electra.", "distilbert": "distilbert.",
            "roberta-prelayernorm": "roberta_prelayernorm.", "albert": "albert.",
            "big_bird": "bert.", "roformer": "roformer.",
-           **{f: "model." for f in DECODERS + ENCDEC}}
+           **{f: "model." for f in DECODERS + ENCDEC + ("xglm",)},
+           **{f: "transformer." for f in GPT if f != "xglm"}}
 _TRUNK = {"bert": ("embeddings.", "encoder."),
           "roberta": ("embeddings.", "encoder."),
           "xlm-roberta": ("embeddings.", "encoder."),
@@ -108,7 +137,16 @@ _TRUNK = {"bert": ("embeddings.", "encoder."),
           "big_bird": ("embeddings.", "encoder."),
           "roformer": ("embeddings.", "encoder."),
           **{f: ("embed_tokens.", "layers.", "norm.") for f in DECODERS},
-          **{f: ("shared.", "encoder.", "decoder.") for f in ENCDEC}}
+          **{f: ("shared.", "encoder.", "decoder.") for f in ENCDEC},
+          **{f: ("wte.", "wpe.", "h.", "ln_f.") for f in GPT},
+          "bloom": ("word_embeddings.", "word_embeddings_layernorm.", "h.", "ln_f."),
+          "xglm": ("embed_tokens.", "layers.", "layer_norm.")}
+#: the GPT families' saved buffers and the weights no embedder runs (old
+#: checkpoints' causal masks, GPT-2's cross-attention, saved position
+#: tables Flax computes itself), by the end of their names
+_GPT_DROPPED = (".attn.bias", ".attn.masked_bias", ".attn.attention.bias",
+                ".attn.attention.masked_bias", ".attn.embed_positions")
+_GPT_DROPPED_PARTS = (".crossattention.", ".ln_cross_attn.", "embed_positions.")
 #: the families whose sequence classifier reads the pooler (BERT's and
 #: ALBERT's); the others' trunks never run theirs
 _POOLED = ("bert", "albert")
@@ -223,6 +261,13 @@ class HFConfig:
     decoder_ffn_dim: int = 0
     scale_embedding: bool = False
     decoder_start_token_id: Optional[int] = None
+    #: the GPT families: GPT-J's rotated head columns, GPT-Neo's local
+    #: window and each layer's attention ("global" or "local"), BLOOM's
+    #: residuals taken after the LayerNorms
+    rotary_dim: Optional[int] = None
+    window_size: int = 0
+    attention_layers: Tuple[str, ...] = ()
+    residual_post_ln: bool = False
 
     @property
     def position_offset(self) -> int:
@@ -258,6 +303,8 @@ def read_config(path) -> HFConfig:
         return _decoder_config(cfg, model_type, what)
     if model_type in ENCDEC:
         return _encdec_config(cfg, model_type, what)
+    if model_type in GPT:
+        return _gpt_config(cfg, model_type, what)
     if model_type == "distilbert":
         cfg = dict(cfg, hidden_size=cfg.get("dim", 768),
                    intermediate_size=cfg.get("hidden_dim", 3072),
@@ -414,6 +461,97 @@ def _encdec_config(cfg: dict, model_type: str, what: str) -> HFConfig:
         decoder_start_token_id=None if model_type == "mbart" else int(start))
 
 
+# transformers' config classes' defaults, under each GPT family's own names
+_GPT_DEFAULTS = {
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12, n_head=12,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5),
+    "gpt_neo": dict(vocab_size=50257, max_position_embeddings=2048, hidden_size=2048,
+                    num_layers=24, num_heads=16, window_size=256,
+                    activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                    attention_types=[[["global", "local"], 12]]),
+    "gptj": dict(vocab_size=50400, n_positions=2048, n_embd=4096, n_layer=28, n_head=16,
+                 rotary_dim=64, activation_function="gelu_new", layer_norm_epsilon=1e-5),
+    "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8,
+                  layer_norm_epsilon=1e-5),
+    "xglm": dict(vocab_size=256008, max_position_embeddings=2048, d_model=1024,
+                 ffn_dim=4096, num_layers=24, attention_heads=16,
+                 activation_function="gelu", scale_embedding=True, pad_token_id=1),
+}
+_GPT_DEFAULTS["gpt-sw3"] = _GPT_DEFAULTS["gpt2"]
+
+
+def _gpt_config(cfg: dict, model_type: str, what: str) -> HFConfig:
+    """The config of a GPT-2 / GPT-SW3, GPT-Neo, GPT-J, BLOOM or XGLM
+    checkpoint, read under each family's own field names; the fields that
+    Flax's module would compute another model from raise."""
+    cfg = {**_GPT_DEFAULTS[model_type], **cfg}
+    act = cfg.get("activation_function", "gelu_new")
+    if model_type != "bloom" and act not in DECODER_ACTIVATIONS:
+        raise ValueError(f"{what} activation_function {act!r} is not supported "
+                         f"(supported: {', '.join(DECODER_ACTIVATIONS)})")
+    if model_type in ("gpt2", "gpt-sw3"):
+        if not cfg.get("scale_attn_weights", True):
+            raise ValueError(f"{what} scale_attn_weights false is not supported: the JAX "
+                             "reference's Flax GPT-2 ignores it and divides the logits "
+                             "by sqrt(head_dim)")
+        if cfg.get("scale_attn_by_inverse_layer_idx"):
+            raise ValueError(f"{what} scale_attn_by_inverse_layer_idx true is not "
+                             "supported: the JAX reference's Flax GPT-2 ignores it")
+    if model_type == "xglm":
+        hidden, layers = int(cfg["d_model"]), int(cfg["num_layers"])
+        heads, inner = int(cfg["attention_heads"]), int(cfg["ffn_dim"])
+        positions, eps = int(cfg["max_position_embeddings"]), 1e-5
+    elif model_type == "bloom":
+        # BloomConfig takes the older n_embed over hidden_size
+        hidden = int(cfg.get("n_embed") or cfg["hidden_size"])
+        layers, heads, inner = int(cfg["n_layer"]), int(cfg["n_head"]), 4 * hidden
+        positions, eps = 0, float(cfg["layer_norm_epsilon"])
+        if heads & (heads - 1):
+            raise ValueError(f"{what} n_head {heads} is not supported: the JAX reference's "
+                             "Flax ALiBi slopes for a head count that is not a power of "
+                             "two call jnp.cat, which does not exist (AttributeError)")
+        if cfg.get("slow_but_exact") and int(cfg.get("pretraining_tp") or 1) > 1:
+            raise ValueError(f"{what} slow_but_exact true with pretraining_tp "
+                             f"{cfg['pretraining_tp']} is not supported: PyTorch's BLOOM then "
+                             "leaves out the dense layers' biases, which the JAX "
+                             "reference's Flax BLOOM adds (it reads neither field)")
+    elif model_type == "gpt_neo":
+        hidden, layers = int(cfg["hidden_size"]), int(cfg["num_layers"])
+        heads = int(cfg["num_heads"])
+        inner = int(cfg.get("intermediate_size") or 4 * hidden)
+        positions, eps = int(cfg["max_position_embeddings"]), float(cfg["layer_norm_epsilon"])
+    else:
+        hidden, layers, heads = int(cfg["n_embd"]), int(cfg["n_layer"]), int(cfg["n_head"])
+        inner = int(cfg.get("n_inner") or 4 * hidden)
+        positions, eps = int(cfg["n_positions"]), float(cfg["layer_norm_epsilon"])
+    if hidden % heads:
+        raise ValueError(f"{what} {heads} heads do not divide the width {hidden}")
+    attention = ()
+    if model_type == "gpt_neo":
+        attention = tuple(kind for kinds, n in cfg["attention_types"]
+                          for _ in range(int(n)) for kind in kinds)
+        if len(attention) != layers or set(attention) - {"global", "local"}:
+            raise ValueError(f"{what} attention_types {cfg['attention_types']!r} do not "
+                             f"give 'global' or 'local' to each of the {layers} layers")
+    rotary = cfg.get("rotary_dim")
+    if model_type == "gptj" and rotary is None:
+        raise ValueError(f"{what} rotary_dim null is not supported: the JAX reference's "
+                         "Flax GPT-J then rotates each head with a table as wide as the "
+                         "model, which does not fit a head")
+    pad = cfg.get("pad_token_id")
+    return HFConfig(
+        vocab_size=int(cfg["vocab_size"]), hidden_size=hidden, num_hidden_layers=layers,
+        num_attention_heads=heads, intermediate_size=inner,
+        max_position_embeddings=positions, type_vocab_size=0, layer_norm_eps=eps,
+        hidden_act="gelu_new" if model_type == "bloom" else act, model_type=model_type,
+        pad_token_id=int(pad or 0),
+        scale_embedding=bool(cfg.get("scale_embedding", False)),
+        rotary_dim=int(rotary) if model_type == "gptj" else None,
+        window_size=int(cfg.get("window_size") or 0) if model_type == "gpt_neo" else 0,
+        attention_layers=attention,
+        residual_post_ln=bool(cfg.get("apply_residual_connection_post_layernorm", False)))
+
+
 def read_safetensors(file) -> Dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file, as views of one buffer."""
     size = os.path.getsize(file)
@@ -518,10 +656,12 @@ def family_state(raw: Dict[str, torch.Tensor], config: HFConfig, *,
                          "decoder.embed_positions.weight"}
     if config.sinusoidal_pos_embds:
         computed.add("embeddings.position_embeddings.weight")
+    gpt = family in GPT
     out: Dict[str, torch.Tensor] = {}
     for name, t in raw.items():
         trunk = name[len(prefix):] if name.startswith(prefix) else name
-        if trunk in computed:
+        if trunk in computed or gpt and (trunk.endswith(_GPT_DROPPED) or any(
+                part in f".{trunk}" for part in _GPT_DROPPED_PARTS)):
             continue
         if trunk.startswith(trunk_parts):
             key = f"{prefix}{trunk}" if head else trunk
@@ -546,7 +686,7 @@ def load_checkpoint(path, *, head: bool, pooler: bool = True
 
 
 __all__ = ["ACTIVATIONS", "BIG_BIRD_ATTENTION", "DECODERS", "ENCDEC", "ENCODERS_MORE",
-           "FAMILIES", "SINUSOIDAL",
+           "FAMILIES", "GPT", "LARGE", "SINUSOIDAL",
            "HFConfig", "checkpoint_dir",
            "family_state", "load_checkpoint", "read_config", "read_json",
            "read_safetensors", "read_state_dict"]

@@ -25,7 +25,9 @@ for BART and mBART JAX's class passes ``token_type_ids=`` to
 ``FlaxBartForSequenceClassification`` / ``FlaxMBartForSequenceClassification``,
 which take none (``TypeError`` at the first score), and Pegasus, Marian,
 Blenderbot and BlenderbotSmall have no Flax sequence classifier
-(``ValueError`` "Unrecognized configuration class" at construction).
+(``ValueError`` "Unrecognized configuration class" at construction).  Nor
+do the GPT families (GPT-2, GPT-SW3, GPT-Neo, GPT-J, BLOOM, XGLM):
+``FlaxAutoModelForSequenceClassification`` has no class for any of them.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .. import DeviceLike, resolve_device
 from .hf_albert import AlbertForSequenceClassification
 from .hf_bert import BertForSequenceClassification
 from .hf_big_bird import BigBirdForSequenceClassification
-from .hf_checkpoint import DECODERS, ENCDEC, HFConfig, load_checkpoint, read_config
+from .hf_checkpoint import DECODERS, ENCDEC, GPT, HFConfig, load_checkpoint, read_config
 from .hf_electra import ElectraForSequenceClassification
 from .hf_embedder import _bucket, check_max_len
 from .hf_roberta import RobertaForSequenceClassification
@@ -81,7 +83,7 @@ class HFCrossEncoder:
                 f"{path}: model_type {model_type!r} does not serve as a "
                 "cross-encoder: the JAX reference passes token_type_ids, which its "
                 "Flax sequence classifier does not take (TypeError)")
-        if model_type in DECODERS + ENCDEC:
+        if model_type in DECODERS + ENCDEC + GPT:
             raise ValueError(
                 f"{path}: model_type {model_type!r} does not serve as a "
                 "cross-encoder: the JAX reference's "

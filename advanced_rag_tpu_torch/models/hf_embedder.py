@@ -9,12 +9,14 @@ interface that ``MultiIndexManager`` takes.  Nothing is downloaded, and
 nothing of ``transformers`` is needed: ``hf_checkpoint.py`` reads the
 directory (``model_type`` bert, roberta, xlm-roberta, electra,
 distilbert, roberta-prelayernorm, albert, big_bird, roformer, llama,
-mistral, gemma, or the encoder-decoders bart, mbart, pegasus, marian,
-blenderbot and blenderbot-small), ``hf_tokenizer.load_tokenizer``
+mistral, gemma, the encoder-decoders bart, mbart, pegasus, marian,
+blenderbot and blenderbot-small, or the GPT families gpt2, gpt-sw3,
+gpt_neo, gptj, bloom and xglm), ``hf_tokenizer.load_tokenizer``
 tokenizes as the family's tokenizer does and ``hf_bert.py`` /
 ``hf_roberta.py`` / ``hf_electra.py`` / ``hf_distilbert.py`` /
 ``hf_roberta_prelayernorm.py`` / ``hf_albert.py`` / ``hf_big_bird.py`` /
-``hf_roformer.py`` / ``hf_llama.py`` / ``hf_bart.py`` run the model.  An
+``hf_roformer.py`` / ``hf_llama.py`` / ``hf_bart.py`` / ``hf_gpt2.py`` /
+``hf_bloom.py`` / ``hf_xglm.py`` run the model (``TRUNKS``).  An
 encoder-decoder embeds with its decoder's last state, pooled over the
 encoder's mask, as JAX's class does with what ``FlaxAutoModel`` returns.
 A BigBird checkpoint's ``max_len`` must be a multiple of its
@@ -25,9 +27,11 @@ JAX's class raises at its first encode.
 The token types fed to the trunk are what ``FlaxAutoModel`` fills in when
 JAX's class passes none: zeros, except ELECTRA's ones.  A decoder's
 tokenizer pads on the side its ``tokenizer_config.json`` names (left by
-default, as ``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` do), and
-the model's positions run over the padded row, as JAX's do.  A
-tokenizer without a pad token (Llama's and Mistral's ship none) raises
+default, as ``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` do; right
+for GPT-2's and XGLM's classes, BLOOM's published config says left), and
+the model's positions run over the padded row, as JAX's do (BLOOM's
+ALiBi counts the live tokens).  A tokenizer without a pad token (Llama's,
+Mistral's and GPT-2's ship none) raises
 ``ValueError`` here, at construction; JAX's class raises at its first
 encode ("Asking to pad but the tokenizer does not have a padding token").
 """
@@ -45,14 +49,17 @@ from .hf_albert import AlbertModel
 from .hf_bert import BertModel
 from .hf_bart import EncoderDecoderModel
 from .hf_big_bird import BigBirdModel, check_length
-from .hf_checkpoint import DECODERS, ENCDEC, HFConfig, load_checkpoint
+from .hf_bloom import BloomModel
+from .hf_checkpoint import DECODERS, ENCDEC, GPT, LARGE, HFConfig, load_checkpoint
 from .hf_distilbert import DistilBertModel
 from .hf_electra import ElectraModel
+from .hf_gpt2 import GPTModel
 from .hf_llama import DecoderModel
 from .hf_roberta import RobertaModel
 from .hf_roberta_prelayernorm import RobertaPreLayerNormModel
 from .hf_roformer import RoFormerModel
 from .hf_tokenizer import load_tokenizer
+from .hf_xglm import XGLMModel
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -67,9 +74,10 @@ def check_max_len(max_len: int, config: HFConfig, path) -> None:
     # RoBERTa's ids run from pad_token_id + 1 to max_len + pad_token_id;
     # an encoder-decoder's table holds max_position_embeddings rows past
     # its offset (Blenderbot-400M's 128, BART's 1024), and so does Flax's
-    # causal mask.
+    # causal mask.  BLOOM's ALiBi has no table, and Flax builds its causal
+    # mask at the batch's length.
     positions = config.max_position_embeddings
-    if max_len + config.position_offset > positions:
+    if config.model_type != "bloom" and max_len + config.position_offset > positions:
         extra = (f" past RoBERTa's offset of {config.position_offset}"
                  if config.position_offset else "")
         raise ValueError(f"max_len {max_len}{extra} exceeds the {positions} "
@@ -78,27 +86,23 @@ def check_max_len(max_len: int, config: HFConfig, path) -> None:
         check_length(max_len, config, f"{path}: max_len")
 
 
+#: each family's trunk module (BERT's for any other encoder)
+TRUNKS = {**{f: DecoderModel for f in DECODERS},
+          **{f: EncoderDecoderModel for f in ENCDEC},
+          **{f: GPTModel for f in GPT if f not in ("bloom", "xglm")},
+          "bloom": BloomModel, "xglm": XGLMModel,
+          "roberta": RobertaModel, "xlm-roberta": RobertaModel, "electra": ElectraModel,
+          "distilbert": DistilBertModel, "roberta-prelayernorm": RobertaPreLayerNormModel,
+          "big_bird": BigBirdModel, "roformer": RoFormerModel}
+
+
 def build_trunk(config: HFConfig, dtype: torch.dtype):
     """The family's trunk module, without a pooler."""
-    if config.model_type in DECODERS:
-        return DecoderModel(config, dtype=dtype)
-    if config.model_type in ENCDEC:
-        return EncoderDecoderModel(config, dtype=dtype)
-    if config.model_type in ("roberta", "xlm-roberta"):
-        return RobertaModel(config, dtype=dtype)
-    if config.model_type == "electra":
-        return ElectraModel(config, dtype=dtype)
-    if config.model_type == "distilbert":
-        return DistilBertModel(config, dtype=dtype)
-    if config.model_type == "roberta-prelayernorm":
-        return RobertaPreLayerNormModel(config, dtype=dtype)
     if config.model_type == "albert":
         return AlbertModel(config, pooler=False, dtype=dtype)
-    if config.model_type == "big_bird":
-        return BigBirdModel(config, dtype=dtype)
-    if config.model_type == "roformer":
-        return RoFormerModel(config, dtype=dtype)
-    return BertModel(config, pooler=False, dtype=dtype)
+    cls = TRUNKS.get(config.model_type)
+    return (cls(config, dtype=dtype) if cls is not None
+            else BertModel(config, pooler=False, dtype=dtype))
 
 
 class HFEmbedder:
@@ -114,10 +118,10 @@ class HFEmbedder:
                              "embedder pads every batch to max_len")
         config, state = load_checkpoint(path, head=False, pooler=False)
         check_max_len(max_len, config, path)
-        if config.model_type in DECODERS + ENCDEC:
+        if config.model_type in LARGE:
             # billions of weights skip their random init: the module is
             # built without storage and filled from the checkpoint on the
-            # device (neither family holds a buffer to initialize)
+            # device (none of these families holds a buffer to initialize)
             with torch.device("meta"):
                 model = build_trunk(config, dtype)
             model = model.to_empty(device=self.device)
@@ -165,4 +169,4 @@ class HFEmbedder:
         return out
 
 
-__all__ = ["HFEmbedder", "build_trunk", "check_max_len"]
+__all__ = ["HFEmbedder", "TRUNKS", "build_trunk", "check_max_len"]

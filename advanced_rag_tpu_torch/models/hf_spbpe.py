@@ -29,9 +29,10 @@ machine needs neither ``transformers`` nor ``tokenizers``:
 5. the template that ``update_post_processor`` builds from
    ``tokenizer_config.json``'s ``add_bos_token`` (default true) and
    ``add_eos_token`` (default false): ``[bos] A [eos]``, in place of the
-   post-processor in ``tokenizer.json``; truncation on
-   ``truncation_side`` (default right) and padding to ``max_length`` on
-   ``padding_side`` (default left, the classes' own).  BigBird's class
+   post-processor in ``tokenizer.json`` (``TemplateTokenizer``'s prefix
+   and suffix); truncation on ``truncation_side`` (default right) and
+   padding to ``max_length`` on ``padding_side`` (default left, the
+   classes' own).  BigBird's class
    instead takes its ``tokenizer.json``'s ``[CLS] A [SEP] B [SEP]``
    (``TemplateTokenizer``: pairs, right padding, no token types), with
    BigBird's converter's normalizer (``Precompiled``, ``Strip``, Replace
@@ -50,9 +51,7 @@ embedder refuses it.
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Sequence
-
-import numpy as np
+from typing import Dict, List, Optional
 
 from .hf_bpe import merge_ids
 from .hf_checkpoint import checkpoint_dir, read_json
@@ -88,13 +87,14 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                  pre_tokenizer: Optional[dict] = None, padding_side: str = "left",
                  truncation_side: str = "right", where: str = "tokenizer.json",
                  pair_template: bool = False):
-        super().__init__(added, cls_id=bos_id, sep_id=eos_id, pad_id=pad_id, pair_seps=1)
-        #: BigBird's [CLS] A [SEP] B [SEP] (TemplateTokenizer's call)
-        self.pair_template = pair_template
-        for name, side in (("padding_side", padding_side),
-                           ("truncation_side", truncation_side)):
-            if side not in ("left", "right"):
-                raise ValueError(f"{where}: {name} {side!r} is not left or right")
+        sides = dict(padding_side=padding_side, truncation_side=truncation_side)
+        if pair_template:        # BigBird's [CLS] A [SEP] B [SEP]
+            super().__init__(added, cls_id=bos_id, sep_id=eos_id, pad_id=pad_id,
+                             pair_seps=1, **sides)
+        else:                    # [bos] A [eos], single texts
+            super().__init__(added, cls_id=None, sep_id=None, pad_id=pad_id,
+                             prefix=[] if bos_id is None else [bos_id],
+                             suffix=[] if eos_id is None else [eos_id], **sides)
         self.vocab = dict(vocab)
         self.merges = {}
         for rank, (a, b) in enumerate(merges):
@@ -120,7 +120,6 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                           bool(pre.get("split", True))) if pre else None
         if self.metaspace and self.metaspace[1] not in ("always", "first", "never"):
             raise ValueError(f"{where}: prepend_scheme {self.metaspace[1]!r} is not supported")
-        self.padding_side, self.truncation_side = padding_side, truncation_side
         # no merge joins a character to a following "▁", so none crosses
         # there: the words between merge alone (unknowns fuse only within
         # a word, "▁" being known)
@@ -239,35 +238,6 @@ class SentencePieceBPETokenizer(TemplateTokenizer):
                 self._words[word] = ids
             out.extend(ids)
         return out
-
-    def __call__(self, texts: Sequence[str], pairs: Optional[Sequence[str]] = None, *,
-                 max_length: int) -> Dict[str, np.ndarray]:
-        if self.pair_template:
-            return super().__call__(texts, pairs, max_length=max_length)
-        if pairs is not None:
-            raise ValueError("the SentencePiece BPE tokenizer encodes single texts only "
-                             "(the decoder families serve no cross-encoder)")
-        ends = [t for t in (self.cls_id, self.sep_id) if t is not None]
-        budget = max_length - len(ends)
-        if budget < 0:
-            raise ValueError(f"max_length {max_length} leaves no room for "
-                             f"the {len(ends)} special tokens")
-        ids = np.full((len(texts), max_length), 0 if self.pad_id is None else self.pad_id,
-                      np.int64)
-        mask = np.zeros((len(texts), max_length), np.int64)
-        for i, text in enumerate(texts):
-            a = self.encode(text)
-            if len(a) > budget:
-                a = a[:budget] if self.truncation_side == "right" else a[len(a) - budget:]
-            row = ([self.cls_id] if self.cls_id is not None else []) + a + (
-                [self.sep_id] if self.sep_id is not None else [])
-            if len(row) < max_length and self.pad_id is None:
-                raise ValueError("the tokenizer has no pad_token to pad to max_length")
-            at = slice(0, len(row)) if self.padding_side == "right" else slice(
-                max_length - len(row), max_length)
-            ids[i, at] = row
-            mask[i, at] = 1
-        return {"input_ids": ids, "attention_mask": mask}
 
 
 __all__ = ["CLASS_SPECIALS", "SentencePieceBPETokenizer"]

@@ -40,7 +40,11 @@ template, Blenderbot); XLM-RoBERTa, ALBERT, mBART and Pegasus take
 ``hf_unigram.UnigramTokenizer``; BigBird takes the Unigram or the
 SentencePiece BPE tokenizer as its ``tokenizer.json``'s ``model.type``
 says; Llama, Mistral and Gemma take ``hf_spbpe.SentencePieceBPETokenizer``;
-BlenderbotSmall (by ``model_type``) takes
+GPT-2, GPT-Neo and GPT-J take ``GPT2TokenizerFast``'s and BLOOM
+``BloomTokenizerFast``'s form of the byte-level BPE, XGLM the Unigram
+tokenizer with its ``</s> A`` template; ``GPTSw3Tokenizer`` (GPT-SW3's
+own, and ``model_type`` gpt-sw3's without ``tokenizer_class``) raises, as
+it needs ``sentencepiece``; BlenderbotSmall (by ``model_type``) takes
 ``hf_blenderbot_small.BlenderbotSmallTokenizer``, the slow class
 ``AutoTokenizer`` takes there; a ``tokenizer_class`` naming it raises, as
 ``AutoTokenizer`` then takes the byte-level ``BlenderbotSmallTokenizerFast``,
@@ -499,6 +503,15 @@ ALBERT_SPECIALS = dict(bos_token="[CLS]", eos_token="[SEP]", sep_token="[SEP]",
                        cls_token="[CLS]", unk_token="<unk>", pad_token="<pad>",
                        mask_token="[MASK]")
 BIG_BIRD_SPECIALS = dict(ALBERT_SPECIALS, bos_token="<s>", eos_token="</s>")
+#: ``GPT2TokenizerFast``'s (GPT-Neo's and GPT-J's checkpoints take it),
+#: ``BloomTokenizerFast``'s and ``XGLMTokenizerFast``'s (its seven
+#: ``<madeupword>``s come from ``xglm_additional``)
+GPT2_SPECIALS = dict(bos_token="<|endoftext|>", eos_token="<|endoftext|>",
+                     unk_token="<|endoftext|>")
+BLOOM_SPECIALS = dict(bos_token="<s>", eos_token="</s>", unk_token="<unk>",
+                      pad_token="<pad>")
+XGLM_SPECIALS = dict(ROBERTA_SPECIALS)
+del XGLM_SPECIALS["mask_token"]
 #: the language codes ``MBartTokenizerFast`` adds as special tokens
 MBART_LANGUAGE_CODES = (
     "ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN",
@@ -516,6 +529,14 @@ def mbart_additional(cfg: dict) -> List:
     given = cfg.get("additional_special_tokens") or []
     return list(MBART_LANGUAGE_CODES) + [
         t for t in given if _token_content(t) not in MBART_LANGUAGE_CODES]
+
+
+def xglm_additional(cfg: dict) -> List:
+    """``XGLMTokenizerFast``'s additional special tokens: the config's,
+    then the seven ``<madeupword>``s it lacks."""
+    given = list(cfg.get("additional_special_tokens") or [])
+    have = set(map(_token_content, given))
+    return given + [w for w in (f"<madeupword{i}>" for i in range(7)) if w not in have]
 
 
 def pegasus_additional(cfg: dict) -> List:
@@ -584,11 +605,14 @@ def added_tokens(json_tokens: Sequence[dict], cfg: dict,
 
 
 def special_id(cfg: dict, name: str, added: Sequence[AddedToken],
-               specials: Optional[Dict[str, str]] = None) -> int:
+               specials: Optional[Dict[str, str]] = None) -> Optional[int]:
     """The id of the special token ``name`` (e.g. "pad_token"), which
     ``added_tokens`` put in the added vocabulary (``specials``: the class's
-    defaults, RoBERTa's where None)."""
-    content = _token_content(cfg.get(name, (specials or ROBERTA_SPECIALS)[name]))
+    defaults, RoBERTa's where None); None where neither names one (GPT-2's
+    class has no pad token)."""
+    content = _token_content(cfg.get(name, (specials or ROBERTA_SPECIALS).get(name)))
+    if content is None:
+        return None
     return next(t.id for t in added if t.content == content)
 
 
@@ -635,8 +659,11 @@ class TemplateTokenizer:
     of token type 1), or with ``suffix`` a single text followed by those
     ids alone (Pegasus's and Blenderbot's ``A </s>``, mBART's ``A </s>
     <lang>``, BlenderbotSmall's ``A``; no pair template), truncated to
-    ``max_length`` (a pair ``longest_first``) and right-padded with the
-    pad id; ``__call__`` returns numpy ``input_ids``, ``attention_mask``
+    ``max_length`` (a pair ``longest_first``, a single text on
+    ``truncation_side``) and padded with the pad id on ``padding_side``
+    (right by default); ``prefix`` puts ids before a single text (XGLM's
+    ``</s> A``; no pair template); ``__call__`` returns numpy
+    ``input_ids``, ``attention_mask``
     and, where ``model_input_names`` has them, ``token_type_ids`` [B, L]
     int64, as the fast tokenizers do (RoBERTa's, XLM-R's and BigBird's
     return no token types)."""
@@ -644,12 +671,22 @@ class TemplateTokenizer:
     model_input_names: Tuple[str, ...] = ("input_ids", "attention_mask")
 
     def __init__(self, added: Sequence[AddedToken], *, cls_id: Optional[int],
-                 sep_id: Optional[int], pad_id: int, pair_seps: int = 2,
-                 suffix: Optional[Sequence[int]] = None):
+                 sep_id: Optional[int], pad_id: Optional[int], pair_seps: int = 2,
+                 suffix: Optional[Sequence[int]] = None,
+                 prefix: Optional[Sequence[int]] = None, padding_side: str = "right",
+                 truncation_side: str = "right"):
         self.added = list(added)
         self.cls_id, self.sep_id, self.pad_id = cls_id, sep_id, pad_id
         self.pair_seps = pair_seps
+        if prefix is not None and suffix is None:
+            suffix = []
         self.suffix = None if suffix is None else list(suffix)
+        self.prefix = list(prefix or [])
+        for name, side in (("padding_side", padding_side),
+                           ("truncation_side", truncation_side)):
+            if side not in ("left", "right"):
+                raise ValueError(f"{name} {side!r} is not left or right")
+        self.padding_side, self.truncation_side = padding_side, truncation_side
         self._by_content = {t.content: t for t in self.added}
         self._raw_re = _added_pattern([t for t in self.added if not t.normalized])
         self._norm_re = _added_pattern([t for t in self.added if t.normalized])
@@ -681,20 +718,23 @@ class TemplateTokenizer:
             raise ValueError("texts and pairs must align")
         if pairs is not None and self.suffix is not None:
             raise ValueError("this tokenizer's template takes single texts only")
-        head, tail = (([], self.suffix) if self.suffix is not None
+        head, tail = ((self.prefix, self.suffix) if self.suffix is not None
                       else ([self.cls_id], [self.sep_id]))
         n_special = len(head) + len(tail) if pairs is None else 2 + self.pair_seps
         if max_length < n_special:
             raise ValueError(f"max_length {max_length} leaves no room for "
                              f"the {n_special} special tokens")
         budget = max_length - n_special
-        ids = np.full((len(texts), max_length), self.pad_id, np.int64)
+        ids = np.full((len(texts), max_length), 0 if self.pad_id is None else self.pad_id,
+                      np.int64)
         mask = np.zeros((len(texts), max_length), np.int64)
         types = np.zeros((len(texts), max_length), np.int64)
         for i, text in enumerate(texts):
             a = self.encode(text)
             if pairs is None:
-                row = [*head, *a[:budget], *tail]
+                if len(a) > budget:
+                    a = a[:budget] if self.truncation_side == "right" else a[len(a) - budget:]
+                row = [*head, *a, *tail]
             else:
                 b = self.encode(pairs[i])
                 if len(a) + len(b) > budget:
@@ -703,8 +743,12 @@ class TemplateTokenizer:
                 row = [self.cls_id, *a, *[self.sep_id] * self.pair_seps, *b, self.sep_id]
                 if self.pair_seps == 1:
                     types[i, len(a) + 2:len(row)] = 1
-            ids[i, :len(row)] = row
-            mask[i, :len(row)] = 1
+            if len(row) < max_length and self.pad_id is None:
+                raise ValueError("the tokenizer has no pad_token to pad to max_length")
+            at = (slice(0, len(row)) if self.padding_side == "right"
+                  else slice(max_length - len(row), max_length))
+            ids[i, at] = row
+            mask[i, at] = 1
         out = {"input_ids": ids, "attention_mask": mask}
         if "token_type_ids" in self.model_input_names:
             out["token_type_ids"] = types
@@ -758,19 +802,35 @@ def bert_template(post: dict) -> Tuple[int, int]:
     raise ValueError(f"not a [CLS] A [SEP] B [SEP] post-processor: {json.dumps(post)[:200]}")
 
 
+def affix_template(post: dict) -> Tuple[List[int], List[int]]:
+    """The ids before and after ``$A`` in a ``TemplateProcessing`` whose
+    single form is the text between special tokens of type 0 (Pegasus's
+    ``$A </s>``, Blenderbot's ``$A:0 </s>:0``, XGLM's ``</s> $A``, GPT-2's
+    ``<|endoftext|> $A``); its pair form is never used; any other
+    raises."""
+    if post.get("type") == "TemplateProcessing":
+        single, special = _items(post.get("single")), post.get("special_tokens") or {}
+        at = [i for i, (kind, _, _) in enumerate(single) if kind == "Q"]
+        if at and single[at[0]] == ("Q", "A", 0) and len(at) == 1 and all(
+                kind == "S" and type_id == 0 and len(special.get(tok, {}).get("ids", [])) == 1
+                for kind, tok, type_id in single[:at[0]] + single[at[0] + 1:]):
+            ids = [int(special[tok]["ids"][0]) if kind == "S" else None
+                   for kind, tok, _ in single]
+            return ids[:at[0]], ids[at[0] + 1:]
+    raise ValueError(f"not a single-text post-processor: {json.dumps(post)[:200]}")
+
+
 def suffix_template(post: dict) -> List[int]:
     """The ids after ``$A`` in a ``TemplateProcessing`` whose single form
     is the text followed by special tokens of type 0 (Pegasus's ``$A
-    </s>``, Blenderbot's ``$A:0 </s>:0``); its pair form is never used;
-    any other raises."""
-    if post.get("type") == "TemplateProcessing":
-        single, special = _items(post.get("single")), post.get("special_tokens") or {}
-        tail = single[1:]
-        if single[:1] == [("Q", "A", 0)] and all(
-                kind == "S" and type_id == 0 and len(special.get(tok, {}).get("ids", [])) == 1
-                for kind, tok, type_id in tail):
-            return [int(special[tok]["ids"][0]) for _, tok, _ in tail]
-    raise ValueError(f"not an A </s> post-processor: {json.dumps(post)[:200]}")
+    </s>``, Blenderbot's ``$A:0 </s>:0``); any other raises."""
+    try:
+        prefix, suffix = affix_template(post)
+    except ValueError:
+        prefix = None
+    if prefix != []:
+        raise ValueError(f"not an A </s> post-processor: {json.dumps(post)[:200]}")
+    return suffix
 
 
 def load_tokenizer(path):
@@ -782,7 +842,8 @@ def load_tokenizer(path):
     if cls_name:
         family = cls_name.removesuffix("Fast").removesuffix("Tokenizer").lower()
         family = {"xlmroberta": "xlm-roberta", "bigbird": "big_bird",
-                  "blenderbotsmall": "blenderbot-small"}.get(family, family)
+                  "blenderbotsmall": "blenderbot-small",
+                  "gptsw3": "gpt-sw3"}.get(family, family)
     else:
         family = (read_json(path / "config.json").get("model_type")
                   if (path / "config.json").exists() else None)
@@ -792,12 +853,21 @@ def load_tokenizer(path):
         tok = WordPieceTokenizer.from_pretrained(path)
         tok.model_input_names = ("input_ids", "attention_mask")
         return tok
-    if family in ("roberta", "roberta-prelayernorm", "bart", "blenderbot"):
+    if family in ("roberta", "roberta-prelayernorm", "bart", "blenderbot", "gpt2",
+                  "gpt_neo", "gptj", "bloom"):
         from .hf_bpe import ByteLevelBPETokenizer
 
-        return ByteLevelBPETokenizer.from_pretrained(
-            path, "blenderbot" if family == "blenderbot" else "roberta")
-    if family in ("xlm-roberta", "albert", "mbart", "pegasus"):
+        # GPT-Neo's and GPT-J's checkpoints take GPT2TokenizerFast
+        return ByteLevelBPETokenizer.from_pretrained(path, {
+            "blenderbot": "blenderbot", "bloom": "bloom", "gpt2": "gpt2",
+            "gpt_neo": "gpt2", "gptj": "gpt2"}.get(family, "roberta"))
+    if family == "gpt-sw3":
+        raise ValueError(f"{path}: GPTSw3Tokenizer is not supported: it reads its "
+                         "SentencePiece model with sentencepiece, which neither the card's "
+                         "machine nor the JAX package's has (the JAX reference's "
+                         "AutoTokenizer fails there); a GPT-SW3 checkpoint whose "
+                         "tokenizer_class names a tokenizer the port reads is served")
+    if family in ("xlm-roberta", "albert", "mbart", "pegasus", "xglm"):
         from .hf_unigram import UnigramTokenizer
 
         return UnigramTokenizer.from_pretrained(path, family)
@@ -842,13 +912,14 @@ def load_tokenizer(path):
     raise ValueError(f"{path}: tokenizer {cls_name or family!r} is not supported; "
                      "the port reads the BERT, ELECTRA, DistilBERT (WordPiece), "
                      "RoBERTa, RoBERTa-PreLayerNorm, BART, Blenderbot (byte-level BPE), "
-                     "XLM-RoBERTa, ALBERT, mBART, Pegasus (Unigram), BigBird (Unigram "
-                     "or SentencePiece BPE), Llama, Mistral, Gemma (SentencePiece BPE) "
-                     "and BlenderbotSmall tokenizers")
+                     "GPT-2, BLOOM (byte-level BPE), XLM-RoBERTa, ALBERT, mBART, Pegasus, "
+                     "XGLM (Unigram), BigBird (Unigram or SentencePiece BPE), Llama, "
+                     "Mistral, Gemma (SentencePiece BPE) and BlenderbotSmall tokenizers")
 
 
-__all__ = ["ALBERT_SPECIALS", "BIG_BIRD_SPECIALS", "MBART_LANGUAGE_CODES",
-           "PEGASUS_SPECIALS", "ROBERTA_SPECIALS", "AddedToken", "TemplateTokenizer",
-           "WordPieceTokenizer", "added_tokens", "bert_template", "load_tokenizer",
-           "mbart_additional", "pegasus_additional", "read_tokenizer_config",
+__all__ = ["ALBERT_SPECIALS", "BIG_BIRD_SPECIALS", "BLOOM_SPECIALS", "GPT2_SPECIALS",
+           "MBART_LANGUAGE_CODES", "PEGASUS_SPECIALS", "ROBERTA_SPECIALS", "XGLM_SPECIALS",
+           "AddedToken", "TemplateTokenizer", "WordPieceTokenizer", "added_tokens",
+           "affix_template", "bert_template", "load_tokenizer", "mbart_additional",
+           "pegasus_additional", "read_tokenizer_config", "xglm_additional",
            "roberta_template", "special_id", "split_added", "suffix_template"]

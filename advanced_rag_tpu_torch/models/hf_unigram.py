@@ -1,9 +1,10 @@
 """The SentencePiece Unigram tokenizers of XLM-RoBERTa, ALBERT, BigBird,
-mBART and Pegasus read from a local HF checkpoint's ``tokenizer.json``.
+mBART, Pegasus and XGLM read from a local HF checkpoint's
+``tokenizer.json``.
 
 The port's copy of ``XLMRobertaTokenizerFast``, ``AlbertTokenizerFast``,
-``BigBirdTokenizerFast``, ``MBartTokenizerFast`` and
-``PegasusTokenizerFast`` (the ``tokenizers`` crate), so the card's machine
+``BigBirdTokenizerFast``, ``MBartTokenizerFast``, ``PegasusTokenizerFast``
+and ``XGLMTokenizerFast`` (the ``tokenizers`` crate), so the card's machine
 needs neither ``transformers`` nor ``tokenizers``:
 
 1. added tokens are found in the raw text first, leftmost-longest
@@ -40,8 +41,11 @@ needs neither ``transformers`` nor ``tokenizers``:
    class returns the token types, B's 1), Pegasus's ``A </s>`` (single
    texts only); mBART's class overwrites the file's with ``A </s>
    <src_lang>`` (``tokenizer_config.json``'s ``src_lang``, default
-   ``en_XX``); the ids are ``tokenizer.json``'s (XLM-R's fairseq offset,
-   Pegasus's 103, are already in them).
+   ``en_XX``); XGLM's ``</s> A`` (``XGLMConverter``: fairseq's ids,
+   ``<s> <pad> </s> <unk>`` at 0-3 and seven ``<madeupword>``s, special
+   tokens of the class, at the end; single texts only), padded on
+   ``padding_side`` (default right); the ids are ``tokenizer.json``'s
+   (XLM-R's fairseq offset, Pegasus's 103, are already in them).
 
 A directory with ``sentencepiece.bpe.model`` (or ``spiece.model``) and no
 ``tokenizer.json`` raises: transformers converts that file only with
@@ -75,9 +79,10 @@ import numpy as np
 
 from .hf_checkpoint import checkpoint_dir, read_json
 from .hf_tokenizer import (_LOWER, _WHITESPACE, ALBERT_SPECIALS, BIG_BIRD_SPECIALS,
-                           PEGASUS_SPECIALS, ROBERTA_SPECIALS, TemplateTokenizer,
-                           _token_content, added_tokens, bert_template, mbart_additional,
-                           pegasus_additional, read_tokenizer_config, roberta_template,
+                           PEGASUS_SPECIALS, ROBERTA_SPECIALS, XGLM_SPECIALS,
+                           TemplateTokenizer, _token_content, added_tokens, affix_template,
+                           bert_template, mbart_additional, pegasus_additional,
+                           read_tokenizer_config, roberta_template, xglm_additional,
                            special_id, suffix_template)
 
 # Where the crate's grapheme clusters (unicode-segmentation) and the rules
@@ -522,6 +527,7 @@ UNIGRAM_CLASSES = {
     "big_bird": (BIG_BIRD_SPECIALS, bert_template, 1, False, True),
     "mbart": (ROBERTA_SPECIALS, None, 0, False, True),
     "pegasus": (PEGASUS_SPECIALS, suffix_template, 0, False, False),
+    "xglm": (XGLM_SPECIALS, affix_template, 0, False, False),
 }
 
 
@@ -538,9 +544,12 @@ class UnigramTokenizer(TemplateTokenizer):
                  normalizer: Optional[dict] = None, replacement: str = "▁",
                  prepend_scheme: str = "always", split: bool = True,
                  pair_seps: int = 2, type_ids: bool = False,
-                 suffix: Optional[Sequence[int]] = None, whitespace_split: bool = False):
+                 suffix: Optional[Sequence[int]] = None, whitespace_split: bool = False,
+                 prefix: Optional[Sequence[int]] = None, padding_side: str = "right",
+                 truncation_side: str = "right"):
         super().__init__(added, cls_id=cls_id, sep_id=sep_id, pad_id=pad_id,
-                         pair_seps=pair_seps, suffix=suffix)
+                         pair_seps=pair_seps, suffix=suffix, prefix=prefix,
+                         padding_side=padding_side, truncation_side=truncation_side)
         if whitespace_split and prepend_scheme == "first":
             raise ValueError("Metaspace prepend_scheme 'first' after WhitespaceSplit "
                              "is not supported")
@@ -581,6 +590,8 @@ class UnigramTokenizer(TemplateTokenizer):
             cfg = dict(cfg, additional_special_tokens=mbart_additional(cfg))
         elif family == "pegasus":
             cfg = dict(cfg, additional_special_tokens=pegasus_additional(cfg))
+        elif family == "xglm":
+            cfg = dict(cfg, additional_special_tokens=xglm_additional(cfg))
         tj = read_json(path / "tokenizer.json")
         model, pre = tj.get("model") or {}, tj.get("pre_tokenizer") or {}
         subs = [p.get("type") for p in pre.get("pretokenizers") or []]
@@ -598,7 +609,7 @@ class UnigramTokenizer(TemplateTokenizer):
         vocab = {p: i for i, (p, _) in enumerate(pieces)}
         added = added_tokens(tj.get("added_tokens", []), cfg, vocab, specials,
                              lstrip_mask=lstrip_mask)
-        cls_id = sep_id = suffix = None
+        cls_id = sep_id = suffix = prefix = None
         if family == "mbart":
             # MBartTokenizerFast overwrites the file's post-processor:
             # $A </s> <src_lang>
@@ -609,6 +620,9 @@ class UnigramTokenizer(TemplateTokenizer):
             suffix = [special_id(cfg, "eos_token", added, specials), lang_id]
         elif template is suffix_template:
             suffix = template(tj.get("post_processor") or {})
+        elif template is affix_template:
+            # XGLM's converter: </s> $A (its pair form is never used)
+            prefix, suffix = template(tj.get("post_processor") or {})
         else:
             cls_id, sep_id = template(tj.get("post_processor") or {})
         if pre.get("add_prefix_space") is False and "prepend_scheme" not in pre:
@@ -624,7 +638,9 @@ class UnigramTokenizer(TemplateTokenizer):
                    replacement=pre.get("replacement", "▁"),
                    prepend_scheme=pre.get("prepend_scheme", "always"),
                    split=bool(pre.get("split", True)), pair_seps=pair_seps,
-                   type_ids=type_ids, suffix=suffix, whitespace_split=whitespace_split)
+                   type_ids=type_ids, suffix=suffix, whitespace_split=whitespace_split,
+                   prefix=prefix, padding_side=cfg.get("padding_side", "right"),
+                   truncation_side=cfg.get("truncation_side", "right"))
 
     def normalize(self, text: str) -> str:
         return self.normalizer(text)

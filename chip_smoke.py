@@ -91,7 +91,7 @@ Phases, each printing its elapsed seconds:
    / RAG_RERANKER=ckpt: of (a)'s files), whose probes must answer with the
    saving app's chunk ids, its launches counted apart from phase 8's;
    (c) last, a default manager (HashingEmbedder,
-   1536 wide) with the domain family (768 wide) over 115,000 chunks (phase
+   1536 wide) with the domain family (768 wide) over 70,000 chunks (phase
    4's and LIFECYCLE_MORE more of its generator; the IVF threshold lowered
    to their count for 9 (c) and (e)): hybrid search with
    domain_weight 0.2 at Q = 1 and 32, maintenance_tick's first IVF build
@@ -149,7 +149,8 @@ Phases, each printing its elapsed seconds:
 12. the host native code and the timers (phase_host_native, last): (a)
    the C++ text path against the Python rule (ADVANCED_RAG_TPU_NO_NATIVE=1)
    on the card's host: the g++ build's seconds, encode_documents over
-   phase 4's chunks and encode_queries at Q = 1, 8, 32 (arrays identical),
+   TEXT_PATH_CHUNKS (35,000) of phase 4's chunks and encode_queries at
+   Q = 1, 8, 32 (arrays identical),
    the chunker and the diagnostics over phase 8's service documents
    (chunk ids equal, metrics within 1e-9), two fused pipelines ingesting
    them, a U+212A document (the Python rule's terms) and one fused Q = 1
@@ -215,24 +216,38 @@ Phases, each printing its elapsed seconds:
    roformer_chinese_base; efficient_mlm_m0.40's RoBERTa-PreLayerNorm,
    1024 wide): (i) each at its written layers on the card against the
    CPU (f32 within HF_TOL; BigBird at 512 tokens, eight blocks); (ii) the
-   12-layer BigBird built on the card, f32 and bf16, forward and
+   12-layer BigBird built on the card, bf16 (f32 at 4 layers), forward and
    encode_device at 32 x 1024 and 8 x 4096 tokens, its share of the bf16
    peak, one bf16 forward profiled by kernel group; (iii) that bf16
-   embedder at 1024 tokens behind a bf16-tier manager over 5,000 chunks,
+   embedder at 1024 tokens behind a bf16-tier manager over 2,000 chunks,
    served with RAG_RERANKER=hf: on the albert-base-v2-width reranker, 32
    /retrieve requests from 1 client, K1 and K3 launched and held against
    their plain versions; (iv) the peak memory; (i) the encoder-decoder
    embedders (phase_hf_encdec) at published widths (HF_ENCDEC: bart-large,
    mbart-large-cc25, pegasus-large, opus-mt-en-de, blenderbot-400M-distill,
-   blenderbot_small-90M, each with its tokenizer made here; mBART, Pegasus
-   and Blenderbot written at 2 + 2 layers): (i) each on the card against
-   the CPU at 128 tokens (f32 within HF_TOL, bf16 recorded); (ii) each
-   built on the card at its published depth, f32 and bf16, forward and
-   encode_device at 64 x 128 tokens; (iii) the written 12 + 12 bart-large
+   blenderbot_small-90M, each with its tokenizer made here; BART, mBART,
+   Pegasus and Blenderbot written at 2 + 2 layers): (i) each on the card
+   against the CPU at 128 tokens (f32 within HF_TOL, bf16 recorded); (ii)
+   each built on the card at its published depth in bf16 (f32 at 2 + 2
+   layers), forward and encode_device at 64 x 128 tokens; (iii) a 12 +
+   12-layer bart-large
    embedder in bf16 behind a 1024-wide bf16-tier manager over 5,000
    chunks, served with RAG_RERANKER=hf: on (e)'s ELECTRA reranker, 32
    /retrieve requests from 1 client, every answer a 200, K1 and K3
-   launched and held against their plain versions; (iv) the peak memory.
+   launched and held against their plain versions; (iv) the peak memory;
+   (j) the GPT-family embedders (phase_hf_gpt) at published widths
+   (HF_GPT: gpt2, gpt-sw3-126m, gpt-neo-125m, gpt-j-6b, bloom-560m,
+   xglm-564M, each with its tokenizer made here from phase 4's words):
+   (i) each written at 2 layers (GPT-Neo one global and one local) on the
+   card against the CPU (f32 within HF_TOL, bf16 recorded; GPT-Neo at 512
+   tokens on texts past its window of 256); (ii) each built on the card
+   at its published depth, f32 (not GPT-J's 28 layers) and bf16, forward
+   and encode_device at 64 x 128 tokens, one GPT-J query's encode; (iii)
+   the 12-layer bf16 gpt-neo-125m embedder behind a 768-wide bf16-tier
+   manager over 5,000 chunks, served with RAG_RERANKER=hf: on (e)'s
+   ELECTRA reranker, 32 /retrieve requests from 1 client, every answer a
+   200, K1 and K3 launched and held against their plain versions; (iv)
+   the peak memory.
 
 Phase 3 also holds K5 (bf16 and SQ8 slabs, Q = 1, 8, 32, at the 1M-row
 geometry and the manager's, random probe lists; for the route rule both
@@ -245,7 +260,7 @@ once per batch and once per (query, probe), and the flat superset: one
 torch.matmul / torch._int_mm of the queries by every slab row), K4
 (Q = 1) and K6 (N = 1M and the PQ manager's N, m 96; at N = 1M also both
 of K6's kernels, lookup and one-hot, at Q = 1, 2, 4, 8, 9, 16 and 32 for
-the crossover; at phase 9 (e)'s N = 262144, m = 384, where the one-hot
+the crossover; at phase 9 (e)'s N = 131072, m = 384, where the one-hot
 kernel runs in groups of subspaces, Q = 1, 8 and 32 through both kernels)
 against their plain versions: K5-SQ8 bit-identical, the others within
 1e-5 of the largest score.  Phases 6 and 7 add K5 cases on real probes
@@ -306,9 +321,9 @@ CROSS_1M = ((32, 8), (32, 16), (32, 32), (8, 16), (8, 32), (8, 64))
 N_TIER = 1_000_000             # phase 6: rows of the 1M-row tiers
 N_CENTRES = 2000
 PQ_M = 96
-#: (N, m) of phase 9 (e)'s PQ codes: the capacity of its 150,000 rows and
+#: (N, m) of phase 9 (e)'s PQ codes: the capacity of its 90,000 rows and
 #: auto_pq_m(1536), the default embedder's width at bits 4
-PQ_WIDE = (262_144, 384)
+PQ_WIDE = (131_072, 384)
 REPEATS = 12                   # first 2 are warm-up, 10 timed
 SERVE = dict(k_final=10, k_rerank=48, dense_weight=0.7, sparse_weight=0.3,
              use_mmr=True, mmr_lambda=0.8, q_max_len=32, rerank_alpha=0.5,
@@ -764,7 +779,7 @@ def ivf_pq_kernel_cases(gen, dev, record):
             # pq_scores (the kernel pq_kernel_for picks), and at N = 1M and
             # at the default width both kernels (at m = 384 the one-hot
             # kernel takes its subspaces in groups, one launch a group)
-            kernels = [None] + (["lookup", "onehot"] if n != MAIN_N else [])
+            kernels = [None] + (["lookup", "onehot"] if (n, m) != (MAIN_N, PQ_M) else [])
             for kernel in kernels:
                 fn = ((lambda: pk.pq_scores(codes, lut)) if kernel is None else
                       (lambda k=kernel: pk.pq_scores_by(codes, lut, k)))
@@ -774,7 +789,8 @@ def ivf_pq_kernel_cases(gen, dev, record):
                 record("K6" if kernel is None else "K6-" + kernel, dict(
                     shape=f"N={n} m={m} c={c} Q={nq} ({run}, {n_launch} launches)",
                     kernel=run, launches_per_call=n_launch,
-                    main=kernel is None and (n, nq) == (MAIN_N, 32), max_abs_err=err,
+                    main=kernel is None and (n, m, nq) == (MAIN_N, PQ_M, 32),
+                    max_abs_err=err,
                     rel_err=rel, tie_swaps=swaps, ms=graph_ms(fn), call_ms=cuda_ms(fn),
                     plain_ms=plain_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
                     library="torch.matmul bf16 [Q, m*c] x one-hot [m*c, N] -> bf16",
@@ -1531,7 +1547,7 @@ def phase_tier_reference():
 #: chunk was embedded from), /retrieve requests from one client, and
 #: rounds per client at 8 and 32 concurrent clients
 SERVICE_DOCS = 256
-SERVICE_SEQUENTIAL = 200
+SERVICE_SEQUENTIAL = 100      # 200 until phase 13 (j) came
 SERVICE_ROUNDS = {8: 12, 32: 6}
 SERVICE_TOP_K = 10
 SLA_MS = 80.0                  # PerformanceConstants.TARGET_LATENCY_MS
@@ -2079,18 +2095,18 @@ def phase_service_reference():
 
 
 #: phase 9 (the index lifecycle): the default manager's corpus is phase
-#: 4's 70k chunks plus LIFECYCLE_MORE of the same generator, the size at
-#: which maintenance_tick builds IVF by itself while 9 (c) and (e) run
-#: (IndexConstants.IVF_AUTO_THRESHOLD, 200,000 in service, lowered to
-#: LIFECYCLE_IVF_THRESHOLD there, so the phase ingests 150,000 chunks, not
-#: 260,000, and the script stays within its 1200-second limit with phase
-#: 13 (g)); LIFECYCLE_TAIL more then make an appended tail above 0.2 of the
-#: rows, past 131,072 (so the capacity, and PQ_WIDE, stay 262,144), and
-#: LIFECYCLE_DEAD of the chunk_index residues (1 in LIFECYCLE_GROUPS each)
-#: are deleted for the compaction
-LIFECYCLE_IVF_THRESHOLD = 115_000
+#: 4's 70k chunks plus LIFECYCLE_MORE of the same generator (none since
+#: phase 13 (j)), the size at which maintenance_tick builds IVF by itself
+#: while 9 (c) and (e) run (IndexConstants.IVF_AUTO_THRESHOLD, 200,000 in
+#: service, lowered to LIFECYCLE_IVF_THRESHOLD there, so the phase ingests
+#: 90,000 chunks, not 260,000 (150,000 until phase 13 (j)), and the script
+#: stays within its 1200-second limit); LIFECYCLE_TAIL more then make an
+#: appended tail above 0.2 of the rows, within 131,072 (so the capacity,
+#: and PQ_WIDE, are 131,072), and LIFECYCLE_DEAD of the chunk_index
+#: residues (1 in LIFECYCLE_GROUPS each) are deleted for the compaction
+LIFECYCLE_IVF_THRESHOLD = 70_000
 LIFECYCLE_MORE = LIFECYCLE_IVF_THRESHOLD - N_CHUNKS
-LIFECYCLE_TAIL = 35_000
+LIFECYCLE_TAIL = 20_000
 LIFECYCLE_GROUPS = 20
 LIFECYCLE_DEAD = (0, 1, 2)
 
@@ -2285,7 +2301,7 @@ def served_k1_cases(mgr, queries):
 
 def phase_lifecycle(texts, root):
     """Phase 9 (c): a default-configuration manager (HashingEmbedder, bf16,
-    postings BM25) with enable_domain=True over 115,000 chunks; the domain
+    postings BM25) with enable_domain=True over 70,000 chunks; the domain
     rung of hybrid_search_batch_sync (domain_weight 0.2) at Q = 1 and 32;
     maintenance_tick's first IVF build behind its recall guardrail;
     LIFECYCLE_TAIL more chunks and the IVF rebuild; 15% deleted and the
@@ -2448,8 +2464,8 @@ def phase_lifecycle(texts, root):
     return rec, cases, proj
 
 
-#: phase 9 (e): chunks appended to the restored PQ managers (the 150,000
-#: rows stay within the 262,144 capacity, so the codes keep phase 3's shape)
+#: phase 9 (e): chunks appended to the restored PQ managers (the 90,000
+#: rows stay within the 131,072 capacity, so the codes keep phase 3's shape)
 #: and the rebuild fraction that makes their tick re-pack the IVF-PQ tier
 PQ_LIFECYCLE_TAIL = 2048
 PQ_LIFECYCLE_REPACK = 0.005
@@ -2458,9 +2474,9 @@ PQ_LIFECYCLE_REPACK = 0.005
 def phase_pq_lifecycle(root, proj):
     """Phase 9 (e): the PQ tier's lifecycle at the default width (1536, m =
     384).  For a semantic_dtype="pq" manager and a semantic_opq=True one,
-    each restored from phase 9 (c)'s checkpoint under ``root`` (its 150,000
-    rows, 22,500 of them deleted; without the sparse family, whose postings
-    build over 150k rows takes seconds of host time a manager and whose
+    each restored from phase 9 (c)'s checkpoint under ``root`` (its 90,000
+    rows, 13,500 of them deleted; without the sparse family, whose postings
+    build over 90k rows takes seconds of host time a manager and whose
     lifecycle is 9 (c)'s): maintenance_tick's first build (PQ + IVF-PQ
     behind the recall guardrail; with OPQ the rotated flat codes only,
     unguarded), and the guardrail's sweep run on to nprobe = nlist, the
@@ -2470,7 +2486,7 @@ def phase_pq_lifecycle(root, proj):
     PQ_LIFECYCLE_REPACK on the instance); last the manager saved and loaded
     into a fresh card manager (given the original's nprobe, which
     checkpoints do not hold), whose answers must be identical.  K6 must run
-    on the 262,144 x 384 codes.  Returns the records."""
+    on the 131,072 x 384 codes.  Returns the records."""
     import numpy as np
     import torch
 
@@ -4108,7 +4124,7 @@ def phase_sharded(texts, work, embedder, smi):
 #: HNSW comparison's corpus (scripts/bench_hnsw_parity.py's "clustered"
 #: corpus at D = 384, its queries and nprobe tuning queries), the reference's
 #: HNSW knobs (indexing.py:150-153) and tests/test_hnsw_baseline.py's geometry
-HNSW_N = 100_000
+HNSW_N = 50_000                # 100,000 until phase 13 (j) came
 HNSW_D = 384
 HNSW_QUERIES = 128
 HNSW_KNOBS = dict(M=16, ef_construction=200)
@@ -4117,6 +4133,9 @@ HNSW_BUILD_LIMIT_S = 60.0
 HNSW_TEST_GEOMETRY = (5000, 48)
 TIER_Q = 8
 ENCODE_REPS = 50
+#: phase 12 (a): the chunks encode_documents runs over both ways (all of
+#: phase 4's until phase 13 (j) came)
+TEXT_PATH_CHUNKS = 35_000
 #: U+212A KELVIN SIGN: str.lower() maps it to "k"; the C++ path would read
 #: it as a separator, so the ASCII gate sends this text to the Python rule
 KELVIN_DOC = "\u212aelvin scale temperature of the probe"
@@ -4221,10 +4240,10 @@ def range_ms(prof, name):
 
 def phase_text_path(texts, embedder, reranker, dev="cuda"):
     """Phase 12 (a): the C++ text path against the Python rule on the card's
-    host: phase 4's chunks, queries at Q = 1, 8 and 32, phase 8's service
-    documents through the chunker, the diagnostics and two pipelines, the
-    U+212A document, and one fused Q = 1 batch each way, with the share of
-    its wall time that encode_queries takes.  Returns the record and the
+    host: TEXT_PATH_CHUNKS of phase 4's chunks, queries at Q = 1, 8 and 32,
+    phase 8's service documents through the chunker, the diagnostics and
+    two pipelines, the U+212A document, and one fused Q = 1 batch each way,
+    with the share of its wall time that encode_queries takes.  Returns the record and the
     C++ path's pipeline (its manager serves (c))."""
     import numpy as np
     import torch
@@ -4246,12 +4265,13 @@ def phase_text_path(texts, embedder, reranker, dev="cuda"):
         "was built before this run") + f" ({lib.name})")
     sparse = IndexConfig(index_type=IndexType.SPARSE)
     vocab, nnz = sparse.vocab_size, sparse.doc_nnz
+    part = texts[:TEXT_PATH_CHUNKS]
     fast, fast_s, slow, slow_s = both_paths(
-        lambda: text_mod.encode_documents(texts, vocab, nnz))
+        lambda: text_mod.encode_documents(part, vocab, nnz))
     same_arrays("encode_documents", fast, slow)
-    rec["encode_documents"] = dict(n=len(texts), vocab=vocab, doc_nnz=nnz, cpp_s=fast_s,
+    rec["encode_documents"] = dict(n=len(part), vocab=vocab, doc_nnz=nnz, cpp_s=fast_s,
                                    python_s=slow_s)
-    log(f"native[a]: encode_documents over {len(texts)} chunks (V={vocab}, P={nnz}): "
+    log(f"native[a]: encode_documents over {len(part)} chunks (V={vocab}, P={nnz}): "
         f"C++ {fast_s:.3f}s, Python {slow_s:.3f}s; the four arrays identical")
     rng = np.random.default_rng(61)
     rec["encode_queries_us"] = {}
@@ -4667,8 +4687,11 @@ def hf_vocab(size=None):
     return out + [f"[unused{i}]" for i in range(994, 994 + size - len(out))]
 
 
-#: the LayerNorm scales a seeded checkpoint draws as 1 + N(0, 0.05)
-LN_SCALES = ("LayerNorm.weight", "layer_norm.weight", "layernorm_embedding.weight")
+#: the LayerNorm scales a seeded checkpoint draws as 1 + N(0, 0.05) (the GPT
+#: families' ln_1 / ln_2 / ln_f and BLOOM's input_, post_attention_ and
+#: word_embeddings_layernorm last)
+LN_SCALES = ("LayerNorm.weight", "layer_norm.weight", "layernorm_embedding.weight",
+             "ln_1.weight", "ln_2.weight", "ln_f.weight", "layernorm.weight")
 
 
 def write_safetensors(path, state, bf16=False):
@@ -4696,7 +4719,7 @@ def write_safetensors(path, state, bf16=False):
             f.write(b)
 
 
-def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
+def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert", dev=None):
     """An HF checkpoint with weights drawn from a seeded torch.Generator
     (N(0, 0.02); LayerNorm scales 1 + N(0, 0.05)) in model.safetensors,
     beside config.json and the family's tokenizer files.  "bert": at
@@ -4709,7 +4732,9 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
     DistilBERT's / RoFormer's vocab.txt (phase 13's WordPiece vocabulary);
     a family of (h) at its ``written`` layers; an encoder-decoder of (i)
     (HF_ENCDEC) with its stacks cut to ``written`` layers and its
-    tokenizer (encdec_tokenizer_files)."""
+    tokenizer (encdec_tokenizer_files).  With ``dev`` the weights are drawn
+    there and written as BF16 (the card draws them fastest, and half the
+    bytes write in half the time)."""
     import torch
 
     from advanced_rag_tpu_torch.models.hf_bert import BertModel
@@ -4758,12 +4783,12 @@ def write_hf_checkpoint(path, head: bool, seed: int, family: str = "bert"):
         module = (build_classifier(config, torch.float32) if head
                   else BertModel(config) if family == "bert"
                   else build_trunk(config, torch.float32))
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev or "cpu").manual_seed(seed)
     state = {}
     for name, p in module.state_dict().items():
-        n = torch.randn(p.shape, generator=gen)
+        n = torch.randn(p.shape, generator=gen, device=gen.device)
         state[name] = (1.0 + 0.05 * n if name.endswith(LN_SCALES) else 0.02 * n)
-    write_safetensors(path / "model.safetensors", state)
+    write_safetensors(path / "model.safetensors", state, bf16=dev is not None)
 
 
 def hf_parity(root, docs, queries, dev):
@@ -5077,17 +5102,17 @@ HF_FAMILY_CHUNKS = 5_000             # the RoBERTa + ELECTRA service level
 HF_FAMILY_REQUESTS = 32
 
 
-def roberta_tokenizer_files(path, size):
-    """RoBERTa's vocab.json + merges.txt at ``size`` entries: the specials,
-    GPT-2's 256 byte symbols, then, for phase 4's corpus words by
+def byte_bpe_vocab(size, front, last):
+    """A byte-level BPE vocabulary of ``size`` entries and its merges:
+    ``front``, GPT-2's 256 byte symbols, then, for phase 4's corpus words by
     frequency, the merges that build "Ġword" left to right (greedy, each
-    merge once) while there is room, filler, and <mask> last."""
+    merge once) while there is room, filler, and ``last`` at the end."""
     import numpy as np
 
     from advanced_rag_tpu_torch.models.hf_bpe import bytes_to_unicode
 
     words, _ = zipf_vocab(np.random.default_rng(11))
-    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    vocab = {t: i for i, t in enumerate(front)}
     for ch in bytes_to_unicode().values():
         vocab.setdefault(ch, len(vocab))
     merges = []
@@ -5102,11 +5127,24 @@ def roberta_tokenizer_files(path, size):
             cur += ch
     while len(vocab) < size - 1:
         vocab[f"<unused{len(vocab)}>"] = len(vocab)
-    vocab["<mask>"] = size - 1
+    vocab[last] = size - 1
+    return vocab, merges
+
+
+def bpe_files(path, vocab, merges, config):
+    """vocab.json + merges.txt (behind the ``#version`` line) and
+    tokenizer_config.json."""
     (path / "vocab.json").write_text(json.dumps(vocab))
     (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
-    (path / "tokenizer_config.json").write_text(json.dumps(
-        {"tokenizer_class": "RobertaTokenizer", "add_prefix_space": False}))
+    (path / "tokenizer_config.json").write_text(json.dumps(config))
+
+
+def roberta_tokenizer_files(path, size):
+    """RoBERTa's vocab.json + merges.txt at ``size`` entries (byte_bpe_vocab:
+    the specials in front, <mask> last)."""
+    vocab, merges = byte_bpe_vocab(size, ["<s>", "<pad>", "</s>", "<unk>"], "<mask>")
+    bpe_files(path, vocab, merges,
+              {"tokenizer_class": "RobertaTokenizer", "add_prefix_space": False})
 
 
 def xlmr_tokenizer_files(path, size):
@@ -5343,7 +5381,8 @@ HF_GEMMA = dict(model_type="gemma", architectures=["GemmaForCausalLM"], vocab_si
 HF_DECODER_WRITTEN = 2        # layers of the checkpoints written to disk ((i), (iv))
 HF_DECODER_TEXTS = 8          # texts, card vs CPU
 HF_DECODER_F32_LAYERS = 4     # (ii): f32 at a cut depth
-HF_DECODER_CHUNKS = 2048      # (iii): chunks the 32-layer embedder ingests
+HF_DECODER_CHUNKS = 1024      # (iii): chunks the 32-layer embedder ingests (2048
+#                               until phase 13 (j) came)
 HF_DECODER_REQUESTS = 32
 
 
@@ -5587,7 +5626,8 @@ HF_MORE = ("big_bird", "albert", "roformer", "roberta-prelayernorm")
 #: (ii): the BigBird embedder's timed batches, rows by tokens a row
 HF_BIG_BIRD_ROWS = {1024: 32, 4096: 8}
 HF_BIG_BIRD_MAX_LEN = 1024    # (iii): the embedder's max_len in the manager
-HF_MORE_CHUNKS = HF_FAMILY_CHUNKS
+HF_BIG_BIRD_F32_LAYERS = 4     # (ii)'s f32 forwards (12 until phase 13 (j) came)
+HF_MORE_CHUNKS = 2_000        # 5,000 until phase 13 (j) came
 HF_MORE_REQUESTS = HF_FAMILY_REQUESTS
 #: the card's published bf16 dense peak (H100 SXM, NVIDIA's data sheet)
 BF16_PEAK_FLOPS = 989e12
@@ -5644,7 +5684,7 @@ def big_bird_flops(config, rows, seq):
 
 
 def hf_more_parity(path, family, texts, queries, dev):
-    """(h) (i) and (i) (i), one family: the model on the card against the
+    """(h) (i), (i) (i) and (j) (i), one family: the model on the card against the
     same module on the CPU at its ``max_len`` over HF_FAMILY_TEXTS texts or
     pairs, f32 within HF_TOL, the bf16 distance recorded.  The texts are
     half five chunks long (BigBird's 512 tokens filled: the window and
@@ -5655,8 +5695,8 @@ def hf_more_parity(path, family, texts, queries, dev):
     from advanced_rag_tpu_torch.models.hf_cross_encoder import HFCrossEncoder
     from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
 
-    spec = HF_ENCDEC.get(family) or HF_FAMILIES[family]
-    head, max_len = spec["head"], spec["max_len"]
+    spec = HF_ENCDEC.get(family) or HF_GPT.get(family) or HF_FAMILIES[family]
+    head, max_len = spec.get("head", False), spec["max_len"]
     cls = HFCrossEncoder if head else HFEmbedder
     n = HF_FAMILY_TEXTS
     docs = ([" ".join(texts[i:i + 5]) for i in range(1, 5 * (n // 2), 5)]
@@ -5766,7 +5806,7 @@ def phase_hf_more(root, texts, queries, dev):
     t = time.perf_counter()
     for i, family in enumerate(HF_MORE):
         write_hf_checkpoint(root / family, head=HF_FAMILIES[family]["head"], seed=71 + 2 * i,
-                            family=family)
+                            family=family, dev=dev)
     rec["write_s"] = time.perf_counter() - t
     log(f"hf: {', '.join(HF_MORE)} checkpoints written in {rec['write_s']:.2f}s (" + ", ".join(
         f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_MORE)
@@ -5777,7 +5817,9 @@ def phase_hf_more(root, texts, queries, dev):
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         emb = HFEmbedder(root / "big_bird", max_len=HF_BIG_BIRD_MAX_LEN, dtype=dtype,
                          device=dev)
-        emb.model = full_depth_encoder(emb.model.config, dtype, dev, seed=79, layers=layers)
+        emb.model = full_depth_encoder(
+            emb.model.config, dtype, dev, seed=79,
+            layers=HF_BIG_BIRD_F32_LAYERS if dtype == torch.float32 else layers)
         runs[name] = big_bird_throughput(emb, texts, dev)
         if name == "float32":
             del emb
@@ -5806,7 +5848,7 @@ def phase_hf_more(root, texts, queries, dev):
 #: does not name them), each an embedder at max_len 128, written with its
 #: stacks cut to ``written`` layers
 HF_ENCDEC = {
-    "bart": dict(source="facebook/bart-large", head=False, written=12, max_len=128,
+    "bart": dict(source="facebook/bart-large", head=False, written=2, max_len=128,
                  config=dict(model_type="bart", architectures=["BartModel"],
                              vocab_size=50265, d_model=1024, encoder_layers=12,
                              decoder_layers=12, encoder_attention_heads=16,
@@ -5864,7 +5906,10 @@ HF_ENCDEC = {
                                          pad_token_id=0, bos_token_id=1, eos_token_id=2,
                                          decoder_start_token_id=1)),
 }
-HF_ENCDEC_ROWS, HF_ENCDEC_TOKENS = 64, 128    # (ii)'s timed batch
+HF_ENCDEC_ROWS, HF_ENCDEC_TOKENS = 64, 128    # (i) (ii)'s and (j) (ii)'s timed batch
+#: (ii)'s f32 forwards: layers in each stack (the published depth until
+#: phase 13 (j) came; cut to keep the script within its 1200-second limit)
+HF_ENCDEC_F32_LAYERS = 2
 HF_ENCDEC_CHUNKS = HF_FAMILY_CHUNKS           # (iii): chunks the bart-large manager ingests
 HF_ENCDEC_REQUESTS = HF_FAMILY_REQUESTS
 
@@ -6006,9 +6051,10 @@ def encdec_flops(config, rows, seq):
     return rows * (enc + dec)
 
 
-def full_depth_encdec(config, family, dtype, dev, seed):
-    """The trunk of ``config`` at the published depth of ``family`` built
-    on the card, its weights drawn there from a seeded generator."""
+def full_depth_encdec(config, family, dtype, dev, seed, layers=None):
+    """The trunk of ``config`` at the published depth of ``family`` (or
+    ``layers`` in each stack) built on the card, its weights drawn there
+    from a seeded generator."""
     import dataclasses
 
     import torch
@@ -6018,18 +6064,20 @@ def full_depth_encdec(config, family, dtype, dev, seed):
     published = HF_ENCDEC[family]["config"]
     with torch.device("meta"):
         module = build_trunk(dataclasses.replace(
-            config, num_hidden_layers=published["encoder_layers"],
-            decoder_layers=published["decoder_layers"]), dtype)
+            config, num_hidden_layers=layers or published["encoder_layers"],
+            decoder_layers=layers or published["decoder_layers"]), dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return encoder_weights(module.to_empty(device=dev), gen).eval()
 
 
-def encdec_throughput(emb, family, texts, dev):
-    """(ii), one family and dtype: the published-depth trunk (emb.model) at
+def forward_throughput(emb, family, texts, dev, flops_of, layers, queries=None):
+    """(i) (ii) and (j) (ii), one family and dtype: the trunk (emb.model) at
     HF_ENCDEC_ROWS x HF_ENCDEC_TOKENS tokens, every row filled: the forward
     alone in CUDA events and the whole encode_device call on the host
-    clock, after warm-up; the forward's TFLOP/s and share of the bf16
-    peak."""
+    clock, after warm-up, and with ``queries`` one query's encode_device;
+    the forward's TFLOP/s (``flops_of(config, rows, seq)``) and share of
+    the bf16 peak.  ``layers``: the trunk's depth as recorded (a stack's
+    or [encoder, decoder])."""
     import torch
 
     cfg = emb.model.config
@@ -6041,23 +6089,26 @@ def encdec_throughput(emb, family, texts, dev):
         raise AssertionError(f"hf {family} rows are not {seq} tokens")
     with torch.inference_mode():
         fwd = cuda_ms(lambda: emb.model(ids, mask), reps=10, warmup=2)
-    emb.encode_device(docs)
-    sync(dev)
-    t = time.perf_counter()
-    for _ in range(5):
-        emb.encode_device(docs)
-    sync(dev)
-    whole = (time.perf_counter() - t) / 5 * 1e3
-    flops = encdec_flops(cfg, rows, seq)
-    out = dict(layers=[cfg.num_hidden_layers, cfg.decoder_layers], forward_ms=fwd,
-               encode_ms=whole, rows_per_s=rows / whole * 1e3, tflop=flops / 1e12,
-               tflops_per_s=flops / fwd / 1e9,
+    out = {}
+    for key, batch, n in [("encode", docs, 5)] + ([("query", queries[:1], 20)]
+                                                   if queries else []):
+        emb.encode_device(batch)
+        sync(dev)
+        t = time.perf_counter()
+        for _ in range(n):
+            emb.encode_device(batch)
+        sync(dev)
+        out[f"{key}_ms"] = (time.perf_counter() - t) / n * 1e3
+    flops = flops_of(cfg, rows, seq)
+    out.update(layers=layers, forward_ms=fwd, rows_per_s=rows / out["encode_ms"] * 1e3,
+               tflop=flops / 1e12, tflops_per_s=flops / fwd / 1e9,
                bf16_peak_share=flops / fwd / 1e-3 / BF16_PEAK_FLOPS)
-    log(f"hf[{family}][{str(emb.model.dtype).removeprefix('torch.')}] "
-        f"{cfg.num_hidden_layers} + {cfg.decoder_layers} layers: {rows} x {seq} tokens "
-        f"forward {fwd:.2f} ms ({out['tflops_per_s']:.1f} TFLOP/s, "
-        f"{out['bf16_peak_share']:.3f} of the bf16 peak); encode_device {whole:.2f} ms "
-        f"({out['rows_per_s']:.1f} rows/s)")
+    depth = " + ".join(map(str, layers)) if isinstance(layers, list) else layers
+    log(f"hf[{family}][{str(emb.model.dtype).removeprefix('torch.')}] {depth} layers: "
+        f"{rows} x {seq} tokens forward {fwd:.2f} ms ({out['tflops_per_s']:.1f} TFLOP/s, "
+        f"{out['bf16_peak_share']:.3f} of the bf16 peak); encode_device "
+        f"{out['encode_ms']:.2f} ms ({out['rows_per_s']:.1f} rows/s)"
+        + (f"; one query {out['query_ms']:.2f} ms" if "query_ms" in out else ""))
     return out
 
 
@@ -6065,9 +6116,10 @@ def phase_hf_encdec(root, texts, queries, dev):
     """(i): the encoder-decoder embedders at published widths (HF_ENCDEC).
     (i) each written at its ``written`` layers with its tokenizer made here
     (encdec_tokenizer_files), on the card against the CPU (hf_more_parity);
-    (ii) each built on the card at its published depth, f32 and bf16, timed
-    at HF_ENCDEC_ROWS x HF_ENCDEC_TOKENS (encdec_throughput); (iii) the
-    written bart-large embedder (12 + 12 layers) in bf16 behind a
+    (ii) each built on the card at its published depth in bf16 (f32 at
+    HF_ENCDEC_F32_LAYERS + HF_ENCDEC_F32_LAYERS layers), timed at
+    HF_ENCDEC_ROWS x HF_ENCDEC_TOKENS (forward_throughput); (iii) a
+    bart-large embedder built on the card (12 + 12 layers) in bf16 behind a
     bf16-tier manager (D = 1024) ingesting HF_ENCDEC_CHUNKS chunks, and the
     app with RAG_RERANKER=hf: on (e)'s ELECTRA reranker answering
     HF_ENCDEC_REQUESTS /retrieve requests from 1 client, every answer a 200
@@ -6082,7 +6134,8 @@ def phase_hf_encdec(root, texts, queries, dev):
     rec = {}
     t = time.perf_counter()
     for i, family in enumerate(HF_ENCDEC):
-        write_hf_checkpoint(root / family, head=False, seed=91 + 2 * i, family=family)
+        write_hf_checkpoint(root / family, head=False, seed=91 + 2 * i, family=family,
+                            dev=dev)
     rec["write_s"] = time.perf_counter() - t
     log(f"hf: {', '.join(HF_ENCDEC)} checkpoints written in {rec['write_s']:.2f}s (" + ", ".join(
         f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_ENCDEC)
@@ -6093,13 +6146,19 @@ def phase_hf_encdec(root, texts, queries, dev):
         runs[family] = {}
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             emb = HFEmbedder(root / family, max_len=HF_ENCDEC_TOKENS, dtype=dtype, device=dev)
-            emb.model = full_depth_encdec(emb.model.config, family, dtype, dev, seed=97 + i)
-            runs[family][name] = encdec_throughput(emb, family, texts, dev)
+            emb.model = full_depth_encdec(
+                emb.model.config, family, dtype, dev, seed=97 + i,
+                layers=HF_ENCDEC_F32_LAYERS if dtype == torch.float32 else None)
+            cfg = emb.model.config
+            runs[family][name] = forward_throughput(
+                emb, family, texts, dev, encdec_flops,
+                [cfg.num_hidden_layers, cfg.decoder_layers])
             del emb
             if dev == "cuda":
                 torch.cuda.empty_cache()
     rec["throughput"] = runs
     emb = HFEmbedder(root / "bart", dtype=torch.bfloat16, device=dev)
+    emb.model = full_depth_encdec(emb.model.config, "bart", torch.bfloat16, dev, seed=103)
     rec["service"], launches = hf_service(
         root, texts, queries, dev, ce_dir=root / "electra", chunks=HF_ENCDEC_CHUNKS,
         clients=(1,), requests=HF_ENCDEC_REQUESTS, warm=False, db="service_hf_encdec.db",
@@ -6117,6 +6176,263 @@ def phase_hf_encdec(root, texts, queries, dev):
     return rec, launches
 
 
+# -- phase 13 (j): the GPT-family embedders (models/hf_gpt2.py, hf_bloom.py,
+#    hf_xglm.py) --------------------------------------------------------------
+
+#: the published geometries (config.json's numbers as the sources publish
+#: them; the defaults of transformers' config classes where the text does
+#: not name a field), each an embedder written with ``written`` layers and
+#: held card against CPU at ``max_len``; GPT-SW3's file names model_type
+#: gpt2, written here as gpt-sw3 (the AutoConfig key for its class)
+HF_GPT = {
+    "gpt2": dict(source="openai-community/gpt2", written=2, max_len=128,
+                 config=dict(model_type="gpt2", architectures=["GPT2LMHeadModel"],
+                             vocab_size=50257, n_positions=1024, n_ctx=1024, n_embd=768,
+                             n_layer=12, n_head=12, activation_function="gelu_new",
+                             layer_norm_epsilon=1e-05, bos_token_id=50256,
+                             eos_token_id=50256)),
+    "gpt-sw3": dict(source="AI-Sweden-Models/gpt-sw3-126m", written=2, max_len=128,
+                    config=dict(model_type="gpt-sw3", architectures=["GPT2LMHeadModel"],
+                                vocab_size=64000, n_positions=2048, n_embd=768, n_layer=12,
+                                n_head=12, n_inner=3072, activation_function="gelu",
+                                layer_norm_epsilon=1e-05, bos_token_id=2, eos_token_id=3,
+                                pad_token_id=0)),
+    "gpt_neo": dict(source="EleutherAI/gpt-neo-125m", written=2, max_len=512,
+                    config=dict(model_type="gpt_neo", architectures=["GPTNeoForCausalLM"],
+                                vocab_size=50257, max_position_embeddings=2048,
+                                hidden_size=768, num_layers=12, num_heads=12,
+                                attention_types=[[["global", "local"], 6]], window_size=256,
+                                activation_function="gelu_new", layer_norm_epsilon=1e-05,
+                                bos_token_id=50256, eos_token_id=50256)),
+    "gptj": dict(source="EleutherAI/gpt-j-6b", written=2, max_len=128,
+                 config=dict(model_type="gptj", architectures=["GPTJForCausalLM"],
+                             vocab_size=50400, n_positions=2048, n_embd=4096, n_layer=28,
+                             n_head=16, rotary_dim=64, activation_function="gelu_new",
+                             layer_norm_epsilon=1e-05, bos_token_id=50256,
+                             eos_token_id=50256, tie_word_embeddings=False)),
+    "bloom": dict(source="bigscience/bloom-560m", written=2, max_len=128,
+                  config=dict(model_type="bloom", architectures=["BloomForCausalLM"],
+                              vocab_size=250880, hidden_size=1024, n_layer=24, n_head=16,
+                              layer_norm_epsilon=1e-05,
+                              apply_residual_connection_post_layernorm=False,
+                              slow_but_exact=False, pretraining_tp=1, bos_token_id=1,
+                              eos_token_id=2, pad_token_id=3)),
+    "xglm": dict(source="facebook/xglm-564M", written=2, max_len=128,
+                 config=dict(model_type="xglm", architectures=["XGLMForCausalLM"],
+                             vocab_size=256008, max_position_embeddings=2048, d_model=1024,
+                             ffn_dim=4096, num_layers=24, attention_heads=16,
+                             activation_function="gelu", scale_embedding=True,
+                             bos_token_id=0, eos_token_id=2, pad_token_id=1,
+                             decoder_start_token_id=2)),
+}
+HF_GPT_SERVED = "gpt_neo"                     # (iii): gpt-neo-125m, SGPT-125M's base
+HF_GPT_CHUNKS = HF_FAMILY_CHUNKS
+HF_GPT_REQUESTS = HF_FAMILY_REQUESTS
+EOT = "<|endoftext|>"
+
+
+def gpt_layers(family, n):
+    """``HF_GPT[family]["config"]``'s fields that set ``n`` layers (GPT-Neo's
+    attention_types alternating global and local)."""
+    if family == "gpt_neo":
+        return dict(num_layers=n, attention_types=[[["global", "local"], n // 2]])
+    return {"xglm": dict(num_layers=n)}.get(family, dict(n_layer=n))
+
+
+def gpt_tokenizer_files(path, family, size):
+    """The family's tokenizer at ``size`` entries, as its class reads it:
+    GPT-2's vocab.json + merges.txt (``<|endoftext|>`` last, named the pad
+    token, as GPT-2 embedders are deployed; GPT-Neo, GPT-J and GPT-SW3,
+    whose own tokenizer needs sentencepiece, name GPT2Tokenizer); BLOOM's
+    tokenizer.json (``<unk> <s> </s> <pad>`` at 0-3, its Split and
+    ByteLevel pre-tokenizer, padding left as bloom-560m's config says);
+    XGLM's Unigram tokenizer.json (xlmr_tokenizer_files' pieces with
+    fairseq's four in front, seven <madeupword>s last, SpmConverter's
+    normalizer, ``</s> A``)."""
+    from advanced_rag_tpu_torch.models.hf_bpe import BLOOM_SPLIT
+
+    if family == "bloom":
+        specials = ["<unk>", "<s>", "</s>", "<pad>"]
+        vocab, merges = byte_bpe_vocab(size, specials, "<unused_last>")
+        tj = {"version": "1.0", "truncation": None, "padding": None,
+              "added_tokens": [_special_added(i, t) for i, t in enumerate(specials)],
+              "normalizer": None,
+              "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                  {"type": "Split", "pattern": {"Regex": BLOOM_SPLIT},
+                   "behavior": "Isolated", "invert": False},
+                  {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                   "use_regex": False}]},
+              "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                                 "trim_offsets": False, "use_regex": True},
+              "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                          "trim_offsets": True, "use_regex": True},
+              "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                        "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                        "fuse_unk": False, "byte_fallback": False, "vocab": vocab,
+                        "merges": merges}}
+        (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"tokenizer_class": "BloomTokenizerFast", "padding_side": "left",
+             "pad_token": "<pad>", "unk_token": "<unk>", "bos_token": "<s>",
+             "eos_token": "</s>"}))
+    elif family == "xglm":
+        madeup = [f"<madeupword{i}>" for i in range(7)]
+        xlmr_tokenizer_files(path, size - len(madeup) + 1)
+        tj = json.loads((path / "tokenizer.json").read_text())
+        pieces = tj["model"]["vocab"][:-1] + [[w, 0.0] for w in madeup]   # <mask> out
+        charsmap = tj["normalizer"]["normalizers"][0]
+
+        def special(tok):
+            return {"SpecialToken": {"id": tok, "type_id": 0}}
+
+        seq = [{"Sequence": {"id": "A", "type_id": 0}}, {"Sequence": {"id": "B", "type_id": 0}}]
+        tj.update({
+            "added_tokens": ([_special_added(i, t) for i, t in
+                              enumerate(["<s>", "<pad>", "</s>", "<unk>"])]
+                             + [_special_added(size - len(madeup) + i, w)
+                                for i, w in enumerate(madeup)]),
+            "normalizer": {"type": "Sequence", "normalizers": [
+                charsmap, {"type": "Strip", "strip_left": False, "strip_right": True},
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]},
+            "post_processor": {
+                "type": "TemplateProcessing", "single": [special("</s>"), seq[0]],
+                "pair": [special("</s>"), seq[0], special("</s>"), special("</s>"), seq[1]],
+                "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                                   for t, i in (("<s>", 0), ("</s>", 2))}},
+            "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False}})
+        assert len(pieces) == size, len(pieces)
+        (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"tokenizer_class": "XGLMTokenizer"}))
+    else:
+        bpe_files(path, *byte_bpe_vocab(size, [], EOT),
+                  {"tokenizer_class": "GPT2Tokenizer", "add_prefix_space": False,
+                   "pad_token": EOT, "bos_token": EOT, "eos_token": EOT, "unk_token": EOT})
+
+
+def write_gpt_checkpoint(path, family, seed, dev):
+    """A checkpoint of ``family`` at its HF_GPT width and ``written``
+    layers: config.json, the tokenizer (gpt_tokenizer_files) and a BF16
+    model.safetensors (the published ones ship half precision or are
+    read so) drawn from a seeded generator on ``dev`` (N(0, 0.02);
+    LayerNorm scales 1 + N(0, 0.05)) under the family's names with a head's
+    prefix (``transformer.``; XGLM's ``model.``), as the LM checkpoints
+    ship."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_checkpoint import read_config
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    spec = HF_GPT[family]
+    path.mkdir(parents=True, exist_ok=True)
+    cfg = dict(spec["config"], **gpt_layers(family, spec["written"]))
+    gpt_tokenizer_files(path, family, cfg["vocab_size"])
+    (path / "config.json").write_text(json.dumps(cfg, indent=2))
+    with torch.device("meta"):
+        module = build_trunk(read_config(path), torch.float32)
+    module = encoder_weights(module.to_empty(device=dev),
+                             torch.Generator(device=dev).manual_seed(seed))
+    prefix = "model." if family == "xglm" else "transformer."
+    write_safetensors(path / "model.safetensors",
+                      {prefix + k: v for k, v in module.state_dict().items()}, bf16=True)
+
+
+def full_depth_gpt(config, family, dtype, dev, seed):
+    """The trunk of ``config`` at the published depth of ``family`` built on
+    the card (full_depth_encoder; GPT-Neo's layers alternating global and
+    local)."""
+    import dataclasses
+
+    published = HF_GPT[family]["config"]
+    layers = published.get("n_layer") or published["num_layers"]
+    kinds = ("global", "local") * (layers // 2) if family == "gpt_neo" else ()
+    return full_depth_encoder(dataclasses.replace(config, attention_layers=kinds), dtype,
+                              dev, seed, layers)
+
+
+def gpt_flops(config, rows, seq):
+    """The multiply-adds (x2) of one GPT-family forward of ``rows`` x
+    ``seq`` tokens: per token Q/K/V/O and the MLP, and Q.K and P.V over
+    all ``seq`` keys (the causal mask and GPT-Neo's window are not
+    subtracted)."""
+    d, f = config.hidden_size, config.intermediate_size
+    return rows * config.num_hidden_layers * (2 * seq * (4 * d * d + 2 * d * f)
+                                              + 2 * 2 * seq * seq * d)
+
+
+def phase_hf_gpt(root, texts, queries, dev):
+    """(j): the GPT-family embedders at published widths (HF_GPT).  (i)
+    each written at 2 layers (GPT-Neo one global and one local) with its
+    tokenizer made here (gpt_tokenizer_files), on the card against the CPU
+    (hf_more_parity; GPT-Neo at max_len 512 on texts past its window of
+    256 tokens); (ii) each built on the card at its published depth, f32
+    (not GPT-J's 28 layers) and bf16, timed at HF_ENCDEC_ROWS x
+    HF_ENCDEC_TOKENS (forward_throughput), and one GPT-J query's encode;
+    (iii) the 12-layer bf16 gpt-neo-125m embedder behind a bf16-tier
+    manager (D = 768) ingesting HF_GPT_CHUNKS chunks, and the app with
+    RAG_RERANKER=hf: on (e)'s ELECTRA reranker answering HF_GPT_REQUESTS
+    /retrieve requests from 1 client, every answer a 200 with finite
+    reranked scores, K1 (bf16, D = 768) and K3 launched and held against
+    their plain versions; (iv) the peak device memory."""
+    import torch
+
+    from advanced_rag_tpu_torch.models.hf_embedder import HFEmbedder
+    from advanced_rag_tpu_torch.models.hf_tokenizer import load_tokenizer
+
+    t_phase = time.perf_counter()
+    base = memory_mark() if dev == "cuda" else 0
+    rec = {}
+    t = time.perf_counter()
+    for i, family in enumerate(HF_GPT):
+        write_gpt_checkpoint(root / family, family, seed=101 + 2 * i, dev=dev)
+    rec["write_s"] = time.perf_counter() - t
+    log(f"hf: {', '.join(HF_GPT)} checkpoints written in {rec['write_s']:.2f}s (" + ", ".join(
+        f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in HF_GPT)
+        + " MB)")
+    neo = HF_GPT["gpt_neo"]
+    window = neo["config"]["window_size"]
+    longest = int(load_tokenizer(root / "gpt_neo")(
+        [" ".join(texts[1:6])], max_length=neo["max_len"])["attention_mask"].sum())
+    if longest <= window:
+        raise AssertionError(f"hf gpt_neo: the long texts ({longest} tokens) do not pass "
+                             f"the local window of {window}")
+    rec["parity"] = {f: hf_more_parity(root / f, f, texts, queries, dev) for f in HF_GPT}
+    rec["parity"]["gpt_neo"]["longest_tokens"] = longest
+    runs = {}
+    for i, family in enumerate(HF_GPT):
+        runs[family] = {}
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            if name == "float32" and family == "gptj":
+                continue                     # 28 layers of 4096: bf16 only
+            emb = HFEmbedder(root / family, max_len=HF_ENCDEC_TOKENS, dtype=dtype,
+                             device=dev)
+            emb.model = full_depth_gpt(emb.model.config, family, dtype, dev, seed=107 + i)
+            runs[family][name] = forward_throughput(
+                emb, family, texts, dev, gpt_flops, emb.model.config.num_hidden_layers,
+                queries if family == "gptj" else None)
+            del emb
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    rec["throughput"] = runs
+    emb = HFEmbedder(root / HF_GPT_SERVED, dtype=torch.bfloat16, device=dev)
+    emb.model = full_depth_gpt(emb.model.config, HF_GPT_SERVED, torch.bfloat16, dev,
+                               seed=113)
+    rec["service"], launches = hf_service(
+        root, texts, queries, dev, ce_dir=root / "electra", chunks=HF_GPT_CHUNKS,
+        clients=(1,), requests=HF_GPT_REQUESTS, warm=False, db="service_hf_gpt.db",
+        embedder=emb)
+    rec["service"].update(embedder=HF_GPT[HF_GPT_SERVED]["source"],
+                          embedder_layers=emb.model.config.num_hidden_layers,
+                          reranker=HF_FAMILIES["electra"]["source"])
+    del emb
+    rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"hf: (j) took {rec['seconds']:.2f}s; peak device memory {rec['peak_gb']} GB")
+    return rec, launches
+
+
 def phase_hf(texts, dev="cuda"):
     """Phase 13: the HF checkpoint models on the card.  At MiniLM-L6's
     width: (a) an embedder (BertModel) and a reranker
@@ -6130,8 +6446,9 @@ def phase_hf(texts, dev="cuda"):
     ELECTRA reranker answers HF_FAMILY_REQUESTS /retrieve requests from
     one client; (g) the decoder embedders (phase_hf_decoders); (h) the
     second group of encoder families (phase_hf_more); (i) the
-    encoder-decoder embedders (phase_hf_encdec).  Returns the record and
-    the launches of (c), (f), (g), (h) and (i)."""
+    encoder-decoder embedders (phase_hf_encdec); (j) the GPT-family
+    embedders (phase_hf_gpt).  Returns the record and the launches of (c),
+    (f), (g), (h), (i) and (j)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -6156,7 +6473,7 @@ def phase_hf(texts, dev="cuda"):
         t = time.perf_counter()
         for i, family in enumerate(E_FAMILIES):
             write_hf_checkpoint(root / family, head=HF_FAMILIES[family]["head"],
-                                seed=51 + 2 * i, family=family)
+                                seed=51 + 2 * i, family=family, dev=dev)
         fam = {"write_s": time.perf_counter() - t}
         log(f"hf: {', '.join(E_FAMILIES)} checkpoints written in {fam['write_s']:.2f}s (" + ", ".join(
             f"{(root / f / 'model.safetensors').stat().st_size / 1e6:.0f}" for f in E_FAMILIES)
@@ -6182,6 +6499,9 @@ def phase_hf(texts, dev="cuda"):
                                          8 + HF_ENCDEC_REQUESTS + 32)
         rec["encdec"], encdec_launches = phase_hf_encdec(root, texts, encdec_queries, dev)
         launches = {k: v + encdec_launches[k] for k, v in launches.items()}
+        gpt_queries = snippet_queries(rng, texts[:HF_GPT_CHUNKS], 8 + HF_GPT_REQUESTS + 32)
+        rec["gpt"], gpt_launches = phase_hf_gpt(root, texts, gpt_queries, dev)
+        launches = {k: v + gpt_launches[k] for k, v in launches.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["peak_gb"] = peak_gb_since(base) if dev == "cuda" else None

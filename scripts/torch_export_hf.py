@@ -11,7 +11,9 @@ was.  A config whose ``architectures`` name a sequence-classification head
 loads as ``AutoModelForSequenceClassification``, any other as ``AutoModel``,
 so every encoder family the port reads converts (``bert``, ``roberta``,
 ``xlm-roberta``, ``electra``, ``distilbert``, ``roberta-prelayernorm``,
-``albert``, ``big_bird``, ``roformer``).
+``albert``, ``big_bird``, ``roformer``), and so do the GPT families
+(``gpt2``, ``gpt-sw3``, ``gpt_neo``, ``gptj``, ``bloom``, ``xglm``:
+``tests/test_torch_hf_gpt.py``).
 
     python scripts/torch_export_hf.py <checkpoint dir> [<dir> ...]
 """

@@ -263,7 +263,8 @@ def test_hf_modules_are_the_ports_and_the_export_script_is_not():
     for name in ("hf_checkpoint", "hf_tokenizer", "hf_bpe", "hf_unigram", "hf_bert",
                  "hf_roberta", "hf_electra", "hf_distilbert", "hf_llama", "hf_spbpe",
                  "hf_roberta_prelayernorm", "hf_albert", "hf_big_bird", "hf_roformer",
-                 "hf_bart", "hf_blenderbot_small", "hf_embedder", "hf_cross_encoder"):
+                 "hf_bart", "hf_blenderbot_small", "hf_gpt2", "hf_bloom", "hf_xglm",
+                 "hf_embedder", "hf_cross_encoder"):
         assert f"advanced_rag_tpu_torch.models.{name}" in mods, name
     export = REPO / "scripts" / "torch_export_hf.py"
     assert export not in CARD_SCRIPTS

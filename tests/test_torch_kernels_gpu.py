@@ -1064,3 +1064,47 @@ def test_hf_encdec_forward_on_the_card_matches_the_cpu(cuda, family):
     got = got.cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4, float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("family", ["gpt2", "gpt_neo", "gptj", "bloom", "xglm"])
+def test_hf_gpt_forward_on_the_card_matches_the_cpu(cuda, family):
+    """models/hf_gpt2.py (GPT-2; GPT-Neo with a local layer of window 64;
+    GPT-J rotating 32 of 64 head columns), models/hf_bloom.py (ALiBi, the
+    residuals after the LayerNorms) and models/hf_xglm.py at 2 layers, 256
+    wide, f32, on a left-padded row, a half right-padded one and an
+    all-padding row of id 0: the card's last states against the same
+    module's on the CPU within 1e-4 absolute (states of scale about 1)."""
+    from advanced_rag_tpu_torch.models.hf_checkpoint import HFConfig
+    from advanced_rag_tpu_torch.models.hf_embedder import build_trunk
+
+    config = HFConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, intermediate_size=768,
+                      max_position_embeddings=256, layer_norm_eps=1e-5,
+                      hidden_act="gelu" if family == "xglm" else "gelu_new",
+                      model_type=family, pad_token_id=1,
+                      scale_embedding=family == "xglm",
+                      rotary_dim=32 if family == "gptj" else None,
+                      window_size=64 if family == "gpt_neo" else 0,
+                      attention_layers=("global", "local") if family == "gpt_neo" else (),
+                      residual_post_ln=family == "bloom")
+    torch.manual_seed(0)
+    with torch.device("meta"):
+        model = build_trunk(config, torch.float32)
+    model = model.to_empty(device="cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_((1.0 + 0.05 * torch.randn_like(p)) if ("ln" in name or "norm" in name)
+                    and name.endswith("weight") else 0.05 * torch.randn_like(p))
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, config.vocab_size, (4, 128), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[0, :50] = 0
+    mask[1, 70:] = 0
+    mask[3] = 0
+    ids[3] = 0
+    with torch.inference_mode():
+        want, _ = model(ids, mask)
+        got, _ = model.to(cuda)(ids.to(cuda), mask.to(cuda))
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4, float((got - want).abs().max())
